@@ -1,0 +1,46 @@
+"""bart_tpu_torch — the PyTorch/CUDA port of bart_tpu for NVIDIA Hopper.
+
+Mirrors bart_tpu's module paths and names.  Plain tensor code is
+PyTorch; the fused eclipse kernel (bart_tpu/rt/fused.py:_kernel) is a
+hand-written CUDA C++ kernel for sm_90a (csrc/fused_eclipse.cu), built
+with nvcc at first use and bound with ctypes.  Every function takes an
+explicit ``device=``/``dtype=`` where it creates tensors, randomness
+goes through an explicit ``torch.Generator``, and the chain axis is a
+written-out batch dimension (a single sample is a batch of 1).
+
+Public API entry points (lazily imported):
+
+    bart_tpu_torch.ForwardModel / ForwardConfig   the forward model
+    bart_tpu_torch.Likelihood / ParamSpace        likelihood wiring
+    bart_tpu_torch.EnsembleSampler                the snooker sampler
+    bart_tpu_torch.run_mcmc                       the retrieval
+    bart_tpu_torch.build_opacity_grid             the opacity table build
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "ForwardModel": ("bart_tpu_torch.rt.forward", "ForwardModel"),
+    "ForwardConfig": ("bart_tpu_torch.rt.forward", "ForwardConfig"),
+    "Likelihood": ("bart_tpu_torch.inference.likelihood", "Likelihood"),
+    "ParamSpace": ("bart_tpu_torch.inference.likelihood", "ParamSpace"),
+    "run_mcmc": ("bart_tpu_torch.inference.retrieval", "run_mcmc"),
+    "EnsembleSampler": ("bart_tpu_torch.inference.samplers",
+                        "EnsembleSampler"),
+    "build_opacity_grid": ("bart_tpu_torch.opacity.grid",
+                           "build_opacity_grid"),
+    "resolve_device": ("bart_tpu_torch.device", "resolve_device"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'bart_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

@@ -1,0 +1,164 @@
+// Fused eclipse emergent flux, K = 1, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel bart_tpu/rt/fused.py:_kernel, which
+// _pallas_batch dispatches for fused_eclipse.  Same math as the plain
+// torch version bart_tpu_torch/rt/fused.py:eclipse_plain: for every
+// (chain c, wavenumber w), walking the layers l = 0 .. L-1,
+//
+//   ext_l = sum_r wrows[c, l, r] tab[r, l, w]         (full f32 FMAs)
+//   tau_l = tau_{l-1} + 0.5 (ext_{l-1} + ext_l) drp[c, l]
+//   B_l   = C1 wn^3 / expm1(C2 wn / T[c, l])
+//   S_l   = sum_q wmu_q exp(-min(tau_l, 88) minv_q)    (raygrid)
+//         | Horner sum_q wmu_q u^(q+1), u = exp(-min(tau_l, 88)) (powers)
+//   F    += 0.5 (B_{l-1} + B_l) (S_{l-1} - S_l)
+//
+// and out[c, w] = 2 pi (F + B_{L-1} S_{L-1}).
+//
+// Design.  One thread per (chain, wn) carries (ext, tau, B, S, F) in
+// registers across a loop over all L layers: no layer padding, the
+// ragged wn and chain edges are masked here.  A block covers TILE_W
+// wavenumbers x CB chains.  Per layer it stages tab[:, l, tile]
+// (R x TILE_W floats, 13.8 KB at R = 27) and its chains' wrows[c, l, :]
+// in shared memory; staging all layers, as the TPU block
+// [Lp, R, tile] did, would need ~3 MB and a block has 227 KB.
+//
+// Bound on the H100.  Per (chain, layer, wn): R FMAs and 6 exponentials
+// in raygrid mode (1 Planck + 5 angles), 2 in powers mode.  The table
+// (27 MB at R = 27, L = 100, W = 2501) fits in the 50 MB L2, so the
+// per-layer staging of every chain block is served from L2; the
+// exponentials (SFU) and the per-layer barrier set the pace.  No
+// tensor cores and no TF32: this matches Precision.HIGHEST.  expf and
+// expm1f are the accurate library versions (no --use_fast_math).
+
+#include <cuda_runtime.h>
+
+#define TILE_W 128   // wavenumbers per block (threadIdx.x)
+#define CB 4         // chains per block (threadIdx.y)
+#define MAX_NMU 16   // quadrature nodes held in shared memory
+
+namespace {
+
+// 2 h c^2 and h c / k from bart_tpu.constants (cgs; the CPU tests check
+// these literals against the Python constants)
+constexpr float kC1 = 1.1910439340652298e-05f;
+constexpr float kC2 = 1.4387686603333911f;
+constexpr float kTwoPi = 6.2831853071795865f;
+constexpr float kTauClamp = 88.0f;
+
+template <bool POWERS>
+__device__ __forceinline__ float smix(float tau, const float* minv,
+                                      const float* wmu, int nmu) {
+  const float tau_c = fminf(tau, kTauClamp);
+  float acc = 0.0f;
+  if (POWERS) {
+    const float u = expf(-tau_c);
+    for (int q = nmu - 1; q >= 0; --q) acc = u * (wmu[q] + acc);
+  } else {
+    for (int q = 0; q < nmu; ++q) acc = acc + wmu[q] * expf(-tau_c * minv[q]);
+  }
+  return acc;
+}
+
+template <bool POWERS>
+__global__ void __launch_bounds__(TILE_W * CB)
+fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, W]
+                     const float* __restrict__ wrows,   // [C, L, R]
+                     const float* __restrict__ T,       // [C, L]
+                     const float* __restrict__ drp,     // [C, L]
+                     const float* __restrict__ wn,      // [W]
+                     const float* __restrict__ minv,    // [nmu]
+                     const float* __restrict__ wmu,     // [nmu]
+                     float* __restrict__ out,           // [C, W]
+                     int R, int L, int W, int C, int nmu) {
+  extern __shared__ float smem[];
+  float* tab_s = smem;                   // [R][TILE_W]
+  float* wr_s = smem + R * TILE_W;       // [CB][R]
+  __shared__ float T_s[CB], dr_s[CB];
+  __shared__ float minv_s[MAX_NMU], wmu_s[MAX_NMU];
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * TILE_W + tx;
+  const int nthreads = TILE_W * CB;
+  const int w0 = blockIdx.x * TILE_W;
+  const int c0 = blockIdx.y * CB;
+  const int w = w0 + tx;
+  const int c = c0 + ty;
+
+  if (tid < nmu) {
+    minv_s[tid] = minv[tid];
+    wmu_s[tid] = wmu[tid];
+  }
+  const float wnv = (w < W) ? wn[w] : 1.0f;
+  const float wn3 = kC1 * (wnv * wnv * wnv);
+  const float c2wn = kC2 * wnv;
+
+  float ext_p = 0.0f, tau = 0.0f, B_p = 0.0f, S_p = 0.0f, flux = 0.0f;
+  for (int l = 0; l < L; ++l) {
+    __syncthreads();  // every thread is done reading the last layer
+    for (int i = tid; i < R * TILE_W; i += nthreads) {
+      const int r = i / TILE_W, ww = w0 + i % TILE_W;
+      tab_s[i] = (ww < W) ? tab[((size_t)r * L + l) * W + ww] : 0.0f;
+    }
+    for (int i = tid; i < CB * R; i += nthreads) {
+      const int cc = c0 + i / R, r = i % R;
+      wr_s[i] = (cc < C) ? wrows[((size_t)cc * L + l) * R + r] : 0.0f;
+    }
+    if (tid < CB) {
+      const int cc = c0 + tid;
+      T_s[tid] = (cc < C) ? T[(size_t)cc * L + l] : 1000.0f;
+      dr_s[tid] = (cc < C) ? drp[(size_t)cc * L + l] : 0.0f;
+    }
+    __syncthreads();
+
+    const float* wr = wr_s + ty * R;
+    float ext = 0.0f;
+    for (int r = 0; r < R; ++r) ext = fmaf(wr[r], tab_s[r * TILE_W + tx], ext);
+    const float B = wn3 / expm1f(c2wn / T_s[ty]);
+    if (l > 0) tau = tau + 0.5f * (ext_p + ext) * dr_s[ty];
+    const float S = smix<POWERS>(tau, minv_s, wmu_s, nmu);
+    if (l > 0) flux = flux + 0.5f * (B_p + B) * (S_p - S);
+    ext_p = ext;
+    B_p = B;
+    S_p = S;
+  }
+  if (w < W && c < C) out[(size_t)c * W + w] = kTwoPi * (flux + B_p * S_p);
+}
+
+template <bool POWERS>
+cudaError_t launch(const float* tab, const float* wrows, const float* T,
+                   const float* drp, const float* wn, const float* minv,
+                   const float* wmu, float* out, int R, int L, int W, int C,
+                   int nmu, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)R * TILE_W + (size_t)CB * R);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_eclipse_kernel<POWERS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 block(TILE_W, CB);
+  const dim3 grid((W + TILE_W - 1) / TILE_W, (C + CB - 1) / CB);
+  fused_eclipse_kernel<POWERS><<<grid, block, smem, stream>>>(
+      tab, wrows, T, drp, wn, minv, wmu, out, R, L, W, C, nmu);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  Returns the cudaError_t of
+// the launch: 0 when the kernel was queued on ``stream``.
+extern "C" int bart_fused_eclipse(const float* tab, const float* wrows,
+                                  const float* T, const float* drp,
+                                  const float* wn, const float* minv,
+                                  const float* wmu, float* out, int R, int L,
+                                  int W, int C, int nmu, int powers,
+                                  cudaStream_t stream) {
+  if (nmu < 1 || nmu > MAX_NMU || R < 1 || L < 1 || W < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      powers ? launch<true>(tab, wrows, T, drp, wn, minv, wmu, out, R, L, W,
+                            C, nmu, stream)
+             : launch<false>(tab, wrows, T, drp, wn, minv, wmu, out, R, L, W,
+                             C, nmu, stream);
+  return (int)e;
+}

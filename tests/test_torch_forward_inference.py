@@ -1,0 +1,309 @@
+"""bart_tpu_torch forward model, likelihood, snooker sampler and
+retrieval driver against bart_tpu, on a small demo problem at float64.
+
+The opacity table is built once by bart_tpu and carried over, so the
+forward comparison isolates the forward model (the table build has its
+own parity test in test_torch_opacity.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import bart_tpu.inference.likelihood as jlike
+import bart_tpu.inference.samplers as jsamp
+from bart_tpu.obs.bands import build_band_matrix as jbands
+from bart_tpu.opacity.grid import build_opacity_grid as jbuild
+from bart_tpu.rt.forward import ForwardConfig as JConfig
+from bart_tpu.rt.forward import ForwardModel as JModel
+
+from bart_tpu_torch.demo import DEMO_PARAMS, TRUTH, build_demo_model, demo_inputs
+from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+from bart_tpu_torch.inference.retrieval import run_mcmc
+from bart_tpu_torch.inference.samplers import (EnsembleSampler, SamplerState,
+                                               Variates)
+from bart_tpu_torch.opacity.grid import OpacityGrid
+from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
+
+F64 = torch.float64
+PMIN = [-5.0, -2.0, -2.0, 0.0, 0.55, -9.0]
+PMAX = [-1.0, 1.0, 1.0, 1.0, 1.2, 1.5]
+STEP = [0.01, 0.01, 0.0, 0.0, 0.001, 0.1]
+
+
+@pytest.fixture(autouse=True)
+def _cap_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def demo():
+    """(inputs, bart_tpu OpacityGrid) of the small demo problem."""
+    inp = demo_inputs(nlayer=12, nwave=256, nlines=300, t_step=520.0)
+    grid = jbuild({"CH4": inp.lines}, inp.wn, inp.t_grid, inp.pressure,
+                  cond_batch=80, dtype=jnp.float64)
+    return inp, grid
+
+
+def _jax_model(inp, grid, **cfg):
+    bands = jbands(inp.wn, inp.filters, star_flux=inp.star_flux,
+                   rprs=inp.system.rprs)
+    return JModel(JConfig(**inp.config_kwargs, **cfg), wn_grid=inp.wn,
+                  pressure=inp.pressure, species=inp.species,
+                  base_abundances=inp.base_q, opacity=grid,
+                  system=inp.system, bands=bands, dtype=jnp.float64)
+
+
+def _torch_grid(grid):
+    return OpacityGrid(grid.species, grid.t_grid, grid.pressure,
+                       grid.wn_grid, torch.tensor(np.asarray(grid.sigma)))
+
+
+def _torch_model(inp, grid, **cfg):
+    quad = cfg.pop("quadrature", "raygrid")
+    fm = build_demo_model(inp, dtype=F64, grid=_torch_grid(grid),
+                          quadrature=quad)
+    if cfg:
+        fm = ForwardModel(ForwardConfig(quadrature=quad, **inp.config_kwargs,
+                                        **cfg),
+                          wn_grid=inp.wn, pressure=inp.pressure,
+                          species=inp.species, base_abundances=inp.base_q,
+                          opacity=_torch_grid(grid), system=inp.system,
+                          bands=fm.bands, dtype=F64)
+    return fm
+
+
+def _params():
+    rng = np.random.default_rng(0)
+    P = np.tile(DEMO_PARAMS, (4, 1)) + rng.normal(0, 0.01, (4, 6))
+    P[3, 4] = 3.0            # beta: T far above tmax -> invalid
+    return P
+
+
+# ---------------------------------------------------------------------
+# forward model
+
+def test_tables_from_jax_maps_keys_and_shapes(demo):
+    inp, grid = demo
+    fmj = _jax_model(inp, grid)
+    fmt = _torch_model(inp, grid)
+    np_tables = {k: np.asarray(v) for k, v in fmj.tables.items()}
+    tabs = fmt.tables_from_jax(np_tables)
+    assert set(tabs) == set(fmt.tables)
+    for k, v in tabs.items():
+        assert v.shape == fmt.tables[k].shape and v.dtype == F64, k
+        np.testing.assert_allclose(v.numpy(), fmt.tables[k].numpy(),
+                                   rtol=1e-15, err_msg=k)
+    with pytest.raises(ValueError, match="keys differ"):
+        fmt.tables_from_jax({**np_tables, "frows": np.zeros(3)})
+    with pytest.raises(ValueError, match="shape"):
+        fmt.tables_from_jax({**np_tables, "mu": np.zeros(2)})
+
+
+@pytest.mark.parametrize("cfg", [{}, {"quadrature": "expsum"},
+                                 {"ebalance": True}])
+def test_forward_matches_bart_tpu_batched(demo, cfg):
+    inp, grid = demo
+    fmj = _jax_model(inp, grid, **cfg)
+    fmt = _torch_model(inp, grid, **dict(cfg))
+    tabs = fmt.tables_from_jax({k: np.asarray(v)
+                                for k, v in fmj.tables.items()})
+    P = _params()
+    bj, sj, vj = fmj.batched()(jnp.asarray(P))
+    bt, st, vt = fmt(torch.tensor(P), tabs)
+    assert bt.shape == (4, 10) and st.shape == (4, 256) and vt.shape == (4,)
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    assert not vt[3] and vt[:3].all()
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-9)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-9)
+    # batched() is the same plain callable on the model's own tables
+    np.testing.assert_allclose(fmt.batched()(torch.tensor(P))[0].numpy(),
+                               bt.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("cfg,kw", [
+    ({"solution": "transit"}, {}),
+    ({"scattering": "ray"}, {}),
+    ({"cloudtop": True}, {}),
+    ({}, {"fold_osamp": 4}),
+    ({}, {"cia_tables": [object()]}),
+])
+def test_forward_unported_options_raise(demo, cfg, kw):
+    inp, grid = demo
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ForwardModel(ForwardConfig(**{**inp.config_kwargs, **cfg}),
+                     wn_grid=inp.wn, pressure=inp.pressure,
+                     species=inp.species, base_abundances=inp.base_q,
+                     opacity=_torch_grid(grid), system=inp.system,
+                     bands=None, dtype=F64, **kw)
+
+
+# ---------------------------------------------------------------------
+# likelihood
+
+def _spaces():
+    kw = dict(pinit=DEMO_PARAMS, pmin=PMIN, pmax=PMAX, stepsize=STEP)
+    return ParamSpace(**kw), jlike.ParamSpace(**kw)
+
+
+def test_param_space_expand_with_shared():
+    kw = dict(pinit=[1.0, 2.0, 3.0, 4.0], pmin=[0] * 4, pmax=[9] * 4,
+              stepsize=[0.1, 0.0, -1.0, 0.2])
+    free = np.array([[5.0, 6.0], [7.0, 8.0]])
+    got = ParamSpace(**kw).expand(torch.tensor(free)).numpy()
+    ref = np.asarray(jlike.ParamSpace(**kw).expand(jnp.asarray(free)))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[:, 2], free[:, 0])
+
+
+def test_likelihood_matches_with_prior_and_bounds(demo):
+    inp, grid = demo
+    fmj, fmt = _jax_model(inp, grid), _torch_model(inp, grid)
+    sp_t, sp_j = _spaces()
+    data = np.asarray(fmj.jitted()(jnp.asarray(TRUTH))[0])
+    uncert = 0.03 * data
+    prior = np.array([-1.9, 0.0, 0.0, 0.0, 0.9, -1.0])
+    plo = np.array([0.2, 0.0, 0.0, 0.0, 0.05, 0.0])
+    pup = np.array([0.3, 0.0, 0.0, 0.0, 0.1, 0.0])
+    free = np.tile(TRUTH[sp_t.ifree], (4, 1)) + np.random.default_rng(1) \
+        .normal(0, 0.02, (4, sp_t.nfree))
+    free[2, 0] = -6.0                        # out of bounds -> -inf
+    for pr in ((None, None, None), (prior, plo, pup)):
+        lt = Likelihood(fmt, sp_t, data, uncert, *pr)
+        lj = jlike.Likelihood(fmj, sp_j, data, uncert, *pr)
+        got, mt = lt(torch.tensor(free))
+        ref, mj = jax.vmap(lj)(jnp.asarray(free))
+        assert np.isneginf(got[2].item()) and np.isneginf(float(ref[2]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-9)
+        np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-9)
+
+
+def test_likelihood_wlike_raises(demo):
+    sp_t, _ = _spaces()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Likelihood(None, sp_t, np.ones(3), np.ones(3), wlike=True)
+
+
+# ---------------------------------------------------------------------
+# sampler
+
+_MEAN = np.array([0.5, -1.0, 2.0])
+_COV = np.array([[1.0, 0.6, -0.3], [0.6, 2.0, 0.4], [-0.3, 0.4, 0.5]])
+_PREC = np.linalg.inv(_COV)
+
+
+def _gauss_torch(x):
+    d = x - torch.tensor(_MEAN, dtype=x.dtype)
+    logl = -0.5 * torch.einsum("ci,ij,cj->c", d, torch.tensor(_PREC), d)
+    return logl, 2.0 * x
+
+
+def _gauss_jax(x):
+    d = x - _MEAN
+    return -0.5 * d @ (_PREC @ d), 2.0 * x
+
+
+def _jax_variates(key, state, n, d):
+    """bart_tpu's snooker draws from one key, in its draw order
+    (samplers.py:218-246, then the accept uniform at :264)."""
+    kp, ka = jax.random.split(key)
+    keys = jax.random.split(kp, 6)
+    nz_eff = jnp.maximum(state.z_count, 3)
+    z = [jax.random.randint(keys[i], (n,), 0, nz_eff) for i in range(3)]
+    noise = jax.random.normal(keys[3], (n, d), jnp.float64)
+    gs = jax.random.uniform(keys[4], (n, 1), jnp.float64, 1.2, 2.2)
+    u_sn = jax.random.uniform(keys[5], (n,), jnp.float64)
+    u_acc = jax.random.uniform(ka, (n,), jnp.float64)
+    t = lambda a, dt=F64: torch.tensor(np.asarray(a), dtype=dt)
+    return Variates(*[t(zi, torch.int64) for zi in z], t(noise), t(gs),
+                    t(u_sn), t(u_acc))
+
+
+def _to_torch_state(s):
+    return SamplerState(**{
+        k: torch.tensor(np.asarray(v), dtype=torch.int64
+                        if np.asarray(v).dtype.kind == "i" else F64)
+        for k, v in s._asdict().items()})
+
+
+def test_snooker_step_replays_bart_tpu():
+    n, d = 8, 3
+    kw = dict(nfree=d, nmodel=d, nchains=n, walk="snooker",
+              pmin=_MEAN - 4.0, pmax=_MEAN + 4.0, snooker_frac=0.5,
+              z_thin=2)
+    js = jsamp.EnsembleSampler(loglike_fn=_gauss_jax, **kw)
+    ts = EnsembleSampler(loglike_fn=_gauss_torch, **kw)
+    assert ts.nz == js.nz == 100
+    init = _MEAN + np.random.default_rng(2).normal(0, 1.5, (n, d))
+    sj = js.init_state(jax.random.key(0), init, dtype=jnp.float64)
+    st = _to_torch_state(sj)
+    n_sn = 0
+    for i in range(4):
+        key = jax.random.key(100 + i)
+        v = _jax_variates(key, sj, n, d)
+        n_sn += int((v.u_sn < 0.5).sum())
+        sj = js._step(sj, key)
+        st = ts._step(st, v)
+        for k, a in sj._asdict().items():
+            np.testing.assert_allclose(getattr(st, k).numpy(), np.asarray(a),
+                                       rtol=1e-12, atol=1e-14, err_msg=k)
+    assert 0 < n_sn < 4 * n and int(st.naccept.sum()) > 0
+
+
+def test_snooker_recovers_correlated_gaussian():
+    """Statistical check: 24 chains x 3000 steps on a 3-D correlated
+    Gaussian.  Tolerances sized for an effective sample size of a few
+    hundred: mean within 0.2 sigma, variances within 20%, correlations
+    within 0.1."""
+    n, d = 24, 3
+    s = EnsembleSampler(loglike_fn=_gauss_torch, nfree=d, nmodel=d,
+                        nchains=n, pmin=_MEAN - 8 * np.sqrt(np.diag(_COV)),
+                        pmax=_MEAN + 8 * np.sqrt(np.diag(_COV)))
+    gen = torch.Generator().manual_seed(3)
+    state = s.init_state(gen)
+    state, pb, lb, mb = s.run_block(state, gen, 3000)
+    assert pb.shape == (3000, n, d) and lb.shape == (3000, n)
+    assert mb.shape == (3000, n, d)
+    x = pb[500:].reshape(-1, d).numpy()
+    sd = np.sqrt(np.diag(_COV))
+    assert np.all(np.abs(x.mean(0) - _MEAN) < 0.2 * sd), x.mean(0)
+    cov = np.cov(x.T)
+    np.testing.assert_allclose(np.diag(cov), np.diag(_COV), rtol=0.2)
+    corr = cov / np.sqrt(np.outer(np.diag(cov), np.diag(cov)))
+    corr0 = _COV / np.outer(sd, sd)
+    assert np.all(np.abs(corr - corr0) < 0.1), corr
+    acc = state.naccept.sum().item() / (3000 * n)
+    assert 0.05 < acc < 0.9
+
+
+def test_other_walkers_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        EnsembleSampler(loglike_fn=_gauss_torch, nfree=3, nmodel=3,
+                        nchains=4, walk="demc")
+
+
+# ---------------------------------------------------------------------
+# retrieval driver
+
+def test_run_mcmc_two_blocks(demo):
+    inp, grid = demo
+    fmt = _torch_model(inp, grid)
+    sp_t, _ = _spaces()
+    data = fmt(torch.tensor(TRUTH[None]))[0][0].numpy()
+    uncert = 0.03 * data
+    data = data + np.random.default_rng(42).normal(0, 1, data.shape) * uncert
+    like = Likelihood(fmt, sp_t, data, uncert)
+    res = run_mcmc(like, sp_t, nchains=8, numit=80, burnin=5, block=5,
+                   seed=7, verbose=False)
+    assert res.posterior.shape == (8, sp_t.nfree, 5)
+    assert res.niter_total == 80 and np.isfinite(res.best_loglike)
+    assert 0.0 < res.accept_rate <= 1.0
+    assert res.bestp.shape == (sp_t.nfree,) and res.psrf_rank.shape == (4,)
+    assert np.all(res.posterior >= sp_t.free_min[None, :, None])
+    assert np.all(res.posterior <= sp_t.free_max[None, :, None])
