@@ -1,21 +1,27 @@
-"""The demo CH4 eclipse retrieval problem, from in-repo inputs only.
+"""The demo CH4 eclipse and transit retrieval problems, from in-repo
+inputs only.
 
 One builder for the tests and ``chip_smoke.py``: the synthetic planet
 system and ten top-hat filters, the synthetic CH4 line list
-(seed 12, bands at 2700/3100/4300 cm-1), a log-uniform pressure grid
-from 1e-5 to 100 bar, a uniform wn grid over 2500-5000 cm-1, and a
-uniform T grid from 400 K up to 3000 K.  The full-width shape is the
-benchmark's: 100 layers x 2501 wn x 30,000 lines x 27 T-nodes.
+(seed 12, bands at 2700/3100/4300 cm-1), the H2-H2 CIA table of
+examples/demo_inputs (14 T-nodes), a log-uniform pressure grid from
+1e-5 to 100 bar, a uniform wn grid over 2500-5000 cm-1, and a uniform T
+grid from 400 K up to 3000 K.  The full-width shape is the benchmark's:
+100 layers x 2501 wn x 30,000 lines x 27 T-nodes.  The transit demo
+(examples/demo_transit.cfg) adds the fitted radius and the CIA rows:
+R = 27 + 14 = 41 table rows.
 
 ``demo_inputs`` returns plain numpy arrays, so a test can hand the same
 arrays to bart_tpu and to this package; ``build_demo_model`` builds this
-package's forward model from them.  ``random_rows`` makes a random
-problem in the fused eclipse kernel's own layout.
+package's forward model from them.  ``random_rows`` and
+``random_transit_rows`` make random problems in the fused kernels' own
+layouts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -25,14 +31,29 @@ from bart_tpu.io.tep import PlanetSystem
 from bart_tpu.linelist.hitran import LineList
 from bart_tpu.linelist.tli import synthetic_linelist
 from bart_tpu.utils.grids import pressure_grid
+from bart_tpu_torch.opacity.cia import CiaTable, read_cia
 
 __all__ = ["DemoInputs", "demo_inputs", "build_demo_model", "random_rows",
-           "DEMO_PARAMS", "TRUTH"]
+           "random_transit_rows", "DEMO_PARAMS", "TRUTH",
+           "DEMO_PARAMS_TRANSIT", "TRUTH_TRANSIT", "TRANSIT_BOUNDS"]
+
+_CIA_FILE = (Path(__file__).resolve().parents[1] / "examples" / "demo_inputs"
+             / "CIA_H2H2_demo.dat")
+_SYSTEM = PlanetSystem(6075.0, 7.97e8, 4.37, 7.05e9, 9.44e7, 1.32e27)
+#: the demo planet's radius [km], the transit radius parameter's value
+R0_KM = _SYSTEM.r_planet / 1000.0
 
 #: demo cfg parameters [log kappa, log g1, log g2, alpha, beta, log CH4]
 DEMO_PARAMS = np.array([-2.0, 0.0, 1.0, 0.0, 0.98, -0.5])
 #: the synthetic-retrieval truth of tests/test_end_to_end.py
 TRUTH = np.array([-1.8, 0.1, 1.0, 0.0, 0.95, -0.7])
+#: transit parameters: the radius [km] inserted at index 5, as bench.py
+DEMO_PARAMS_TRANSIT = np.insert(DEMO_PARAMS, 5, R0_KM)
+TRUTH_TRANSIT = np.insert(TRUTH, 5, R0_KM)
+#: (pmin, pmax, stepsize) of examples/demo_transit.cfg
+TRANSIT_BOUNDS = (np.array([-5.0, -2.0, -2.0, 0.0, 0.55, 75000.0, -9.0]),
+                  np.array([-1.0, 1.0, 1.0, 1.0, 1.2, 115000.0, 1.5]),
+                  np.array([0.01, 0.01, 0.0, 0.0, 0.001, 100.0, 0.1]))
 
 
 @dataclasses.dataclass
@@ -46,18 +67,24 @@ class DemoInputs:
     lines: LineList             # CH4
     t_grid: np.ndarray          # [nT] K, uniform
     star_flux: np.ndarray       # [nwave] blackbody stellar flux
+    cia: CiaTable               # H2-H2, examples/demo_inputs
 
     @property
     def config_kwargs(self) -> dict:
-        """ForwardConfig arguments of the demo (either package)."""
+        """ForwardConfig arguments of the eclipse demo (either package)."""
         return dict(solution="eclipse", pt_type="line", molfit=("CH4",))
+
+    @property
+    def transit_config_kwargs(self) -> dict:
+        """ForwardConfig arguments of the transit demo (either package)."""
+        return dict(solution="transit", pt_type="line", molfit=("CH4",))
 
 
 def demo_inputs(nlayer: int = 100, nwave: int = 2501, nlines: int = 30000,
                 t_step: float = 100.0) -> DemoInputs:
     """The demo problem's inputs at a given size (defaults: full width).
     ``t_step`` coarsens the T grid for small test problems."""
-    system = PlanetSystem(6075.0, 7.97e8, 4.37, 7.05e9, 9.44e7, 1.32e27)
+    system = _SYSTEM
     centers = np.linspace(2600.0, 4900.0, 10)
     filters = [(np.linspace(c - 60, c + 60, 50), np.ones(50))
                for c in centers]
@@ -74,6 +101,7 @@ def demo_inputs(nlayer: int = 100, nwave: int = 2501, nlines: int = 30000,
                                  band_centers=(2700.0, 3100.0, 4300.0)),
         t_grid=np.arange(400.0, 3001.0, t_step),
         star_flux=np.asarray(starfl),
+        cia=read_cia(str(_CIA_FILE)),
     )
 
 
@@ -98,12 +126,43 @@ def random_rows(R: int, L: int, W: int, C: int, seed: int = 7):
     return tab, np.linspace(2500.0, 5000.0, W), wrows, T, drp
 
 
+def random_transit_rows(R: int, L: int, W: int, C: int, seed: int = 7):
+    """A random problem in the fused_transit layout, as float64 numpy
+    arrays: tab [R, L, W], wrows [C, L, R], G [C, L, L], wgt [C, L] (from
+    slant_geometry of the radii) and the radii rad [C, L] in cm.
+
+    A slant path is ~50-100x the vertical one, so weights that make the
+    vertical tau cross unity mid-atmosphere saturate the slant tau past
+    the clamp, and then out = sum(wgt) whatever the extinction.  Here the
+    weights grow five decades downwards and are scaled (tau is linear in
+    them) so that the median slant tau of the middle impact parameter is
+    1: tau crosses unity inside the atmosphere.
+    """
+    from bart_tpu_torch.rt.transit_geom import slant_geometry
+
+    rng = np.random.default_rng(seed)
+    tab = rng.lognormal(-46.0, 2.0, (R, L, W))
+    density = 10.0 ** np.linspace(0.0, 5.0, L)
+    wrows = density[None, :, None] * rng.uniform(0.0, 1.0, (C, L, R))
+    rad = 9.44e9 - np.cumsum(rng.uniform(3e6, 8e6, (C, L)), axis=1)
+    G, wgt = (a.numpy() for a in slant_geometry(torch.tensor(rad)))
+    # tau of the middle impact parameter, sum_{l,r} G[mid, l] wrows tab,
+    # as one matrix product
+    v = (G[:, L // 2, :, None] * wrows).reshape(C, L * R)
+    tau_mid = v @ tab.transpose(1, 0, 2).reshape(L * R, W)
+    wrows = wrows / np.median(tau_mid)
+    return tab, wrows, G, wgt, rad
+
+
 def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cpu",
                      dtype: torch.dtype = torch.float32, grid=None,
-                     quadrature: str = "raygrid", budget_bytes: float = 2e9):
+                     quadrature: str = "raygrid", budget_bytes: float = 2e9,
+                     solution: str = "eclipse", cia: bool = False):
     """This package's ForwardModel for the demo problem.  The opacity
-    table is built on ``device`` unless ``grid`` (an OpacityGrid) is
-    given."""
+    table is built on ``device`` unless ``grid`` (an OpacityGrid, e.g.
+    another demo model's ``opacity``) is given.  ``solution="transit"``
+    builds the transit demo, whose bands have no stellar division;
+    ``cia`` adds the H2-H2 CIA rows."""
     from bart_tpu_torch.obs.bands import build_band_matrix
     from bart_tpu_torch.opacity.grid import build_opacity_grid
     from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
@@ -112,12 +171,20 @@ def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cpu",
         grid = build_opacity_grid({"CH4": inp.lines}, inp.wn, inp.t_grid,
                                   inp.pressure, budget_bytes=budget_bytes,
                                   device=device, dtype=dtype)
-    bands = build_band_matrix(inp.wn, inp.filters, star_flux=inp.star_flux,
-                              rprs=inp.system.rprs, device=device,
-                              dtype=dtype)
+    if solution == "transit":
+        bands = build_band_matrix(inp.wn, inp.filters, device=device,
+                                  dtype=dtype)
+        kwargs = inp.transit_config_kwargs
+    else:
+        bands = build_band_matrix(inp.wn, inp.filters,
+                                  star_flux=inp.star_flux,
+                                  rprs=inp.system.rprs, device=device,
+                                  dtype=dtype)
+        kwargs = {**inp.config_kwargs, "solution": solution}
     return ForwardModel(
-        ForwardConfig(quadrature=quadrature, **inp.config_kwargs),
+        ForwardConfig(quadrature=quadrature, **kwargs),
         wn_grid=inp.wn, pressure=inp.pressure, species=inp.species,
         base_abundances=inp.base_q, opacity=grid, system=inp.system,
-        bands=bands, device=device, dtype=dtype,
+        bands=bands, cia_tables=[inp.cia] if cia else [], device=device,
+        dtype=dtype,
     )

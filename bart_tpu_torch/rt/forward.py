@@ -1,14 +1,15 @@
 """The forward model: parameters -> band fluxes, batched over chains
-(port of bart_tpu/rt/forward.py, gridded-opacity eclipse/direct K=1).
+(port of bart_tpu/rt/forward.py, gridded opacity, K=1, eclipse, direct
+and transit geometry, with CIA, Rayleigh and gray-cloud rows).
 
     bandflux [C, nfilt], spectrum [C, W], valid [C] = fm(params [C, n])
 
 Parameter layout as the reference (BARTfunc.py:173-179):
-[ PT params (nPT) | log10 abundance factors (nmolfit) ] for the
-eclipse configuration ported here.  Invalid samples (T outside
-[tmin, tmax], scaled metals summing above 1, the optional
-energy-balance veto) are computed on clipped profiles and flagged:
-nothing is skipped by value, so every call has the same shapes.
+[ PT params (nPT) | radius [km] (transit only) | cloudtop [bar] |
+  log10 Rayleigh factor | log10 abundance factors (nmolfit) ].
+Invalid samples (T outside [tmin, tmax], scaled metals summing above 1,
+the optional energy-balance veto) are computed on clipped profiles and
+flagged: nothing is skipped by value, so every call has the same shapes.
 """
 
 from __future__ import annotations
@@ -21,11 +22,17 @@ import torch
 from bart_tpu import constants as const
 from bart_tpu_torch.device import resolve_device
 from bart_tpu_torch.obs.bands import BandMatrix, band_integrate
+from bart_tpu_torch.opacity.cia import LOSCHMIDT, CiaTable, cia_weights
+from bart_tpu_torch.opacity.cloud import (cloud_deck_extinction,
+                                          extended_cloud_extinction)
 from bart_tpu_torch.opacity.grid import OpacityGrid
+from bart_tpu_torch.opacity.rayleigh import h2_rayleigh_cross_section
 from bart_tpu_torch.physics.hydro import anchor_index, radius_profile
 from bart_tpu_torch.physics.pt import n_pt_params, pt_generator
 from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
-from bart_tpu_torch.rt.fused import fused_eclipse, interp_weights
+from bart_tpu_torch.rt.fused import (fused_eclipse, fused_transit,
+                                     interp_weights)
+from bart_tpu_torch.rt.transit_geom import slant_geometry
 
 __all__ = ["ForwardModel", "ForwardConfig"]
 
@@ -89,23 +96,16 @@ class ForwardModel:
     def __init__(self, config: ForwardConfig, *, wn_grid: np.ndarray,
                  pressure: np.ndarray, species: list[str],
                  base_abundances: np.ndarray, opacity: OpacityGrid,
-                 system, bands: BandMatrix, cia_tables=(),
+                 system, bands: BandMatrix,
+                 cia_tables: list[CiaTable] = (),
                  species_masses: np.ndarray | None = None,
                  fold_osamp: int = 1,
                  device: str | torch.device = "cpu",
                  dtype: torch.dtype = torch.float32):
         cfg = config
-        if cia_tables:
-            raise _not_ported("CIA rows", "item 4")
-        if cfg.scattering is not None:
-            raise _not_ported("Rayleigh scattering rows", "item 4")
-        if cfg.cloudtop or cfg.cloudrad is not None:
-            raise _not_ported("cloud rows", "item 4")
         if int(fold_osamp) > 1:
             raise _not_ported("folded rtosamp (fold_osamp > 1)", "item 13")
-        if cfg.solution == "transit":
-            raise _not_ported("the transit geometry", "item 12")
-        if cfg.solution not in ("eclipse", "direct"):
+        if cfg.solution not in ("eclipse", "direct", "transit"):
             raise ValueError(f"unknown solution {cfg.solution!r}")
         if not isinstance(opacity, OpacityGrid):
             raise _not_ported("on-the-fly line-tile opacity", "item 11")
@@ -115,6 +115,7 @@ class ForwardModel:
         self.config = cfg
         self.system = system
         self.bands = bands
+        self.opacity = opacity
         self.device = resolve_device(device)
         self.dtype = dtype
         dev = self.device
@@ -165,6 +166,38 @@ class ForwardModel:
             "mu_w": t_(w),
             "band_w": bands.weights.to(device=dev, dtype=dtype),
         }
+
+        # CIA collider indices and tables (reference cia.c)
+        self.cia_idx = []
+        for k, tab in enumerate(cia_tables):
+            self.cia_idx.append(
+                tuple(int(np.where(sp == s)[0][0]) for s in tab.species))
+            self._tables[f"cia{k}_temps"] = t_(tab.temps)
+            self._tables[f"cia{k}_wn"] = t_(tab.wn)
+            self._tables[f"cia{k}_abs"] = t_(tab.absorption)
+
+        # Continuum rows of the rows contraction, on the host in float64:
+        # each CIA table's T-nodes interpolated to the wn grid, the H2
+        # Rayleigh cross-section, a row of ones per gray cloud.
+        wn64 = np.asarray(wn_grid, np.float64)
+        nL, nW = len(pressure), len(wn64)
+        rows = []
+        for tab in cia_tables:
+            wn_interp = np.stack([
+                np.interp(wn64, np.asarray(tab.wn, np.float64),
+                          np.asarray(row, np.float64), left=0.0, right=0.0)
+                for row in np.asarray(tab.absorption)])
+            rows.append(np.broadcast_to(wn_interp[:, None, :],
+                                        (len(tab.temps), nL, nW)))
+        if cfg.scattering is not None:
+            rows.append(np.broadcast_to(
+                h2_rayleigh_cross_section(wn64)[None, None, :], (1, nL, nW)))
+        if cfg.cloudtop:
+            rows.append(np.ones((1, nL, nW)))
+        if cfg.cloudrad is not None and cfg.cloudext:
+            rows.append(np.ones((1, nL, nW)))
+        if rows:
+            self._tables["frows"] = t_(np.concatenate(rows, axis=0))
         self.i0 = anchor_index(pressure, cfg.refpress)
         self.r0_km = system.r_planet / 1000.0
         self.g0_si = system.g_planet_si
@@ -215,7 +248,8 @@ class ForwardModel:
         T_safe, q, rad_cm, valid = self._profiles(params, t)
         spectrum = self._spectrum(params, t, T_safe, q, rad_cm)
 
-        if cfg.ebalance:               # energy-balance veto (BARTfunc.py:366-383)
+        if cfg.ebalance and cfg.solution in ("eclipse", "direct"):
+            # energy-balance veto (BARTfunc.py:366-383)
             sysm = self.system
             e_in = (const.SIGMA_SB * sysm.t_star**4 * sysm.r_star**2
                     * np.pi * sysm.r_planet**2 / sysm.sma**2
@@ -260,28 +294,67 @@ class ForwardModel:
         q[:, :, self.i_h2] = r * qfree_safe / (1.0 + r)
         q[:, :, self.i_he] = qfree_safe / (1.0 + r)
 
-        # 3. hydrostatic radii, re-derived per sample
+        # 3. hydrostatic radii, re-derived per sample, anchored at the
+        #    fitted radius in transit (set_radius, BARTfunc.py:351)
         mmm = torch.matmul(q, t["masses"])                          # [C, L]
+        r0 = params[:, nPT] if cfg.n_radfit else self.r0_km
         rad_km = radius_profile(pressure, T_safe, mmm, cfg.refpress,
-                                self.r0_km, self.g0_si, i0=self.i0)
+                                r0, self.g0_si, i0=self.i0)
         return T_safe, q, rad_km * const.KM_TO_CM, valid
 
     def _fused_rows(self, params: torch.Tensor, t: dict, T_safe, q, rad_cm):
-        """(tab [R, L, W], wrows [C, L, R]): the extinction as one
-        rows-contraction, line rows (molecule x T-node) only."""
+        """(tab [R, L, W], wrows [C, L, R]): the extinction as one rows
+        contraction.  Columns in bart_tpu's order: line rows (molecule x
+        T-node), CIA T-node rows, Rayleigh, cloud deck, extended cloud;
+        the weight formulas mirror the unfused extinction term by term."""
+        cfg = self.config
+        nPT = cfg.n_pt
         sigma = t["sigma"]
         M, nT, L, W = sigma.shape
         C = T_safe.shape[0]
         n_tot = t["p_barye"] / (const.K_BOLTZ * T_safe)           # [C, L]
         n_mol = q[:, :, self.i_opac] * n_tot[..., None]           # [C, L, M]
         w_t = interp_weights(self.n_t, self.t_min, self.t_step, T_safe)
-        wrows = (n_mol[..., None] * w_t[:, :, None, :]).reshape(C, L, M * nT)
-        return sigma.reshape(M * nT, L, W), wrows
+        cols = [(n_mol[..., None] * w_t[:, :, None, :]).reshape(C, L, M * nT)]
+
+        for k, (i1, i2) in enumerate(self.cia_idx):
+            n1n2 = (q[:, :, i1] * n_tot / LOSCHMIDT) * (
+                q[:, :, i2] * n_tot / LOSCHMIDT)
+            cols.append(cia_weights(t[f"cia{k}_temps"], T_safe)
+                        * n1n2[..., None])
+
+        if cfg.scattering is not None:
+            if cfg.scattering == "polar":                 # mode 2, unscaled
+                factor = torch.ones_like(T_safe[:, 0])
+            else:                                         # mode 1: 10^param
+                factor = 10.0 ** params[:, nPT + cfg.n_radfit + cfg.n_cloud]
+            cols.append((factor[:, None] * q[:, :, self.i_h2]
+                         * n_tot)[..., None])
+
+        if cfg.cloudtop:
+            ctop = params[:, nPT + cfg.n_radfit]          # top pressure [bar]
+            cols.append(cloud_deck_extinction(
+                t["pressure"], torch.log10(torch.clamp(ctop, min=1e-30)), 1))
+
+        if cfg.cloudrad is not None and cfg.cloudext:
+            cols.append(extended_cloud_extinction(
+                rad_cm / const.KM_TO_CM, cfg.cloudrad[0], cfg.cloudrad[1],
+                cfg.cloudext)[..., None])
+
+        tab = sigma.reshape(M * nT, L, W)
+        if "frows" in t:
+            tab = torch.cat([tab, t["frows"]], dim=0)
+        return tab, torch.cat(cols, dim=2)
 
     def _spectrum(self, params, t, T_safe, q, rad_cm):
-        """Extinction -> geometry -> spectrum [C, W] through the fused
-        eclipse kernel."""
+        """Extinction rows -> geometry -> spectrum [C, W] through the
+        fused eclipse or transit kernel."""
         tab, wrows = self._fused_rows(params, t, T_safe, q, rad_cm)
+        if self.config.solution == "transit":
+            G, wgt = slant_geometry(rad_cm)
+            absorbed = fused_transit(tab, wrows, G, wgt)
+            return (rad_cm[:, -1:] ** 2 + absorbed) / (
+                self.system.r_star * 100.0) ** 2
         dr = rad_cm[:, :-1] - rad_cm[:, 1:]
         drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
         return fused_eclipse(tab, t["wn"], t["mu"], t["mu_w"], wrows,

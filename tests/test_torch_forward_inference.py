@@ -128,20 +128,20 @@ def test_forward_matches_bart_tpu_batched(demo, cfg):
 
 
 @pytest.mark.parametrize("cfg,kw", [
-    ({"solution": "transit"}, {}),
-    ({"scattering": "ray"}, {}),
-    ({"cloudtop": True}, {}),
+    ({"pt_type": "iso"}, {}),
+    ({"pt_type": "madhu_noinv"}, {}),
     ({}, {"fold_osamp": 4}),
-    ({}, {"cia_tables": [object()]}),
+    ({}, {"opacity": {}}),               # on-the-fly line tiles
+    ({"solution": "transit"}, {"fold_osamp": 4}),
 ])
 def test_forward_unported_options_raise(demo, cfg, kw):
     inp, grid = demo
+    kw = {"opacity": _torch_grid(grid), **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ForwardModel(ForwardConfig(**{**inp.config_kwargs, **cfg}),
                      wn_grid=inp.wn, pressure=inp.pressure,
                      species=inp.species, base_abundances=inp.base_q,
-                     opacity=_torch_grid(grid), system=inp.system,
-                     bands=None, dtype=F64, **kw)
+                     system=inp.system, bands=None, dtype=F64, **kw)
 
 
 # ---------------------------------------------------------------------

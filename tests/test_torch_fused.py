@@ -14,7 +14,6 @@ that compare with bart_tpu; the card tests run there with
 """
 
 import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -152,7 +151,7 @@ def test_interp_weights_match_bracketing(jx):
 
 
 def test_kernel_source_constants_match_python():
-    src = Path(fused._SRC).read_text()
+    src = (fused._CSRC / "fused_eclipse.cu").read_text()
 
     def lit(name):
         return float(re.search(rf"{name} = ([0-9.e+-]+)f;", src).group(1))

@@ -35,11 +35,17 @@ def test_every_module_imports_and_runs_without_jax():
         for n in bart_tpu_torch._LAZY:
             getattr(bart_tpu_torch, n)
         # the plain main path, end to end, at a tiny size
-        from bart_tpu_torch.demo import DEMO_PARAMS, build_demo_model, demo_inputs
+        from bart_tpu_torch.demo import (DEMO_PARAMS, DEMO_PARAMS_TRANSIT,
+                                         build_demo_model, demo_inputs)
         torch.set_num_threads(2)
         inp = demo_inputs(nlayer=6, nwave=64, nlines=40, t_step=1300.0)
         fm = build_demo_model(inp, dtype=torch.float64, budget_bytes=1e7)
         band, spec, valid = fm(torch.tensor(DEMO_PARAMS[None]))
+        assert bool(valid.all()) and bool(torch.isfinite(band).all())
+        # and the transit path with CIA, on the same opacity table
+        fmt = build_demo_model(inp, dtype=torch.float64, grid=fm.opacity,
+                               solution="transit", cia=True)
+        band, spec, valid = fmt(torch.tensor(DEMO_PARAMS_TRANSIT[None]))
         assert bool(valid.all()) and bool(torch.isfinite(band).all())
         assert not any(k == "jax" or k.startswith("jax.")
                        for k, v in sys.modules.items() if v is not None)
@@ -52,8 +58,8 @@ def test_every_module_imports_and_runs_without_jax():
 def test_fused_imports_without_nvcc_or_card():
     proc = _run("""
         import bart_tpu_torch.rt.fused as f
-        assert f._lib is None               # nothing built at import
-        assert f.fused_eclipse.launches == 0
+        assert f._libs == {}                # nothing built at import
+        assert f.fused_eclipse.launches == f.fused_transit.launches == 0
         print("ok")
     """, env={"PATH": "/nonexistent", "CUDA_VISIBLE_DEVICES": "",
               "CUDA_HOME": "/nonexistent"})
