@@ -1,12 +1,15 @@
 """bart_tpu_torch — the PyTorch/CUDA port of bart_tpu for NVIDIA Hopper.
 
-Mirrors bart_tpu's module paths and names.  Plain tensor code is
-PyTorch; the fused eclipse kernel (bart_tpu/rt/fused.py:_kernel) is a
-hand-written CUDA C++ kernel for sm_90a (csrc/fused_eclipse.cu), built
-with nvcc at first use and bound with ctypes.  Every function takes an
-explicit ``device=``/``dtype=`` where it creates tensors, randomness
-goes through an explicit ``torch.Generator``, and the chain axis is a
-written-out batch dimension (a single sample is a batch of 1).
+Mirrors bart_tpu's module paths and names and imports nothing of it:
+the host-side helpers it needs (constants, molecules, line lists, grids,
+convergence diagnostics) are its own copies.  Plain tensor code is
+PyTorch; the four fused kernels of bart_tpu/rt/fused.py (eclipse and
+transit, K = 1 and folded) are hand-written CUDA C++ kernels for sm_90a
+(csrc/), built with nvcc at first use and bound with ctypes.  Entry
+points that create tensors take ``device=`` (the card unless the caller
+asks for the CPU) and ``dtype=``, randomness goes through an explicit
+``torch.Generator``, and the chain axis is a written-out batch
+dimension (a single sample is a batch of 1).
 
 Public API entry points (lazily imported):
 

@@ -38,8 +38,8 @@
 
 namespace {
 
-// 2 h c^2 and h c / k from bart_tpu.constants (cgs; the CPU tests check
-// these literals against the Python constants)
+// 2 h c^2 and h c / k of bart_tpu_torch.constants (cgs; the CPU tests
+// check these literals against the Python constants)
 constexpr float kC1 = 1.1910439340652298e-05f;
 constexpr float kC2 = 1.4387686603333911f;
 constexpr float kTwoPi = 6.2831853071795865f;

@@ -15,7 +15,8 @@ R = 27 + 14 = 41 table rows.
 arrays to bart_tpu and to this package; ``build_demo_model`` builds this
 package's forward model from them.  ``random_rows`` and
 ``random_transit_rows`` make random problems in the fused kernels' own
-layouts.
+layouts, and ``fine_structure`` the in-bin structure that turns their
+tables into folded ones.
 """
 
 from __future__ import annotations
@@ -26,15 +27,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bart_tpu.io.kurucz import blackbody_star
-from bart_tpu.io.tep import PlanetSystem
-from bart_tpu.linelist.hitran import LineList
-from bart_tpu.linelist.tli import synthetic_linelist
-from bart_tpu.utils.grids import pressure_grid
+from bart_tpu_torch.io.kurucz import blackbody_star
+from bart_tpu_torch.io.tep import PlanetSystem
+from bart_tpu_torch.linelist.hitran import LineList
+from bart_tpu_torch.linelist.tli import synthetic_linelist
+from bart_tpu_torch.utils.grids import folded_fine_grid, pressure_grid
 from bart_tpu_torch.opacity.cia import CiaTable, read_cia
 
 __all__ = ["DemoInputs", "demo_inputs", "build_demo_model", "random_rows",
-           "random_transit_rows", "DEMO_PARAMS", "TRUTH",
+           "random_transit_rows", "fine_structure", "DEMO_PARAMS", "TRUTH",
            "DEMO_PARAMS_TRANSIT", "TRUTH_TRANSIT", "TRANSIT_BOUNDS"]
 
 _CIA_FILE = (Path(__file__).resolve().parents[1] / "examples" / "demo_inputs"
@@ -154,21 +155,46 @@ def random_transit_rows(R: int, L: int, W: int, C: int, seed: int = 7):
     return tab, wrows, G, wgt, rad
 
 
-def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cpu",
+def fine_structure(R: int, W: int, K: int, seed: int = 5) -> np.ndarray:
+    """In-bin structure for a random folded problem: a factor
+    [R, 1, W, K] with mean 1 over the K sub-samples of every (row, bin),
+    so that ``(tab[..., None] * factor).reshape(R, L, W * K)`` is a
+    bin-major fine table whose bin means are ``tab``.
+
+    Every sub-sample carries lognormal scatter, and half of the (row,
+    bin) pairs a narrow feature, a Gaussian 0.8 fine points wide and up
+    to 40 times the background, as a line core inside the bin: a kernel
+    that averaged the extinction before the exponential would be far off.
+    """
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(0.0, 40.0, (R, 1, W, 1)) * (rng.random((R, 1, W, 1)) < 0.5)
+    k0 = rng.uniform(0.0, K, (R, 1, W, 1))
+    core = np.exp(-0.5 * ((np.arange(K) + 0.5 - k0) / 0.8) ** 2)
+    factor = rng.lognormal(0.0, 0.3, (R, 1, W, K)) * (1.0 + amp * core)
+    return factor / factor.mean(axis=-1, keepdims=True)
+
+
+def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cuda",
                      dtype: torch.dtype = torch.float32, grid=None,
                      quadrature: str = "raygrid", budget_bytes: float = 2e9,
-                     solution: str = "eclipse", cia: bool = False):
-    """This package's ForwardModel for the demo problem.  The opacity
-    table is built on ``device`` unless ``grid`` (an OpacityGrid, e.g.
-    another demo model's ``opacity``) is given.  ``solution="transit"``
-    builds the transit demo, whose bands have no stellar division;
-    ``cia`` adds the H2-H2 CIA rows."""
+                     solution: str = "eclipse", cia: bool = False,
+                     fold: int = 1, fold_adapt: float | None = 0.02,
+                     fold_bf16: bool = False):
+    """This package's ForwardModel for the demo problem, on ``device``
+    (the card unless the caller asks for the CPU).  The opacity table is
+    built there unless ``grid`` (an OpacityGrid, e.g. another demo
+    model's ``opacity``) is given.  ``solution="transit"`` builds the
+    transit demo, whose bands have no stellar division; ``cia`` adds the
+    H2-H2 CIA rows.  ``fold`` = K > 1 builds the folded model: the table
+    on the K-times-finer folded_fine_grid(inp.wn, K), bands and outputs
+    on ``inp.wn``; ``fold_adapt`` and ``fold_bf16`` as ForwardModel's."""
     from bart_tpu_torch.obs.bands import build_band_matrix
     from bart_tpu_torch.opacity.grid import build_opacity_grid
     from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
 
     if grid is None:
-        grid = build_opacity_grid({"CH4": inp.lines}, inp.wn, inp.t_grid,
+        grid = build_opacity_grid({"CH4": inp.lines},
+                                  folded_fine_grid(inp.wn, fold), inp.t_grid,
                                   inp.pressure, budget_bytes=budget_bytes,
                                   device=device, dtype=dtype)
     if solution == "transit":
@@ -185,6 +211,7 @@ def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cpu",
         ForwardConfig(quadrature=quadrature, **kwargs),
         wn_grid=inp.wn, pressure=inp.pressure, species=inp.species,
         base_abundances=inp.base_q, opacity=grid, system=inp.system,
-        bands=bands, cia_tables=[inp.cia] if cia else [], device=device,
+        bands=bands, cia_tables=[inp.cia] if cia else [], fold_osamp=fold,
+        fold_adapt=fold_adapt, fold_bf16=fold_bf16, device=device,
         dtype=dtype,
     )

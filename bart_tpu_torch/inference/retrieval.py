@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from bart_tpu.inference.gr import (effective_sample_size, gelman_rubin,
+from bart_tpu_torch.inference.gr import (effective_sample_size, gelman_rubin,
                                    split_rhat_rank)
 from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
 from bart_tpu_torch.inference.samplers import EnsembleSampler

@@ -14,8 +14,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from bart_tpu import constants as const
-from bart_tpu.linelist.molecules import Molecule, get_molecule
+from bart_tpu_torch import constants as const
+from bart_tpu_torch.linelist.molecules import Molecule, get_molecule
 from bart_tpu_torch.utils.interp import interp
 
 __all__ = ["partition_function", "q_approx", "q_tabulated"]

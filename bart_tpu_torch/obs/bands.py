@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from bart_tpu_torch.device import resolve_device
+
 __all__ = ["BandMatrix", "build_band_matrix", "band_integrate"]
 
 
@@ -36,12 +38,14 @@ def build_band_matrix(spec_wn: np.ndarray,
                       filters: list[tuple[np.ndarray, np.ndarray]],
                       star_flux: np.ndarray | None = None,
                       rprs: float | None = None, *,
-                      device: str | torch.device = "cpu",
+                      device: str | torch.device = "cuda",
                       dtype: torch.dtype = torch.float64) -> BandMatrix:
-    """Precompute W on the host.  ``filters`` are (wn, transmission)
+    """Precompute W on the host and put it on ``device`` (the card unless
+    the caller asks for the CPU).  ``filters`` are (wn, transmission)
     ascending pairs; with ``star_flux`` (on spec_wn) and ``rprs`` the
     eclipse conversion spec/star * rprs^2 is folded in.  Raises
     ValueError if a filter reaches beyond the spectrum grid."""
+    device = resolve_device(device)
     spec_wn = np.asarray(spec_wn, np.float64)
     W = np.zeros((len(filters), len(spec_wn)))
     for i, (fwn, ftr) in enumerate(filters):

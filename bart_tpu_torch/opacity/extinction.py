@@ -23,9 +23,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from bart_tpu import constants as const
-from bart_tpu.linelist.hitran import TREF, LineList
-from bart_tpu.linelist.molecules import get_molecule
+from bart_tpu_torch import constants as const
+from bart_tpu_torch.device import resolve_device
+from bart_tpu_torch.linelist.hitran import TREF, LineList
+from bart_tpu_torch.linelist.molecules import get_molecule
 from bart_tpu_torch.linelist.tips import partition_function
 from bart_tpu_torch.physics.voigt import (
     doppler_hwhm, faddeeva_real, lorentz_hwhm_collision,
@@ -117,7 +118,7 @@ def wing_cutoff(nwidth: float, wn_max: float, t_min: float,
 def tile_lines_bucketed(lines: LineList, wn_grid: np.ndarray, cutoff: float,
                         tile_size: int = 256, pad_lines_to: int = 128,
                         ethresh: float = 0.0, *,
-                        device: str | torch.device = "cpu",
+                        device: str | torch.device = "cuda",
                         dtype: torch.dtype = torch.float64,
                         ) -> list[tuple[np.ndarray, LineTiles]]:
     """Variable-depth tiling on the host (numpy), returned as tensors.
@@ -128,6 +129,7 @@ def tile_lines_bucketed(lines: LineList, wn_grid: np.ndarray, cutoff: float,
     ``pad_lines_to``).  Returns [(tile_indices, LineTiles), ...].
     ``ethresh`` > 0 first culls lines below ethresh x max(S296).
     """
+    device = resolve_device(device)
     if ethresh > 0 and lines.nlines:
         lines = lines.cull(ethresh)
     wn_grid = np.asarray(wn_grid, np.float64)

@@ -14,20 +14,55 @@ import dataclasses
 import numpy as np
 import torch
 
-from bart_tpu import constants as const
-from bart_tpu.linelist.hitran import LineList
-from bart_tpu.linelist.molecules import get_molecule
+from bart_tpu_torch import constants as const
+from bart_tpu_torch.device import resolve_device
+from bart_tpu_torch.linelist.hitran import LineList
+from bart_tpu_torch.linelist.molecules import get_molecule
 from bart_tpu_torch.opacity.extinction import (
     BroadeningSpec, cross_section_tiles, tile_lines_bucketed, wing_cutoff,
 )
 
 __all__ = ["OpacityGrid", "build_opacity_grid", "interp_opacity",
-           "save_grid", "load_grid"]
+           "save_grid", "load_grid", "fine_bin_mask"]
 
 # Live [cond, tile, line, point] temporaries of one cross_section_tiles
 # call in eager torch: x, the Faddeeva real/imaginary Horner pair and
 # their products, the profile, the mask and the contribution.
 _LIVE_TEMPS = 10
+
+
+def fine_bin_mask(sigma_fine: torch.Tensor, K: int, delta: float = 0.02,
+                  floor: float = 1e-12) -> torch.Tensor:
+    """Which output bins need in-bin fine resolution? -> bool [Wout], on
+    the table's device (bart_tpu.opacity.grid.fine_bin_mask).
+
+    The static adaptive resolution of the folded kernels (rt.fused): a
+    bin is smooth when, for every table row (molecule x T-node) and
+    layer, the in-bin relative deviation from the bin mean is at most
+    ``delta``.  Smooth bins run at K = 1 on the bin-mean cross-section:
+    the first-order sampling error vanishes (mean_k tau_k = taubar) and
+    the curvature residual is at most 0.27 delta^2.  Rows whose bin mean
+    is below ``floor`` times the molecule's global maximum are ignored.
+    ``sigma_fine`` is [M, nT, L, Wout K] or [rows, L, Wout K], bin-major.
+    One (molecule, T-node) plane is scanned at a time, so the
+    temporaries are [L, Wout, K].
+    """
+    sig = sigma_fine[None] if sigma_fine.dim() == 3 else sigma_fine
+    M, nT, L, Wf = sig.shape
+    W = Wf // K
+    if W * K != Wf:
+        raise ValueError(f"fine wn axis {Wf} is not a multiple of K={K}")
+    fine = torch.zeros(W, dtype=torch.bool, device=sig.device)
+    for m in range(M):
+        gmax = sig[m].max()
+        for it in range(nT):
+            s = sig[m, it].reshape(L, W, K)
+            sbar = s.mean(-1)
+            dev = (s - sbar[..., None]).abs().amax(-1)
+            rel = torch.where(sbar > 0, dev / torch.where(sbar > 0, sbar, 1.0),
+                              0.0)
+            fine |= ((rel > delta) & (sbar > floor * gmax)).any(dim=0)
+    return fine
 
 
 @dataclasses.dataclass
@@ -61,10 +96,11 @@ def build_opacity_grid(
     q_tables: dict | None = None,
     budget_bytes: float = 2e9,
     *,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> OpacityGrid:
-    """Build the opacity table (the --justOpacity stage) on ``device``.
+    """Build the opacity table (the --justOpacity stage) on ``device``
+    (the card unless the caller asks for the CPU).
 
     Conditions (T x layer, T-major) are evaluated in batches whose
     [cond, tile, line, point] temporaries fit ``budget_bytes``; a tile
@@ -74,6 +110,7 @@ def build_opacity_grid(
     stored in float32.
     """
     spec = spec or BroadeningSpec()
+    device = resolve_device(device)
     t_grid = np.asarray(t_grid, np.float64)
     pressure_bar = np.asarray(pressure_bar, np.float64)
     nT, nP, nW = len(t_grid), len(pressure_bar), len(wn_grid)
@@ -161,10 +198,12 @@ def save_grid(grid: OpacityGrid, path: str) -> None:
     )
 
 
-def load_grid(path: str, *, device: str | torch.device = "cpu"
+def load_grid(path: str, *, device: str | torch.device = "cuda"
               ) -> OpacityGrid:
     """Load a grid saved by this package or by bart_tpu (whose npz is
-    compressed; ``np.load`` reads both)."""
+    compressed; ``np.load`` reads both) onto ``device`` (the card unless
+    the caller asks for the CPU)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         return OpacityGrid(
             species=[str(s) for s in z["species"]],

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from bart_tpu import constants as const
+from bart_tpu_torch import constants as const
 
 __all__ = ["pt_line", "pt_generator", "n_pt_params"]
 

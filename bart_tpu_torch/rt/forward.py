@@ -1,6 +1,7 @@
 """The forward model: parameters -> band fluxes, batched over chains
-(port of bart_tpu/rt/forward.py, gridded opacity, K=1, eclipse, direct
-and transit geometry, with CIA, Rayleigh and gray-cloud rows).
+(port of bart_tpu/rt/forward.py, gridded opacity, K = 1 and folded
+rtosamp, eclipse, direct and transit geometry, with CIA, Rayleigh and
+gray-cloud rows).
 
     bandflux [C, nfilt], spectrum [C, W], valid [C] = fm(params [C, n])
 
@@ -10,6 +11,16 @@ Parameter layout as the reference (BARTfunc.py:173-179):
 Invalid samples (T outside [tmin, tmax], scaled metals summing above 1,
 the optional energy-balance veto) are computed on clipped profiles and
 flagged: nothing is skipped by value, so every call has the same shapes.
+
+Folded rtosamp (``fold_osamp`` = K > 1, docs/LINE_SAMPLING.md): the
+opacity table is tabulated on utils.grids.folded_fine_grid(wn_grid, K)
+and the folded kernels average each output bin's K sub-samples after the
+exponential.  With ``fold_adapt`` only the bins that have line structure
+inside them (opacity.grid.fine_bin_mask) go through the folded kernel;
+the smooth bins run the K = 1 kernel on the bin-mean table, and
+``_assemble`` puts the two pieces back in wn order.  Each dispatch part's
+table (line rows and continuum rows) is assembled once, here, in its
+kernel's layout.
 """
 
 from __future__ import annotations
@@ -19,20 +30,23 @@ import dataclasses
 import numpy as np
 import torch
 
-from bart_tpu import constants as const
+from bart_tpu_torch import constants as const
 from bart_tpu_torch.device import resolve_device
 from bart_tpu_torch.obs.bands import BandMatrix, band_integrate
 from bart_tpu_torch.opacity.cia import LOSCHMIDT, CiaTable, cia_weights
 from bart_tpu_torch.opacity.cloud import (cloud_deck_extinction,
                                           extended_cloud_extinction)
-from bart_tpu_torch.opacity.grid import OpacityGrid
+from bart_tpu_torch.opacity.grid import OpacityGrid, fine_bin_mask
 from bart_tpu_torch.opacity.rayleigh import h2_rayleigh_cross_section
 from bart_tpu_torch.physics.hydro import anchor_index, radius_profile
 from bart_tpu_torch.physics.pt import n_pt_params, pt_generator
 from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
-from bart_tpu_torch.rt.fused import (fused_eclipse, fused_transit,
-                                     interp_weights)
+from bart_tpu_torch.rt.fused import (FoldedTable, folded_table, fused_eclipse,
+                                     fused_eclipse_folded, fused_transit,
+                                     fused_transit_folded, interp_weights,
+                                     unfold_table)
 from bart_tpu_torch.rt.transit_geom import slant_geometry
+from bart_tpu_torch.utils.grids import folded_fine_grid
 
 __all__ = ["ForwardModel", "ForwardConfig"]
 
@@ -90,7 +104,12 @@ class ForwardModel:
 
     The tables live in one dict (``tables``) under bart_tpu's keys, so a
     model can also run on tables carried over from the JAX package
-    (``tables_from_jax``).
+    (``tables_from_jax``).  A folded model (``fold_osamp`` > 1) holds, in
+    place of bart_tpu's ``sigmak``/``frowsk`` and ``sigmas``/``frowss``,
+    one table per dispatch part: ``tabk`` (a FoldedTable: line and
+    continuum rows of the folded bins, bfloat16 with ``fold_bf16``) and,
+    with an adaptive split, ``tabs`` (the bin-mean rows of the smooth
+    bins); ``sigma`` is then the bin-mean table.
     """
 
     def __init__(self, config: ForwardConfig, *, wn_grid: np.ndarray,
@@ -100,11 +119,11 @@ class ForwardModel:
                  cia_tables: list[CiaTable] = (),
                  species_masses: np.ndarray | None = None,
                  fold_osamp: int = 1,
-                 device: str | torch.device = "cpu",
+                 fold_adapt: float | None = 0.02,
+                 fold_bf16: bool = False,
+                 device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32):
         cfg = config
-        if int(fold_osamp) > 1:
-            raise _not_ported("folded rtosamp (fold_osamp > 1)", "item 13")
         if cfg.solution not in ("eclipse", "direct", "transit"):
             raise ValueError(f"unknown solution {cfg.solution!r}")
         if not isinstance(opacity, OpacityGrid):
@@ -119,6 +138,14 @@ class ForwardModel:
         self.device = resolve_device(device)
         self.dtype = dtype
         dev = self.device
+        # folded rtosamp: ``wn_grid`` is the output grid, ``opacity`` is
+        # tabulated on the K-times-finer folded_fine_grid
+        self.fold = max(int(fold_osamp), 1)
+        self.fold_bf16 = bool(fold_bf16) and self.fold > 1
+        # static adaptive split (set by _fold_setup): output-bin indices,
+        # as numpy arrays and as tensors on the device
+        self._idx_fine = self._idx_smooth = None
+        self._idx_fine_t = self._idx_smooth_t = None
 
         def t_(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -134,7 +161,7 @@ class ForwardModel:
         self.i_opac = np.array(
             [int(np.where(sp == m)[0][0]) for m in opacity.species], int)
         if species_masses is None:
-            from bart_tpu.linelist.molecules import get_molecule
+            from bart_tpu_torch.linelist.molecules import get_molecule
 
             species_masses = np.array([get_molecule(s).mass
                                        for s in species])
@@ -161,7 +188,6 @@ class ForwardModel:
             "h2he_ratio": t_(base_abundances[:, self.i_h2]
                              / base_abundances[:, self.i_he]),
             "masses": t_(species_masses),
-            "sigma": opacity.sigma.to(device=dev, dtype=dtype),
             "mu": t_(mu),
             "mu_w": t_(w),
             "band_w": bands.weights.to(device=dev, dtype=dtype),
@@ -176,61 +202,142 @@ class ForwardModel:
             self._tables[f"cia{k}_wn"] = t_(tab.wn)
             self._tables[f"cia{k}_abs"] = t_(tab.absorption)
 
-        # Continuum rows of the rows contraction, on the host in float64:
-        # each CIA table's T-nodes interpolated to the wn grid, the H2
-        # Rayleigh cross-section, a row of ones per gray cloud.
-        wn64 = np.asarray(wn_grid, np.float64)
-        nL, nW = len(pressure), len(wn64)
+        # Continuum rows of the rows contraction, on the host in float64
+        # (on the fine grid when folded): each CIA table's T-nodes
+        # interpolated to the wn grid, the H2 Rayleigh cross-section, a
+        # row of ones per gray cloud.  They are the same for every layer.
+        wn64 = folded_fine_grid(np.asarray(wn_grid, np.float64), self.fold)
         rows = []
         for tab in cia_tables:
-            wn_interp = np.stack([
+            rows.extend(
                 np.interp(wn64, np.asarray(tab.wn, np.float64),
                           np.asarray(row, np.float64), left=0.0, right=0.0)
-                for row in np.asarray(tab.absorption)])
-            rows.append(np.broadcast_to(wn_interp[:, None, :],
-                                        (len(tab.temps), nL, nW)))
+                for row in np.asarray(tab.absorption))
         if cfg.scattering is not None:
-            rows.append(np.broadcast_to(
-                h2_rayleigh_cross_section(wn64)[None, None, :], (1, nL, nW)))
+            rows.append(h2_rayleigh_cross_section(wn64))
         if cfg.cloudtop:
-            rows.append(np.ones((1, nL, nW)))
+            rows.append(np.ones_like(wn64))
         if cfg.cloudrad is not None and cfg.cloudext:
-            rows.append(np.ones((1, nL, nW)))
+            rows.append(np.ones_like(wn64))
+        frows = None
         if rows:
-            self._tables["frows"] = t_(np.concatenate(rows, axis=0))
+            frows = t_(np.stack(rows))[:, None, :].expand(
+                len(rows), len(pressure), len(wn64))
+        if self.fold > 1:
+            self._fold_setup(opacity.sigma, frows, len(wn_grid), fold_adapt)
+        else:
+            self._tables["sigma"] = opacity.sigma.to(device=dev, dtype=dtype)
+            if frows is not None:
+                self._tables["frows"] = frows.contiguous()
         self.i0 = anchor_index(pressure, cfg.refpress)
         self.r0_km = system.r_planet / 1000.0
         self.g0_si = system.g_planet_si
         self.pt_args = [system.r_star, system.t_star, cfg.tint, system.sma,
                         system.g_planet_cgs, cfg.tint_type]
 
+    def _fold_setup(self, sigma_fine: torch.Tensor,
+                    frows: torch.Tensor | None, n_out: int,
+                    fold_adapt: float | None) -> None:
+        """The folded tables, on the model's device: the bin-mean
+        ``sigma`` (the K = 1 table of the smooth bins and of anything
+        that wants a coarse table), the static split of the output bins
+        into fine and smooth, and one table per dispatch part."""
+        K, t = self.fold, self._tables
+        M, nT, L, Wf = sigma_fine.shape
+        if Wf != K * n_out:
+            raise ValueError(
+                f"folded rtosamp={K}: opacity grid has {Wf} wn samples but "
+                f"the output grid needs {K} x {n_out}")
+        sig = sigma_fine.to(device=self.device, dtype=self.dtype)
+        sig = sig.reshape(M * nT, L, n_out, K)
+        sigbar = sig.mean(-1)                              # [M*nT, L, W]
+        t["sigma"] = sigbar.reshape(M, nT, L, n_out)
+        if fold_adapt:
+            mask = fine_bin_mask(sig.reshape(M, nT, L, Wf), K,
+                                 delta=float(fold_adapt)).cpu().numpy()
+            if mask.any() and not mask.all():
+                self._idx_fine = np.where(mask)[0]
+                self._idx_smooth = np.where(~mask)[0]
+        k_dt = torch.bfloat16 if self.fold_bf16 else self.dtype
+        if frows is not None:
+            frows = frows.reshape(frows.shape[0], L, n_out, K)
+        if self._idx_fine is None:
+            fine = [sig] + ([frows] if frows is not None else [])
+        else:
+            idx_f = torch.as_tensor(self._idx_fine, device=self.device)
+            idx_s = torch.as_tensor(self._idx_smooth, device=self.device)
+            self._idx_fine_t, self._idx_smooth_t = idx_f, idx_s
+            fine = [sig[:, :, idx_f]]
+            smooth = [sigbar[:, :, idx_s]]
+            if frows is not None:
+                # continuum rows are smooth by construction, but their
+                # columns must follow the bin split
+                fine.append(frows[:, :, idx_f])
+                smooth.append(frows.mean(-1)[:, :, idx_s])
+            t["tabs"] = torch.cat(smooth, dim=0)
+            t["wn_f"], t["wn_s"] = t["wn"][idx_f], t["wn"][idx_s]
+        t["tabk"] = folded_table(torch.cat(fine, dim=0).flatten(2), K, k_dt)
+
     # -----------------------------------------------------------------
     @property
-    def tables(self) -> dict[str, torch.Tensor]:
+    def tables(self) -> dict:
         return self._tables
 
     @property
     def sigma(self) -> torch.Tensor:
         return self._tables["sigma"]
 
-    def tables_from_jax(self, numpy_tables: dict) -> dict[str, torch.Tensor]:
-        """Carry bart_tpu ForwardModel tables (as numpy arrays) over to
-        this model: the opacity table, band weights, base abundances,
-        quadrature and the rest, on this model's device and dtype.
-        Raises if the keys or shapes differ from this model's."""
+    def tables_from_jax(self, numpy_tables: dict) -> dict:
+        """Carry bart_tpu ForwardModel tables (as numpy arrays, under
+        bart_tpu's keys and in its layouts) over to this model: the
+        opacity table, band weights, base abundances, quadrature and the
+        rest, on this model's device and dtype.  Of a folded model,
+        ``sigmak`` [K, M*nT, L, W_f] and ``frowsk`` become this model's
+        ``tabk`` and ``sigmas`` and ``frowss`` its ``tabs``; bfloat16
+        tables (numpy's ml_dtypes.bfloat16) stay bfloat16.  Raises if
+        the keys or shapes differ from this model's."""
         mine = self._tables
-        if set(numpy_tables) != set(mine):
+        given = dict(numpy_tables)
+        parts = {}
+        for part, keys in (("tabk", ("sigmak", "frowsk")),
+                           ("tabs", ("sigmas", "frowss"))):
+            have = [given.pop(k) for k in keys if k in given]
+            if have:
+                parts[part] = have
+        if set(given) | set(parts) != set(mine):
+            have = set(given) | set(parts)
             raise ValueError(
-                f"table keys differ: missing {sorted(set(mine) - set(numpy_tables))}, "
-                f"unexpected {sorted(set(numpy_tables) - set(mine))}")
-        out = {}
-        for k, v in numpy_tables.items():
+                f"table keys differ: missing {sorted(set(mine) - have)}, "
+                f"unexpected {sorted(have - set(mine))}")
+
+        def carry(v):
             a = np.asarray(v)
-            if a.shape != tuple(mine[k].shape):
-                raise ValueError(f"table {k!r} has shape {a.shape}, this "
-                                 f"model needs {tuple(mine[k].shape)}")
-            out[k] = torch.tensor(a, dtype=self.dtype,
-                                     device=self.device)
+            if a.dtype.name == "bfloat16":     # through float32: exact
+                return torch.tensor(a.astype(np.float32), device=self.device
+                                    ).to(torch.bfloat16)
+            return torch.tensor(a, dtype=self.dtype, device=self.device)
+
+        out = {k: carry(v) for k, v in given.items()}
+        if "tabk" in parts:
+            # rows along axis 1 of bart_tpu's sub-sample-major layout
+            tabk = torch.cat([carry(v) for v in parts["tabk"]], dim=1)
+            if tabk.shape[0] != self.fold:
+                raise ValueError(f"sigmak has K = {tabk.shape[0]}, this "
+                                 f"model folds by {self.fold}")
+            out["tabk"] = folded_table(unfold_table(tabk), self.fold)
+        if "tabs" in parts:
+            out["tabs"] = torch.cat([carry(v) for v in parts["tabs"]], dim=0)
+
+        def shape(v):
+            if isinstance(v, FoldedTable):
+                return (*v.tab.shape[:2], v.W, v.K)
+            return tuple(v.shape)
+
+        for k, v in out.items():
+            if shape(v) != shape(mine[k]):
+                raise ValueError(
+                    f"table {k!r} has shape {shape(v)}, this model needs "
+                    f"{shape(mine[k])}")
         return out
 
     def __call__(self, params: torch.Tensor,
@@ -303,10 +410,14 @@ class ForwardModel:
         return T_safe, q, rad_km * const.KM_TO_CM, valid
 
     def _fused_rows(self, params: torch.Tensor, t: dict, T_safe, q, rad_cm):
-        """(tab [R, L, W], wrows [C, L, R]): the extinction as one rows
-        contraction.  Columns in bart_tpu's order: line rows (molecule x
-        T-node), CIA T-node rows, Rayleigh, cloud deck, extended cloud;
-        the weight formulas mirror the unfused extinction term by term."""
+        """(parts, wrows [C, L, R]): the extinction as one rows
+        contraction per dispatch part (tab, folded?, wn, output-bin
+        indices or None): one K = 1 part, tab [R, L, W]; folded, the
+        FoldedTable of the fine bins and, with an adaptive split, the
+        K = 1 table of the smooth bins.  Columns in bart_tpu's order:
+        line rows (molecule x T-node), CIA T-node rows, Rayleigh, cloud
+        deck, extended cloud; the weight formulas mirror the unfused
+        extinction term by term."""
         cfg = self.config
         nPT = cfg.n_pt
         sigma = t["sigma"]
@@ -341,21 +452,51 @@ class ForwardModel:
                 rad_cm / const.KM_TO_CM, cfg.cloudrad[0], cfg.cloudrad[1],
                 cfg.cloudext)[..., None])
 
+        wrows = torch.cat(cols, dim=2)
+        if self.fold > 1:
+            split = self._idx_fine is not None
+            parts = [(t["tabk"], True, t["wn_f"] if split else t["wn"],
+                      self._idx_fine_t)]
+            if split:
+                parts.append((t["tabs"], False, t["wn_s"],
+                              self._idx_smooth_t))
+            return parts, wrows
         tab = sigma.reshape(M * nT, L, W)
         if "frows" in t:
             tab = torch.cat([tab, t["frows"]], dim=0)
-        return tab, torch.cat(cols, dim=2)
+        return [(tab, False, t["wn"], None)], wrows
 
     def _spectrum(self, params, t, T_safe, q, rad_cm):
         """Extinction rows -> geometry -> spectrum [C, W] through the
-        fused eclipse or transit kernel."""
-        tab, wrows = self._fused_rows(params, t, T_safe, q, rad_cm)
+        fused eclipse or transit kernels, one launch per dispatch part."""
+        parts, wrows = self._fused_rows(params, t, T_safe, q, rad_cm)
+        n_wn = t["wn"].shape[0]
         if self.config.solution == "transit":
             G, wgt = slant_geometry(rad_cm)
-            absorbed = fused_transit(tab, wrows, G, wgt)
+            absorbed = self._assemble(
+                [((fused_transit_folded if folded else fused_transit)(
+                    tab, wrows, G, wgt), idx)
+                 for tab, folded, _, idx in parts], n_wn)
             return (rad_cm[:, -1:] ** 2 + absorbed) / (
                 self.system.r_star * 100.0) ** 2
         dr = rad_cm[:, :-1] - rad_cm[:, 1:]
         drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
-        return fused_eclipse(tab, t["wn"], t["mu"], t["mu_w"], wrows,
-                             T_safe, drp, powers=self._powers)
+        return self._assemble(
+            [((fused_eclipse_folded if folded else fused_eclipse)(
+                tab, wn_p, t["mu"], t["mu_w"], wrows, T_safe, drp,
+                powers=self._powers), idx)
+             for tab, folded, wn_p, idx in parts], n_wn)
+
+    @staticmethod
+    def _assemble(pieces, n_wn: int) -> torch.Tensor:
+        """The output spectrum [C, n_wn] from the dispatch parts' pieces
+        ((values [C, W_p], output-bin indices or None) pairs; a single
+        piece without indices is the spectrum)."""
+        if len(pieces) == 1 and pieces[0][1] is None:
+            return pieces[0][0]
+        first = pieces[0][0]
+        out = torch.zeros((first.shape[0], n_wn), dtype=first.dtype,
+                          device=first.device)
+        for vals, idx in pieces:
+            out[:, idx] = vals
+        return out

@@ -1,5 +1,5 @@
-"""Fused rows-contraction forwards: eclipse and transit, K = 1 (port of
-bart_tpu/rt/fused.py).
+"""Fused rows-contraction forwards: eclipse and transit, K = 1 and folded
+(port of bart_tpu/rt/fused.py).
 
 Every absorber is separable into (per-chain-per-layer weight) x (static
 table row over wn), so the whole extinction is one contraction
@@ -23,17 +23,30 @@ Transit: with (G, wgt) = rt.transit_geom.slant_geometry of the radii,
 
 and the caller forms depth = (r_bot^2 + out) / r_star^2.
 
-``fused_eclipse`` and ``fused_transit`` are the entry points.  On CPU
-tensors they run the batched torch versions ``eclipse_plain`` and
-``transit_plain``; on CUDA tensors they launch the hand-written kernels
-in csrc/fused_eclipse.cu and csrc/fused_transit.cu, or raise.
+Folded (K sub-samples per output bin, docs/LINE_SAMPLING.md): the table
+lives on the K-times-finer midpoint grid of utils.grids.folded_fine_grid,
+ext and tau are evaluated per fine point, and the output is the mean
+over each bin's K sub-samples taken AFTER the exponential: of S_l
+(eclipse, with the Planck function at the bin centre) or of
+1 - e^{-tau} (transit).  This package keeps the fine table bin-major,
+[R, L, W K] with fine index f = b K + k (``FoldedTable``), so that a
+bin's sub-samples are neighbours in memory; ``fold_table`` gives
+bart_tpu's sub-sample-major layout and ``unfold_table`` undoes it.
+
+``fused_eclipse``, ``fused_transit``, ``fused_eclipse_folded`` and
+``fused_transit_folded`` are the entry points.  On CPU tensors they run
+the batched torch versions ``eclipse_plain``, ``transit_plain``,
+``eclipse_folded_plain`` and ``transit_folded_plain``; on CUDA tensors
+they launch the hand-written kernels in csrc/, or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,8 +59,10 @@ from bart_tpu_torch.rt.planck import planck_wn
 from bart_tpu_torch.rt.tau import TAU_CLAMP
 
 __all__ = ["fused_eclipse", "eclipse_plain", "fused_transit",
-           "transit_plain", "interp_weights", "smix", "load_kernel",
-           "build_kernels"]
+           "transit_plain", "fused_eclipse_folded", "eclipse_folded_plain",
+           "fused_transit_folded", "transit_folded_plain", "FoldedTable",
+           "folded_table", "fold_table", "unfold_table", "interp_weights",
+           "smix", "load_kernel", "build_kernels"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -57,9 +72,15 @@ _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 # fused_eclipse.cu: TILE_W, CB, MAX_NMU (the tests check the source)
 _MAX_NMU = 16          # the kernel keeps the quadrature in shared memory
 _TILE_W, _CB = 128, 4
-# fused_transit.cu: TILE_W, CB, NB, RC
+# fused_transit.cuh: TILE_W, CB, NB, RC
 _T_TILE_W, _T_CB, _T_NB, _T_RC = 32, 8, 16, 24
+# fused_eclipse_folded.cu: TILE_F, TY, CPT
+_F_TILE_F, _F_TY, _F_CPT = 128, 2, 4
 _MAX_GRID_Y = 65535
+#: sub-samples per bin the folded kernels take: the K lanes of a warp
+_FOLD_K = (2, 4, 8, 16, 32)
+#: the fine axis of a FoldedTable is padded to 16 bytes of bfloat16
+_FOLD_ALIGN = 8
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 #: kernel name -> the argtypes of its extern "C" entry ``bart_<name>``
@@ -67,6 +88,8 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _KERNELS = {
     "fused_eclipse": [_VP] * 8 + [_CI] * 6 + [_VP],
     "fused_transit": [_VP] * 5 + [_CI] * 4 + [_VP],
+    "fused_eclipse_folded": [_VP] * 8 + [_CI] * 9 + [_VP],
+    "fused_transit_folded": [_VP] * 5 + [_CI] * 8 + [_VP],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -138,6 +161,99 @@ def transit_plain(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
     return torch.bmm(wgt[:, None, :], absorb)[:, 0]
 
 
+@dataclasses.dataclass(frozen=True)
+class FoldedTable:
+    """A fine table in the folded kernels' layout: ``tab`` [R, L, Fp],
+    bin-major (fine point f = b K + k is sub-sample k of output bin b),
+    whose first W K columns are in use and the rest zero."""
+
+    tab: torch.Tensor
+    K: int
+    W: int
+
+    def bins(self) -> torch.Tensor:
+        """The columns in use as a view [R, L, W, K]."""
+        return self.tab[..., :self.W * self.K].unflatten(-1, (self.W, self.K))
+
+
+def folded_table(tab_fine: torch.Tensor, K: int,
+                 dtype: torch.dtype | None = None) -> FoldedTable:
+    """[R, L, W K] bin-major fine table -> FoldedTable in ``dtype``
+    (default: as given), the fine axis zero-padded to a multiple of
+    16 bytes as the transit kernel's copies need.  Done once, at model
+    set-up: the fine table is K times the K = 1 table."""
+    R, L, F = tab_fine.shape
+    K = int(K)
+    if K < 2 or F % K:
+        raise ValueError(f"folded_table: fine axis {F} is not a multiple of "
+                         f"K = {K} >= 2")
+    Fp = -(-F // _FOLD_ALIGN) * _FOLD_ALIGN
+    tab = torch.zeros((R, L, Fp), dtype=dtype or tab_fine.dtype,
+                      device=tab_fine.device)
+    tab[..., :F] = tab_fine
+    return FoldedTable(tab, K, F // K)
+
+
+def fold_table(tab_fine: torch.Tensor, K: int) -> torch.Tensor:
+    """[R, L, W K] bin-major fine table -> [K, R, L, W], bart_tpu's
+    sub-sample-major layout (bart_tpu.rt.fused.fold_table)."""
+    R, L, WK = tab_fine.shape
+    return tab_fine.reshape(R, L, WK // K, K).permute(3, 0, 1, 2)
+
+
+def unfold_table(tabk: torch.Tensor) -> torch.Tensor:
+    """[K, R, L, W] -> [R, L, W K] bin-major: the inverse of fold_table."""
+    K, R, L, W = tabk.shape
+    return tabk.permute(1, 2, 3, 0).reshape(R, L, W * K)
+
+
+def eclipse_folded_plain(ft: FoldedTable, wn_out: torch.Tensor,
+                         mu: torch.Tensor, muw: torch.Tensor,
+                         wrows: torch.Tensor, T: torch.Tensor,
+                         drp: torch.Tensor, powers: bool = False
+                         ) -> torch.Tensor:
+    """Plain batched torch version of the folded eclipse kernel
+    (bart_tpu's ``_single_folded`` under vmap): wn_out [W] the output bin
+    centres, wrows [C, L, R], T, drp [C, L] -> flux [C, W] in wrows'
+    dtype.  The table is widened to that dtype (a bfloat16 table to
+    float32: exact) and the sub-samples are walked one at a time, so the
+    largest temporary is [C, L, W], not [C, K, L, W]."""
+    tabv = ft.bins()
+    sbar = None
+    for k in range(ft.K):
+        ext = torch.einsum("clr,rlw->clw", wrows,
+                           tabv[..., k].to(wrows.dtype))
+        seg = 0.5 * (ext[:, :-1] + ext[:, 1:]) * drp[:, 1:, None]
+        tau = torch.cat([torch.zeros_like(ext[:, :1]),
+                         torch.cumsum(seg, dim=1)], dim=1)
+        S = smix(tau, mu, muw, powers)
+        sbar = S if sbar is None else sbar + S
+    sbar = sbar / ft.K                                          # [C, L, W]
+    B = planck_wn(wn_out, T[..., None])
+    Bmid = 0.5 * (B[:, :-1] + B[:, 1:])
+    flux = torch.sum(Bmid * (sbar[:, :-1] - sbar[:, 1:]), dim=1)
+    return 2.0 * np.pi * (flux + B[:, -1] * sbar[:, -1])
+
+
+def transit_folded_plain(ft: FoldedTable, wrows: torch.Tensor,
+                         G: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """Plain batched torch version of the folded transit kernel
+    (bart_tpu's ``_tsingle_folded`` under vmap): wrows [C, L, R],
+    G [C, L, L] (taken as lower-triangular), wgt [C, L] -> out [C, W] in
+    wrows' dtype; the table is widened and walked as in
+    ``eclipse_folded_plain``."""
+    tabv = ft.bins()
+    Gl = torch.tril(G)
+    abar = None
+    for k in range(ft.K):
+        ext = torch.einsum("clr,rlw->clw", wrows,
+                           tabv[..., k].to(wrows.dtype))
+        tau = torch.bmm(Gl, ext)
+        absorb = 1.0 - torch.exp(-torch.clamp(tau, max=TAU_CLAMP))
+        abar = absorb if abar is None else abar + absorb
+    return torch.bmm(wgt[:, None, :], abar / ft.K)[:, 0]
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home
@@ -149,8 +265,12 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    """build/<name>_<hash>.so, keyed on the source and the flags."""
+    """build/<name>_<hash>.so, keyed on the source, the csrc headers it
+    includes (``#include "x.cuh"``, which include no further ones) and
+    the flags."""
     src = (_CSRC / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'^\s*#include\s+"([^"]+)"', src, re.M):
+        src += (_CSRC / header.decode()).read_bytes()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode())
     return _BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
@@ -280,6 +400,15 @@ def fused_eclipse(tab: torch.Tensor, wn: torch.Tensor, mu: torch.Tensor,
 fused_eclipse.launches = 0
 
 
+def _transit_smem(L: int) -> int:
+    """Bytes of shared memory a block of the transit kernels needs: ext
+    for all layers, the annulus weights, two stage buffers (as the
+    kernel's launcher counts them)."""
+    Lp = -(-L // 4) * 4
+    return 4 * (_T_CB * Lp * _T_TILE_W + -(-_T_CB * L // 4) * 4
+                + 2 * _T_CB * max(_T_RC * (_T_TILE_W + _T_CB), _T_NB * Lp))
+
+
 def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
                   wgt: torch.Tensor) -> torch.Tensor:
     """Annulus-integrated absorption out [C, W], batched over chains.
@@ -309,10 +438,7 @@ def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
     if min(R, L, W, C) < 1:
         raise ValueError("fused_transit: empty row, layer, wn or chain axis")
     Rp, Lp, Wp = (-(-n // 4) * 4 for n in (R, L, W))
-    # ext for all layers, the annulus weights, two stage buffers (as the
-    # kernel's launcher counts them)
-    smem = 4 * (_T_CB * Lp * _T_TILE_W + -(-_T_CB * L // 4) * 4
-                + 2 * _T_CB * max(_T_RC * (_T_TILE_W + _T_CB), _T_NB * Lp))
+    smem = _transit_smem(L)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"fused_transit: {L} layers need {smem} B of "
                          f"shared memory, more than a block has "
@@ -351,3 +477,169 @@ def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
 
 #: kernel launches made by fused_transit (plain-path calls do not count)
 fused_transit.launches = 0
+
+
+def _check_folded(fn: str, ft: FoldedTable, dev: torch.device) -> int:
+    """Raise unless the kernels take ``ft``; 1 for a bfloat16 table."""
+    if not isinstance(ft, FoldedTable):
+        raise TypeError(f"{fn}: the fine table must be a FoldedTable "
+                        "(folded_table), not " + type(ft).__name__)
+    tab = ft.tab
+    if tab.device != dev:
+        raise ValueError(f"{fn}: table on {tab.device}, expected {dev}")
+    if tab.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{fn}: the kernel reads float32 or bfloat16 "
+                        f"tables, not {tab.dtype}")
+    if ft.K not in _FOLD_K:
+        raise ValueError(f"{fn}: K = {ft.K}; the kernel takes {_FOLD_K}")
+    if (tab.dim() != 3 or not tab.is_contiguous()
+            or tab.shape[2] % _FOLD_ALIGN or ft.W * ft.K > tab.shape[2]
+            or ft.W < 1):
+        raise ValueError(f"{fn}: table of shape {tuple(tab.shape)} is not a "
+                         f"contiguous [R, L, Fp >= {ft.W} x {ft.K}] with Fp "
+                         f"a multiple of {_FOLD_ALIGN} (folded_table)")
+    if tab.numel() >= 2**31:
+        raise ValueError(f"{fn}: table beyond 2^31 elements")
+    return int(tab.dtype == torch.bfloat16)
+
+
+def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
+                         mu: torch.Tensor, muw: torch.Tensor,
+                         wrows: torch.Tensor, T: torch.Tensor,
+                         drp: torch.Tensor, powers: bool = False
+                         ) -> torch.Tensor:
+    """Eclipse flux [C, W] on the output bins from a K-times-finer table,
+    batched over chains: ``fused_eclipse`` with the fine table ``ft``
+    (``folded_table``) in place of ``tab`` and the bin centres ``wn_out``
+    [W] in place of ``wn``.
+
+    A CPU ``T`` runs ``eclipse_folded_plain``.  A CUDA ``T`` launches the
+    kernel on the current stream, without synchronising: the table is
+    read as stored (float32 or bfloat16), everything else in float32,
+    and the result is cast to ``T.dtype``.  It raises on any input the
+    kernel does not take, and never falls back.
+    """
+    if T.device.type == "cpu":
+        return eclipse_folded_plain(ft, wn_out, mu, muw, wrows, T, drp,
+                                    powers)
+    if T.device.type != "cuda":
+        raise ValueError(f"fused_eclipse_folded: unsupported device "
+                         f"{T.device}")
+    fn = "fused_eclipse_folded"
+    dev = T.device
+    bf16 = _check_folded(fn, ft, dev)
+    R, L, Fp = ft.tab.shape
+    W, K = ft.W, ft.K
+    C = T.shape[0]
+    nmu = int(mu.shape[0])
+    for name, x, shape in (("wn_out", wn_out, (W,)), ("mu", mu, (nmu,)),
+                           ("muw", muw, (nmu,)), ("wrows", wrows, (C, L, R)),
+                           ("T", T, (C, L)), ("drp", drp, (C, L))):
+        _check(fn, name, x, shape, dev)
+    if not 1 <= nmu <= _MAX_NMU:
+        raise ValueError(f"{fn}: {nmu} quadrature nodes, the kernel takes "
+                         f"1..{_MAX_NMU}")
+    if min(R, L, C) < 1:
+        raise ValueError(f"{fn}: empty row, layer or chain axis")
+    smem = 4 * (R * _F_TILE_F + _F_TY * _F_CPT * R)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{fn}: {R} rows need {smem} B of shared memory, "
+                         f"more than a block has ({_SMEM_LIMIT})")
+    if -(-C // (_F_TY * _F_CPT)) > _MAX_GRID_Y:
+        raise ValueError(f"{fn}: {C} chains exceed the grid's "
+                         f"{_MAX_GRID_Y * _F_TY * _F_CPT}")
+    if max(C * L * R, C * W) >= 2**31:
+        raise ValueError(f"{fn}: tensors beyond 2^31 elements")
+
+    f32 = torch.float32
+    wrows32 = wrows.to(f32).contiguous()
+    T32 = T.to(f32).contiguous()
+    drp32 = drp.to(f32).contiguous()
+    wn32 = wn_out.to(f32).contiguous()
+    mu32 = mu.to(f32)
+    minv = (1.0 / mu32).contiguous()
+    wmu = (muw.to(f32) * mu32).contiguous()
+    out = torch.empty((C, W), dtype=f32, device=dev)
+
+    lib = load_kernel(fn)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bart_fused_eclipse_folded(
+            ft.tab.data_ptr(), wrows32.data_ptr(), T32.data_ptr(),
+            drp32.data_ptr(), wn32.data_ptr(), minv.data_ptr(),
+            wmu.data_ptr(), out.data_ptr(),
+            R, L, W, Fp, C, K, nmu, int(bool(powers)), bf16, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+    fused_eclipse_folded.launches += 1
+    return out.to(T.dtype)
+
+
+#: kernel launches made by fused_eclipse_folded
+fused_eclipse_folded.launches = 0
+
+
+def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
+                         G: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """Annulus-integrated absorption out [C, W] on the output bins from a
+    K-times-finer table, batched over chains: ``fused_transit`` with the
+    fine table ``ft`` (``folded_table``) in place of ``tab``.
+
+    A CPU ``wgt`` runs ``transit_folded_plain``.  A CUDA ``wgt`` launches
+    the kernel on the current stream, without synchronising: the table
+    is read as stored (float32 or bfloat16), everything else in float32,
+    and the result is cast to ``wgt.dtype``.  It raises on any input the
+    kernel does not take, and never falls back.
+    """
+    if wgt.device.type == "cpu":
+        return transit_folded_plain(ft, wrows, G, wgt)
+    if wgt.device.type != "cuda":
+        raise ValueError(f"fused_transit_folded: unsupported device "
+                         f"{wgt.device}")
+    fn = "fused_transit_folded"
+    dev = wgt.device
+    bf16 = _check_folded(fn, ft, dev)
+    R, L, Fp = ft.tab.shape
+    W, K = ft.W, ft.K
+    C = wgt.shape[0]
+    for name, x, shape in (("wrows", wrows, (C, L, R)), ("G", G, (C, L, L)),
+                           ("wgt", wgt, (C, L))):
+        _check(fn, name, x, shape, dev)
+    if min(R, L, C) < 1:
+        raise ValueError(f"{fn}: empty row, layer or chain axis")
+    Rp, Lp = (-(-n // 4) * 4 for n in (R, L))
+    smem = _transit_smem(L)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory, "
+                         f"more than a block has ({_SMEM_LIMIT})")
+    if -(-W * K // _T_TILE_W) > _MAX_GRID_Y:
+        raise ValueError(f"{fn}: {W * K} fine wavenumbers exceed the grid's "
+                         f"{_MAX_GRID_Y * _T_TILE_W}")
+    if max(C * L * Lp, C * L * Rp, C * W) >= 2**31:
+        raise ValueError(f"{fn}: tensors beyond 2^31 elements")
+
+    # per call only the small operands are padded: wrows' row axis and
+    # G's last axis to multiples of 4 (G's upper triangle zeroed)
+    f32 = torch.float32
+    wrows32 = torch.zeros((C, L, Rp), dtype=f32, device=dev)
+    wrows32[..., :R] = wrows
+    G32 = torch.zeros((C, L, Lp), dtype=f32, device=dev)
+    G32[..., :L] = torch.tril(G)
+    wgt32 = wgt.to(f32).contiguous()
+    out = torch.empty((C, W), dtype=f32, device=dev)
+
+    lib = load_kernel(fn)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bart_fused_transit_folded(
+            ft.tab.data_ptr(), wrows32.data_ptr(), G32.data_ptr(),
+            wgt32.data_ptr(), out.data_ptr(), R, Rp, L, W, Fp, C, K, bf16,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+    fused_transit_folded.launches += 1
+    return out.to(wgt.dtype)
+
+
+#: kernel launches made by fused_transit_folded
+fused_transit_folded.launches = 0

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from bart_tpu import constants as const
+from bart_tpu_torch import constants as const
 
 __all__ = ["planck_wn", "C1"]
 

@@ -8,20 +8,32 @@ rows -> a fused CUDA kernel -> bands -> likelihood -> snooker step.
 Eclipse runs the fused eclipse kernel on the 27 line rows; transit
 (examples/demo_transit.cfg: a fitted radius and the in-repo H2-H2 CIA
 table, 27 + 14 = 41 rows) runs slant_geometry and the fused transit
-kernel, on the same opacity table.  Phases:
+kernel, on the same opacity table.  The folded paths are the
+publication-accuracy configuration (rtosamp = 32, adaptive split 0.02,
+bfloat16 fine tables; eclipse with the expsum quadrature, transit with
+CIA): the table lives on the 32-times-finer grid (80,032 wn), the folded
+kernels average each output bin's 32 sub-samples after the exponential
+on the bins that have line structure, and the K = 1 kernels take the
+smooth bins.  Phases:
 
   0. the card's name and power limit (nvidia-smi); no card -> exit 2
-  1. build both kernels from bart_tpu_torch/csrc with nvcc, in parallel
+  1. build the four kernels from bart_tpu_torch/csrc with nvcc, in
+     parallel
   2. each kernel vs its plain torch version on random rows at the bench
      shape and a ragged one (eclipse: both quadratures; transit: rows
-     whose slant tau crosses unity inside the atmosphere)
+     whose slant tau crosses unity inside the atmosphere; folded: float32
+     and bfloat16 tables with narrow features inside the bins, and the
+     result must differ from the K = 1 result on the bin-mean table)
   3. the port's own opacity build on the card, then one 512-chain
-     forward batch through ForwardModel.batched() per geometry
-  4. a short snooker retrieval (run_mcmc) per geometry on synthetic data
-  5. serialized times per geometry: kernel, plain version, whole
-     forward, forward less the kernel
+     forward batch through ForwardModel.batched() per geometry; folded:
+     the fine build, the fine share of bins, a forward per geometry held
+     against the plain versions part by part and against the K = 1
+     forward
+  4. a short snooker retrieval (run_mcmc) per path on synthetic data
+  5. serialized times per path: kernel, plain version, whole forward,
+     forward less the kernels
 
-Each path's launch count is zeroed just before its phase 3 and read
+Each path's launch counts are zeroed just before its phase 3 and read
 just after its phase 4.  Any failed check raises and exits non-zero.
 The last two lines of stdout are the kernels' JSON record and the
 result JSON.
@@ -57,6 +69,63 @@ TRANSIT_REPLACES = "bart_tpu/rt/fused.py:341"  # def _tkernel
 # share of (chain, b, w) points whose slant tau must lie in [0.1, 10] in
 # a transit comparison: with saturated tau, out = sum(wgt) whatever ext
 MIXED_SHARE = 0.2
+# The folded kernels against their plain versions: the same tolerances
+# (both sides read the same float32 or bfloat16 table and differ in the
+# order of sums only, now also over the K sub-samples of a bin).
+FOLDED_REPLACES = "bart_tpu/rt/fused.py:535"          # def _fkernel
+FOLDED_TRANSIT_REPLACES = "bart_tpu/rt/fused.py:780"  # def _ftkernel
+FOLD_K = 32
+# a folded result must differ from the K = 1 result on the bin-mean table
+# by more than this somewhere: averaging ext before the exponential fails
+FOLD_MIN_DIFF = 1e-3
+# folded forward vs K = 1 forward on the 2501-point table: a sanity bound
+# on the bands (the two differ by the sampling error folding removes)
+FOLD_K1_BAND_RTOL = 0.05
+
+# The card's peak rates for ``bound_ms`` (NVIDIA H100 SXM data sheet):
+# HBM3 bytes/s, float32 FLOP/s outside the tensor cores (an FMA is two),
+# and special-function results/s at the same clock as that float32 peak:
+# an SM has 16 special-function lanes beside 128 float32 lanes of 2 FLOP
+# (Hopper architecture white paper), so 1/16 of the FLOP rate.
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+SFU_PS = F32_FLOPS / 16
+
+
+def bound(fmas: float, exps: float, nbytes: float) -> tuple[float, str, str]:
+    """(least ms the card could take, "operations" or "bytes", the term
+    that binds): the largest of the FMAs at the float32 peak, the
+    exponentials at the special-function rate and the bytes at the HBM
+    rate."""
+    terms = {"fmas": 2e3 * fmas / F32_FLOPS,
+             "exponentials": 1e3 * exps / SFU_PS,
+             "bytes": 1e3 * nbytes / HBM_BPS}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def eclipse_bound(R, L, F, C, nmu, powers, K, nbytes_in):
+    """Bound of one eclipse launch, K = 1 or folded over F = W K fine
+    points: per (chain, layer, fine point) R FMAs for ext, 4 for the
+    recurrence and the flux, nmu for the quadrature, and 1 (powers) or
+    nmu exponentials; one Planck exponential per (chain, layer, output
+    bin).  Bytes: every input as stored and the output, once each."""
+    pts = C * L * F
+    return bound(pts * (R + nmu + 4),
+                 pts * (1 if powers else nmu) + pts // K,
+                 nbytes_in + 4 * C * (F // K))
+
+
+def transit_bound(R, L, F, C, K, nbytes_in):
+    """Bound of one transit launch, K = 1 or folded over F = W K fine
+    points: per (chain, fine point) L R FMAs for ext, L (L + 1) / 2 for
+    the triangle of slant paths and L for the annulus sum, and L
+    exponentials."""
+    return bound(C * F * (L * R + L * (L + 1) // 2 + L), C * F * L,
+                 nbytes_in + 4 * C * (F // K))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -190,7 +259,7 @@ def transit_path(fused, fm, inp, nchain: int, f32: dict) -> dict:
     # the forward's own rows through the plain version, on out itself
     t = fmt.tables
     T_safe, q, rad_cm, _ = fmt._profiles(params, t)
-    tab, wrows = fmt._fused_rows(params, t, T_safe, q, rad_cm)
+    ((tab, _, _, _),), wrows = fmt._fused_rows(params, t, T_safe, q, rad_cm)
     G, wgt = slant_geometry(rad_cm)
     n = fused.fused_transit.launches
     got = fused.fused_transit(tab, wrows, G, wgt)
@@ -268,6 +337,282 @@ def transit_times(fused, path: dict):
     return k_ms, p_ms, fwd, rest
 
 
+def folded_kernels_vs_plain(fused, filters, f32: dict, quads: dict) -> dict:
+    """Phase 2, folded: each folded kernel vs its plain version on random
+    rows at the full-width shape (K = 32, float32 and bfloat16 tables)
+    and a ragged one (K = 4).  Returns each kernel's max abs error at the
+    full-width shape."""
+    import torch
+
+    from bart_tpu_torch.demo import (fine_structure, random_rows,
+                                     random_transit_rows)
+    from bart_tpu_torch.obs.bands import band_integrate, build_band_matrix
+
+    def fine_table(tab, K):
+        R, L, W = tab.shape
+        factor = torch.tensor(fine_structure(R, W, K), **f32)
+        return (tab[..., None] * factor).reshape(R, L, W * K)
+
+    def report(what, got, ref, ref64, mean, bands, rtol, extra=""):
+        e, e_band = rel_err(got, ref), rel_err(band_integrate(bands, got),
+                                               band_integrate(bands, ref))
+        diff = rel_err(got, mean)
+        print(f"# phase 2: {what}: max rel err {e:.3e}, band {e_band:.3e}, "
+              f"max abs {abs_err(got, ref):.3e}; vs float64 plain: kernel "
+              f"{rel_err(got, ref64):.3e}, float32 plain "
+              f"{rel_err(ref, ref64):.3e}; differs from K = 1 on the "
+              f"bin-mean table by up to {diff:.3e}{extra}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        check(e < rtol, f"{what}: rel err {e}")
+        check(e_band < BAND_RTOL, f"{what}: band rel err {e_band}")
+        check(diff > FOLD_MIN_DIFF, f"{what}: no in-bin structure ({diff})")
+
+    max_abs = {"eclipse": 0.0, "transit": 0.0}
+    for (R, Rt, L, W, C, K) in ((27, 41, 100, 1125, 512, FOLD_K),
+                                (18, 17, 23, 75, 6, 4)):
+        bands = build_band_matrix(np.linspace(2500.0, 5000.0, W), filters,
+                                  device=f32["device"], dtype=torch.float32)
+        # ---- eclipse
+        tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
+                                  for a in random_rows(R, L, W, C, seed=7))
+        fine = fine_table(tab, K)
+        for tdt in (torch.float32, torch.bfloat16):
+            ft = fused.folded_table(fine, K, tdt)
+            ft64 = fused.FoldedTable(ft.tab.double(), K, W)
+            for quad, ((mu, muw), powers) in quads.items():
+                rest = [torch.tensor(mu, **f32), torch.tensor(muw, **f32),
+                        wrows, T, drp]
+                got = fused.fused_eclipse_folded(ft, wn, *rest, powers)
+                ref = fused.eclipse_folded_plain(ft, wn, *rest, powers)
+                ref64 = fused.eclipse_folded_plain(
+                    ft64, wn.double(), *(x.double() for x in rest), powers)
+                mean = fused.fused_eclipse(tab, wn, *rest, powers)
+                torch.cuda.synchronize()
+                report(f"folded eclipse R={R} L={L} W={W} C={C} K={K} "
+                       f"{str(tdt)[6:]} {quad}", got, ref, ref64, mean, bands,
+                       SPEC_RTOL[powers])
+                if K == FOLD_K:
+                    max_abs["eclipse"] = max(max_abs["eclipse"],
+                                             abs_err(got, ref))
+                del ref64
+        del tab, wrows, fine, ft, ft64
+        # ---- transit
+        tab, wrows, G, wgt = (
+            torch.tensor(a, **f32)
+            for a in random_transit_rows(Rt, L, W, C, seed=7)[:4])
+        fine = fine_table(tab, K)
+        nc = min(C, 16)
+        mixed = mixed_share(fine, wrows[:nc], G[:nc])
+        check(mixed >= MIXED_SHARE, f"saturated folded problem ({mixed})")
+        for tdt in (torch.float32, torch.bfloat16):
+            ft = fused.folded_table(fine, K, tdt)
+            ft64 = fused.FoldedTable(ft.tab.double(), K, W)
+            got = fused.fused_transit_folded(ft, wrows, G, wgt)
+            ref = fused.transit_folded_plain(ft, wrows, G, wgt)
+            ref64 = fused.transit_folded_plain(ft64, wrows.double(),
+                                               G.double(), wgt.double())
+            mean = fused.fused_transit(tab, wrows, G, wgt)
+            torch.cuda.synchronize()
+            report(f"folded transit R={Rt} L={L} W={W} C={C} K={K} "
+                   f"{str(tdt)[6:]}", got, ref, ref64, mean, bands, OUT_RTOL,
+                   f"; slant tau in [0.1, 10] at {mixed:.3f} of points")
+            if K == FOLD_K:
+                max_abs["transit"] = max(max_abs["transit"],
+                                         abs_err(got, ref))
+            del ref64
+        del tab, wrows, G, wgt, fine, ft, ft64
+    return max_abs
+
+
+def folded_path(fused, inp, solution: str, grid, fm_k1, nchain: int,
+                f32: dict, budget_bytes: float) -> dict:
+    """Phases 3 and 4 of one folded path (``grid`` None builds the fine
+    opacity table): a 512-chain forward checked part by part against the
+    plain versions and against the K = 1 model ``fm_k1``, then a short
+    snooker retrieval.  Returns what phase 5 times and the path's
+    launch counts."""
+    import torch
+
+    from bart_tpu_torch.demo import (DEMO_PARAMS, DEMO_PARAMS_TRANSIT,
+                                     TRANSIT_BOUNDS, TRUTH, TRUTH_TRANSIT,
+                                     build_demo_model)
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+    from bart_tpu_torch.inference.retrieval import run_mcmc
+    from bart_tpu_torch.obs.bands import band_integrate
+    from bart_tpu_torch.rt.transit_geom import slant_geometry
+
+    transit = solution == "transit"
+    kernels = ((fused.fused_transit_folded, fused.fused_transit) if transit
+               else (fused.fused_eclipse_folded, fused.fused_eclipse))
+    if grid is None:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fm = build_demo_model(
+        inp, device=f32["device"], dtype=torch.float32, grid=grid,
+        quadrature="raygrid" if transit else "expsum", solution=solution,
+        cia=transit, fold=FOLD_K, fold_adapt=0.02, fold_bf16=True,
+        budget_bytes=budget_bytes)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t = fm.tables
+    check(fm._idx_fine is not None, "the adaptive split did not activate")
+    n_f, n_s = len(fm._idx_fine), len(fm._idx_smooth)
+    print(f"# phase 3: folded {solution} model (K={FOLD_K}, adaptive 0.02, "
+          f"bf16 fine rows) "
+          + (f"with the fine table {tuple(fm.opacity.sigma.shape)} built on "
+             f"the card " if grid is None else "on the same fine table ")
+          + f"in {setup_s:.1f} s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB): "
+          f"{n_f} of {n_f + n_s} bins fine ({n_f / (n_f + n_s):.3f}); tabk "
+          f"{tuple(t['tabk'].tab.shape)} {str(t['tabk'].tab.dtype)[6:]}, "
+          f"tabs {tuple(t['tabs'].shape)}")
+    check(n_f + n_s == len(inp.wn), "the split lost bins")
+    check(t["tabk"].tab.dtype == torch.bfloat16, "fine rows are not bf16")
+    check(bool(torch.isfinite(fm.opacity.sigma).all()),
+          "non-finite fine opacity table")
+
+    for k in kernels:
+        k.launches = 0                        # the folded path starts here
+    rng = np.random.default_rng(2)
+    if transit:
+        base, truth = DEMO_PARAMS_TRANSIT, TRUTH_TRANSIT
+        spread = np.where(np.arange(7) == 5, 10.0, 0.005)
+    else:
+        base, truth, spread = DEMO_PARAMS, TRUTH, 0.005
+    params = torch.tensor(np.tile(base, (nchain, 1))
+                          + rng.normal(0, 1, (nchain, len(base))) * spread,
+                          **f32)
+    forward = fm.batched()
+    band, spec, valid = forward(params)
+    torch.cuda.synchronize()
+    check(tuple(band.shape) == (nchain, 10), f"band shape {band.shape}")
+    check(tuple(spec.shape) == (nchain, len(inp.wn)),
+          f"spectrum shape {spec.shape}")
+    check(bool(valid.all()), f"invalid folded {solution} samples")
+    check(bool(torch.isfinite(band).all() & torch.isfinite(spec).all()),
+          f"non-finite folded {solution} output")
+    check(all(k.launches == 1 for k in kernels),
+          f"folded {solution} forward launched "
+          f"{[k.launches for k in kernels]}, expected one of each")
+    counts = [k.launches for k in kernels]
+
+    # the forward's own rows through the plain versions, part by part
+    T_safe, q, rad_cm, _ = fm._profiles(params, t)
+    parts, wrows = fm._fused_rows(params, t, T_safe, q, rad_cm)
+    if transit:
+        geom = slant_geometry(rad_cm)
+        rows = {True: (wrows, *geom), False: (wrows, *geom)}
+        plains = {True: fused.transit_folded_plain, False: fused.transit_plain}
+        rtol = OUT_RTOL
+    else:
+        dr = rad_cm[:, :-1] - rad_cm[:, 1:]
+        drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
+        tail = (t["mu"], t["mu_w"], wrows, T_safe, drp, fm._powers)
+        rows = {True: (t["wn_f"], *tail), False: (t["wn_s"], *tail)}
+        plains = {True: fused.eclipse_folded_plain, False: fused.eclipse_plain}
+        rtol = SPEC_RTOL[fm._powers]
+    pieces, errs = [], []
+    for (tab, folded, _, idx), kernel in zip(parts, kernels):
+        got = kernel(tab, *rows[folded])
+        plain = plains[folded](tab, *rows[folded])
+        errs.append(rel_err(got, plain))
+        pieces.append((plain, idx))
+    plain_spec = fm._assemble(pieces, len(inp.wn))
+    if transit:
+        plain_spec = (rad_cm[:, -1:] ** 2 + plain_spec) / (
+            fm.system.r_star * 100.0) ** 2
+    e_band = rel_err(band, band_integrate(t["band_w"], plain_spec))
+    # against the K = 1 model on the 2501-point table
+    band1, spec1, _ = fm_k1.batched()(params)
+    d_band, d_spec = rel_err(band, band1), rel_err(spec, spec1)
+    for k, n in zip(kernels, counts):
+        k.launches = n                        # comparisons do not count
+    print(f"# phase 3: {nchain}-chain folded {solution} forward: depths "
+          f"{float(band.min()):.4e}..{float(band.max()):.4e}; kernel vs "
+          f"plain: folded part {errs[0]:.3e}, K = 1 part {errs[1]:.3e}, band "
+          f"{e_band:.3e}; vs the K = 1 forward on the 2501-point table: band "
+          f"{d_band:.3e}, spectrum {d_spec:.3e}")
+    check(max(errs) < rtol, f"folded {solution} parts rel err {errs}")
+    check(e_band < BAND_RTOL, f"folded {solution} band rel err {e_band}")
+    check(d_band < FOLD_K1_BAND_RTOL,
+          f"folded {solution} bands {d_band} from the K = 1 forward")
+
+    # phase 4: a short folded retrieval
+    data = forward(torch.tensor(truth[None], **f32))[0][0]
+    data = data.double().cpu().numpy()
+    uncert = (0.005 if transit else 0.03) * data
+    data = data + np.random.default_rng(42).normal(0, 1, data.shape) * uncert
+    if transit:
+        pmin, pmax, step = TRANSIT_BOUNDS
+    else:
+        pmin, pmax, step = ([-5, -2, -2, 0, 0.55, -9], [-1, 1, 1, 1, 1.2, 1.5],
+                            [0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
+    space = ParamSpace(pinit=base, pmin=pmin, pmax=pmax, stepsize=step)
+    like = Likelihood(fm, space, data, uncert)
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    res = run_mcmc(like, space, nchains=nchain, numit=nchain * 30,
+                   burnin=10, block=10, seed=7, verbose=False)
+    mcmc_s = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]     # the folded path ends here
+    print(f"# phase 4: folded {solution} snooker {nchain} chains x "
+          f"{res.niter_total // nchain} steps in {mcmc_s:.2f} s: best chi2 "
+          f"{-2 * res.best_loglike:.3f}, accept {res.accept_rate:.3f}; "
+          f"launches: folded kernel {counts[0]}, K = 1 kernel {counts[1]} "
+          f"({counts[0] - before[0]} and {counts[1] - before[1]} in the "
+          f"retrieval)")
+    check(np.isfinite(res.best_loglike), "non-finite folded best loglike")
+    check(res.accept_rate > 0.0, "no accepted folded proposal")
+    check(all(n > b for n, b in zip(counts, before)),
+          f"folded {solution} retrieval did not launch both kernels")
+    return dict(fm=fm, forward=forward, params=params, launches=counts,
+                parts=parts, rows=rows, kernels=kernels, plains=plains,
+                solution=solution)
+
+
+def folded_times(fused, path: dict) -> dict:
+    """Phase 5 of one folded path: ms of the folded kernel, its plain
+    version, the K = 1 kernel on the smooth bins, the whole forward and
+    the forward less the kernels (with their rounds)."""
+    import torch
+
+    from bart_tpu_torch.obs.bands import band_integrate
+    from bart_tpu_torch.rt.transit_geom import slant_geometry
+
+    fm, parts, rows = path["fm"], path["parts"], path["rows"]
+    t = fm.tables
+    (tabk, _, _, idx_f), (tabs, _, _, idx_s) = parts
+    kernels, plains = path["kernels"], path["plains"]
+    counts = [k.launches for k in kernels]
+    out = dict(
+        k_ms=cuda_ms(lambda: kernels[0](tabk, *rows[True]), 5),
+        p_ms=cuda_ms(lambda: plains[True](tabk, *rows[True]), 2),
+        k1_ms=cuda_ms(lambda: kernels[1](tabs, *rows[False]), 10))
+    out["fwd"] = serialized_ms(lambda p: path["forward"](p)[0],
+                               path["params"], 5)
+    C, n_wn = path["params"].shape[0], t["wn"].shape[0]
+    zeros = [(torch.zeros(C, len(i), dtype=torch.float32, device=i.device), i)
+             for i in (idx_f, idx_s)]
+
+    def no_kernel(p):
+        # the forward's own work around the kernels: profiles, rows, the
+        # geometry, putting the pieces together and the band integration
+        Ts, qq, rr, _ = fm._profiles(p, t)
+        _, wr = fm._fused_rows(p, t, Ts, qq, rr)
+        if path["solution"] == "transit":
+            extra = sum(x.sum() for x in slant_geometry(rr))
+        else:
+            d = rr[:, :-1] - rr[:, 1:]
+            extra = torch.cat([torch.zeros_like(d[:, :1]), d], dim=1).sum()
+        spec = fm._assemble(zeros, n_wn)
+        return band_integrate(t["band_w"], spec + 0.0 * (wr.sum() + extra))
+
+    out["rest"] = serialized_ms(no_kernel, path["params"], 10)
+    for k, n in zip(kernels, counts):
+        k.launches = n
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -301,9 +646,11 @@ def main() -> int:
     # --- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
     fused.build_kernels()
-    for name in ("fused_eclipse", "fused_transit"):
+    names = ("fused_eclipse", "fused_transit", "fused_eclipse_folded",
+             "fused_transit_folded")
+    for name in names:
         fused.load_kernel(name)
-    print(f"# phase 1: kernels built and loaded in "
+    print(f"# phase 1: {len(names)} kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
     # --- phase 2: kernel vs plain on random rows ----------------------
@@ -340,6 +687,7 @@ def main() -> int:
             check(e_band < BAND_RTOL, f"band rel err {e_band}")
         del tab, wrows
     t_max_abs = transit_kernel_vs_plain(fused, inp_full.filters, f32)
+    f_max_abs = folded_kernels_vs_plain(fused, inp_full.filters, f32, quads)
     fused.fused_eclipse.launches = 0   # comparisons do not count
 
     # --- phase 3: full-width forward -----------------------------------
@@ -370,7 +718,7 @@ def main() -> int:
     # the same rows through the plain version
     t = fm.tables
     T_safe, q, rad_cm, _ = fm._profiles(params, t)
-    tab, wrows = fm._fused_rows(params, t, T_safe, q, rad_cm)
+    ((tab, _, _, _),), wrows = fm._fused_rows(params, t, T_safe, q, rad_cm)
     dr = rad_cm[:, :-1] - rad_cm[:, 1:]
     drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
     plain = fused.eclipse_plain(tab, t["wn"], t["mu"], t["mu_w"], wrows,
@@ -412,6 +760,14 @@ def main() -> int:
     # --- phases 3 and 4, transit ---------------------------------------
     tpath = transit_path(fused, fm, inp_full, nchain, f32)
 
+    # --- phases 3 and 4, folded: eclipse builds the fine table ---------
+    fm_k1 = build_demo_model(inp_full, device=dev, dtype=torch.float32,
+                             grid=fm.opacity, quadrature="expsum")
+    fpath = folded_path(fused, inp_full, "eclipse", None, fm_k1, nchain, f32,
+                        budget_bytes=24e9)
+    ftpath = folded_path(fused, inp_full, "transit", fpath["fm"].opacity,
+                         tpath["fm"], nchain, f32, budget_bytes=24e9)
+
     # --- phase 5: times ------------------------------------------------
     mu, muw = t["mu"], t["mu_w"]
     k_ms = cuda_ms(lambda: fused.fused_eclipse(
@@ -446,25 +802,65 @@ def main() -> int:
           f"kernel {tr_ms:.3f} ms (rounds "
           f"{', '.join(f'{x:.2f}' for x in tr_rounds)})")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_eclipse",
-        "route": "cuda",
-        "source": "bart_tpu_torch/csrc/fused_eclipse.cu",
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "fused_transit",
-        "route": "cuda",
-        "source": "bart_tpu_torch/csrc/fused_transit.cu",
-        "replaces": TRANSIT_REPLACES,
-        "launches": tpath["launches"],
-        "max_abs_err": t_max_abs,
-        "ms": tk_ms,
-        "plain_ms": tp_ms,
-    }]}))
+    ft_ = {name: folded_times(fused, path)
+           for name, path in (("eclipse", fpath), ("transit", ftpath))}
+    for name, path in (("eclipse", fpath), ("transit", ftpath)):
+        x, tabk = ft_[name], path["parts"][0][0]
+        print(f"# phase 5 ({smi.strip()}): per {nchain}-chain batch: folded "
+              f"{name} kernel {x['k_ms']:.3f} ms on {tabk.W} bins x "
+              f"{tabk.K}, its plain version {x['p_ms']:.3f} ms, the K = 1 "
+              f"kernel on the smooth bins {x['k1_ms']:.3f} ms, forward "
+              f"{x['fwd'][0]:.3f} ms (rounds "
+              f"{', '.join(f'{v:.2f}' for v in x['fwd'][1])}), forward less "
+              f"the kernels {x['rest'][0]:.3f} ms (rounds "
+              f"{', '.join(f'{v:.2f}' for v in x['rest'][1])})")
+
+    # --- the kernels' record: bounds from this run's shapes ------------
+    nmu = int(mu.shape[0])
+    R, L, W = tab.shape
+    e_bound = eclipse_bound(R, L, W, nchain, nmu, fm._powers, 1,
+                            nbytes(tab, wrows, T_safe, drp, t["wn"]))
+    ttab, twr, tG, twgt = tpath["rows"]
+    t_bound = transit_bound(ttab.shape[0], L, W, nchain, 1,
+                            nbytes(ttab, twr, tG, twgt))
+    ftab = fpath["parts"][0][0]
+    f_rows = fpath["rows"][True]
+    f_bound = eclipse_bound(ftab.tab.shape[0], L, ftab.W * ftab.K, nchain,
+                            int(f_rows[1].shape[0]), fpath["fm"]._powers,
+                            ftab.K, nbytes(ftab.tab, *f_rows[:-1]))
+    fttab = ftpath["parts"][0][0]
+    ft_bound = transit_bound(fttab.tab.shape[0], L, fttab.W * fttab.K, nchain,
+                             fttab.K, nbytes(fttab.tab, *ftpath["rows"][True]))
+
+    def record(name, replaces, by_path, max_abs_err, ms, plain_ms, bnd):
+        # launches: on all main paths; launches_by_path: on each that
+        # runs this kernel (the K = 1 kernels also serve the smooth bins
+        # of the folded paths)
+        return {"name": name, "route": "cuda",
+                "source": f"bart_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_term": bnd[2],
+                # no single PyTorch call computes any of the four
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        record("fused_eclipse", KERNEL_REPLACES,
+               {"eclipse": launches, "folded_eclipse": fpath["launches"][1]},
+               max_abs, k_ms, p_ms, e_bound),
+        record("fused_transit", TRANSIT_REPLACES,
+               {"transit": tpath["launches"],
+                "folded_transit": ftpath["launches"][1]},
+               t_max_abs, tk_ms, tp_ms, t_bound),
+        record("fused_eclipse_folded", FOLDED_REPLACES,
+               {"folded_eclipse": fpath["launches"][0]},
+               f_max_abs["eclipse"], ft_["eclipse"]["k_ms"],
+               ft_["eclipse"]["p_ms"], f_bound),
+        record("fused_transit_folded", FOLDED_TRANSIT_REPLACES,
+               {"folded_transit": ftpath["launches"][0]}, f_max_abs["transit"],
+               ft_["transit"]["k_ms"], ft_["transit"]["p_ms"], ft_bound),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,14 +68,14 @@ def _torch_grid(grid):
 def _torch_model(inp, grid, **cfg):
     quad = cfg.pop("quadrature", "raygrid")
     fm = build_demo_model(inp, dtype=F64, grid=_torch_grid(grid),
-                          quadrature=quad)
+                          quadrature=quad, device="cpu")
     if cfg:
         fm = ForwardModel(ForwardConfig(quadrature=quad, **inp.config_kwargs,
                                         **cfg),
                           wn_grid=inp.wn, pressure=inp.pressure,
                           species=inp.species, base_abundances=inp.base_q,
                           opacity=_torch_grid(grid), system=inp.system,
-                          bands=fm.bands, dtype=F64)
+                          bands=fm.bands, dtype=F64, device="cpu")
     return fm
 
 
@@ -130,9 +130,9 @@ def test_forward_matches_bart_tpu_batched(demo, cfg):
 @pytest.mark.parametrize("cfg,kw", [
     ({"pt_type": "iso"}, {}),
     ({"pt_type": "madhu_noinv"}, {}),
-    ({}, {"fold_osamp": 4}),
+    ({"pt_type": "madhu_inv"}, {}),
     ({}, {"opacity": {}}),               # on-the-fly line tiles
-    ({"solution": "transit"}, {"fold_osamp": 4}),
+    ({"solution": "transit"}, {"opacity": {}}),
 ])
 def test_forward_unported_options_raise(demo, cfg, kw):
     inp, grid = demo
@@ -141,7 +141,8 @@ def test_forward_unported_options_raise(demo, cfg, kw):
         ForwardModel(ForwardConfig(**{**inp.config_kwargs, **cfg}),
                      wn_grid=inp.wn, pressure=inp.pressure,
                      species=inp.species, base_abundances=inp.base_q,
-                     system=inp.system, bands=None, dtype=F64, **kw)
+                     system=inp.system, bands=None, dtype=F64, device="cpu",
+                     **kw)
 
 
 # ---------------------------------------------------------------------

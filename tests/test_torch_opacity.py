@@ -65,7 +65,7 @@ def test_tile_lines_bucketed_matches(small):
     lines = demo_inputs(nlayer=4, nwave=900, nlines=2000).lines
     wn = np.linspace(2500.0, 5000.0, 900)
     got = ext.tile_lines_bucketed(lines, wn, 7.5, tile_size=64,
-                                  pad_lines_to=16)
+                                  pad_lines_to=16, device="cpu")
     ref = jext.tile_lines_bucketed(lines, wn, 7.5, tile_size=64,
                                    pad_lines_to=16)
     assert len(got) == len(ref) > 1
@@ -82,7 +82,8 @@ def test_cross_section_tiles_match_f64(small, mode):
     spec_t = ext.BroadeningSpec(mode=mode)
     spec_j = jext.BroadeningSpec(mode=mode)
     _, cut = _cutoff(spec_t)
-    (sel, tiles), = ext.tile_lines_bucketed(small.lines, small.wn, cut)
+    (sel, tiles), = ext.tile_lines_bucketed(small.lines, small.wn, cut,
+                                            device="cpu")
     (_, tiles_j), = jext.tile_lines_bucketed(small.lines, small.wn, cut)
     T = np.array([400.0, 1000.0, 2200.0, 3000.0])
     p = np.array([1e-5, 0.1, 3.0, 100.0]) * 1e6
@@ -97,7 +98,8 @@ def test_cross_section_tiles_match_f64(small, mode):
 
 
 def test_cross_section_osamp_raises(small):
-    (_, tiles), = ext.tile_lines_bucketed(small.lines, small.wn, 25.0)
+    (_, tiles), = ext.tile_lines_bucketed(small.lines, small.wn, 25.0,
+                                          device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ext.cross_section_tiles(tiles, torch.ones(1, dtype=F64),
                                 torch.ones(1, dtype=F64),
@@ -110,7 +112,7 @@ def test_build_opacity_grid_matches(small, jax_grid, budget):
     condition batching and the line-axis split."""
     got = grid.build_opacity_grid({"CH4": small.lines}, small.wn,
                                   small.t_grid, small.pressure,
-                                  budget_bytes=budget, dtype=F64)
+                                  budget_bytes=budget, dtype=F64, device="cpu")
     ref = np.asarray(jax_grid.sigma)
     assert got.sigma.dtype == torch.float32 and ref.dtype == np.float32
     assert got.sigma.shape == ref.shape == (1, 6, 12, 256)
@@ -136,7 +138,7 @@ def test_interp_opacity_matches(jax_grid):
 def test_load_grid_reads_bart_tpu_file(tmp_path, jax_grid):
     path = str(tmp_path / "jax_grid.npz")
     jgrid.save_grid(jax_grid, path)
-    g = grid.load_grid(path)
+    g = grid.load_grid(path, device="cpu")
     np.testing.assert_array_equal(g.sigma.numpy(), np.asarray(jax_grid.sigma))
     assert g.species == jax_grid.species
     assert g.t_min == jax_grid.t_min and g.t_step == jax_grid.t_step
@@ -148,6 +150,6 @@ def test_load_grid_reads_bart_tpu_file(tmp_path, jax_grid):
     with zipfile.ZipFile(path2) as z:
         assert all(i.compress_type == zipfile.ZIP_STORED
                    for i in z.infolist())
-    g2 = grid.load_grid(path2)
+    g2 = grid.load_grid(path2, device="cpu")
     np.testing.assert_array_equal(g2.sigma.numpy(), g.sigma.numpy())
     np.testing.assert_array_equal(g2.pressure, jax_grid.pressure)

@@ -190,7 +190,8 @@ def test_fused_transit_on_cpu_is_the_plain_path():
 
 
 def test_kernel_source_constants_match_python():
-    src = (fused._CSRC / "fused_transit.cu").read_text()
+    src = (fused._CSRC / "fused_transit.cuh").read_text() \
+        + (fused._CSRC / "fused_transit.cu").read_text()
     assert float(re.search(r"kTauClamp = ([0-9.e+-]+)f;", src).group(1)) \
         == TAU_CLAMP
     for macro, value in (("TILE_W", fused._T_TILE_W), ("CB", fused._T_CB),

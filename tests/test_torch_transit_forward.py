@@ -69,10 +69,11 @@ def _models(inp, grid, solution, cia=True, **cfg):
     tgrid = OpacityGrid(grid.species, grid.t_grid, grid.pressure,
                         grid.wn_grid, torch.tensor(np.asarray(grid.sigma)))
     fmt = build_demo_model(inp, dtype=F64, grid=tgrid, solution=solution,
-                           cia=cia)
+                           cia=cia, device="cpu")
     if cfg:
         fmt = ForwardModel(ForwardConfig(**kw, **cfg), opacity=tgrid,
-                           bands=fmt.bands, dtype=F64, **common)
+                           bands=fmt.bands, dtype=F64, device="cpu",
+                           **common)
     tabs = fmt.tables_from_jax({k: np.asarray(v)
                                 for k, v in fmj.tables.items()})
     return fmj, fmt, tabs
@@ -144,7 +145,9 @@ def test_transit_forward_matches_bart_tpu(demo, case):
     st = _compare(fmj, fmt, tabs, P)
     # the kernel's own output, before r_bot^2 is added
     T, q, rad, _ = fmt._profiles(torch.tensor(P), tabs)
-    tab, wrows = fmt._fused_rows(torch.tensor(P), tabs, T, q, rad)
+    ((tab, folded, _, idx),), wrows = fmt._fused_rows(torch.tensor(P), tabs,
+                                                      T, q, rad)
+    assert not folded and idx is None
     assert tab.shape[0] == wrows.shape[2] \
         == np.asarray(grid.sigma).shape[1] + tabs["frows"].shape[0]
     absorbed = fused_transit(tab, wrows, *slant_geometry(rad))
