@@ -1,6 +1,7 @@
-// Fused transit absorption for Hopper (sm_90a): the device code shared
-// by the K = 1 kernel (fused_transit.cu) and the folded kernel
-// (fused_transit_folded.cu).
+// Fused transit absorption for Hopper (sm_90a): the float32-pipe device
+// code shared by the K = 1 kernel (fused_transit.cu) and the folded
+// kernel on float32 tables (fused_transit_folded.cu, which holds a
+// tensor-core kernel of its own for bfloat16 tables).
 //
 // Replaces the Pallas TPU kernels bart_tpu/rt/fused.py:_tkernel (which
 // _tpallas_batch dispatches for fused_transit) and :_ftkernel (which
@@ -67,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"   // cp_async16, cp_async_commit, cp_async_wait
+
 #define TILE_W 32    // wavenumbers per block (threadIdx.x, one warp)
 #define CB 8         // chains per block (threadIdx.y, one warp each)
 #define NB 16        // impact parameters per pass of the slant loop
@@ -84,26 +87,6 @@ __device__ __forceinline__ float tab_f32(__nv_bfloat16 v) {
 
 static_assert(CB == 8 && TILE_W == 32 && NB % 4 == 0 && RC % 4 == 0,
               "the index arithmetic below assumes these");
-
-// 16-byte asynchronous copy global -> shared; when !valid nothing is
-// read and the 16 bytes are zero-filled (src-size 0)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // tab holds Rt <= R rows (the rows Rt..R-1 of wrows are zero padding);
 // F of its Fp columns are in use, K of them to an output bin

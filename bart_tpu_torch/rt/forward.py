@@ -44,7 +44,7 @@ from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
 from bart_tpu_torch.rt.fused import (FoldedTable, folded_table, fused_eclipse,
                                      fused_eclipse_folded, fused_transit,
                                      fused_transit_folded, interp_weights,
-                                     unfold_table)
+                                     prepare_slant, unfold_table)
 from bart_tpu_torch.rt.transit_geom import slant_geometry
 from bart_tpu_torch.utils.grids import folded_fine_grid
 
@@ -473,6 +473,12 @@ class ForwardModel:
         n_wn = t["wn"].shape[0]
         if self.config.solution == "transit":
             G, wgt = slant_geometry(rad_cm)
+            if G.is_cuda:
+                # the kernels' padded lower-triangular layout, made once
+                # for the launches of this forward
+                G = prepare_slant(G, tiles=any(
+                    folded and tab.tab.dtype == torch.bfloat16
+                    for tab, folded, _, _ in parts))
             absorbed = self._assemble(
                 [((fused_transit_folded if folded else fused_transit)(
                     tab, wrows, G, wgt), idx)

@@ -62,7 +62,8 @@ __all__ = ["fused_eclipse", "eclipse_plain", "fused_transit",
            "transit_plain", "fused_eclipse_folded", "eclipse_folded_plain",
            "fused_transit_folded", "transit_folded_plain", "FoldedTable",
            "folded_table", "fold_table", "unfold_table", "interp_weights",
-           "smix", "load_kernel", "build_kernels"]
+           "smix", "load_kernel", "build_kernels", "split_bf16",
+           "split_tf32", "SlantMatrix", "prepare_slant"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -74,8 +75,15 @@ _MAX_NMU = 16          # the kernel keeps the quadrature in shared memory
 _TILE_W, _CB = 128, 4
 # fused_transit.cuh: TILE_W, CB, NB, RC
 _T_TILE_W, _T_CB, _T_NB, _T_RC = 32, 8, 16, 24
-# fused_eclipse_folded.cu: TILE_F, TY, CPT
+# fused_eclipse_folded.cu: TILE_F, TY, CPT (float32 tables); MTILE_F,
+# CBM, NSTAGE, MTHREADS (bfloat16 tables, the tensor-core kernel)
 _F_TILE_F, _F_TY, _F_CPT = 128, 2, 4
+_F_MTILE_F, _F_CBM, _F_NSTAGE, _F_MTHREADS = 64, 32, 4, 256
+# fused_transit_folded.cu, the tensor-core kernel: FT_W, FT_CB, FT_NS,
+# FT_MT
+_FT_W, _FT_CB, _FT_NS, _FT_MT = 32, 8, 5, 7
+#: the tensor-core kernels pad the row axis to the depth of one bf16 product
+_MMA_K = 16
 _MAX_GRID_Y = 65535
 #: sub-samples per bin the folded kernels take: the K lanes of a warp
 _FOLD_K = (2, 4, 8, 16, 32)
@@ -88,7 +96,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _KERNELS = {
     "fused_eclipse": [_VP] * 8 + [_CI] * 6 + [_VP],
     "fused_transit": [_VP] * 5 + [_CI] * 4 + [_VP],
-    "fused_eclipse_folded": [_VP] * 8 + [_CI] * 9 + [_VP],
+    "fused_eclipse_folded": [_VP] * 9 + [_CI] * 10 + [_VP],
     "fused_transit_folded": [_VP] * 5 + [_CI] * 8 + [_VP],
 }
 
@@ -254,6 +262,112 @@ def transit_folded_plain(ft: FoldedTable, wrows: torch.Tensor,
     return torch.bmm(wgt[:, None, :], abar / ft.K)[:, 0]
 
 
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """float32 x -> (lo, mid, hi), three bfloat16 tensors, smallest
+    first, with hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid):
+    3 x 8 significant bits, so hi + mid + lo == x bit for bit in float32
+    (down to where lo leaves bfloat16's subnormal range, |x| < 2^-109).
+    Each part times a bfloat16 table element is exact in float32: the
+    tensor-core kernels contract the parts and sum in float32."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_bf16: {x.dtype}, expected float32")
+    bf = torch.bfloat16
+    hi = x.to(bf)
+    rest = x - hi.float()
+    mid = rest.to(bf)
+    return (rest - mid.float()).to(bf), mid, hi
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 x -> (big, small) as the folded transit kernel feeds its
+    3xTF32 slant product: big is x rounded to TF32's 10 mantissa bits
+    (to nearest, ties away from zero), small is x - big (exact) cut to
+    10 bits as the unit reads it.  |x - (big + small)| <= 2^-21 |x|."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32: {x.dtype}, expected float32")
+    keep = -(1 << 13)                    # 0xffffe000 as an int32
+    big = ((x.contiguous().view(torch.int32) + (1 << 12)) & keep
+           ).view(torch.float32)
+    small = ((x - big).view(torch.int32) & keep).view(torch.float32)
+    return big, small
+
+
+def _split_rows(wrows: torch.Tensor, Rp: int) -> torch.Tensor:
+    """wrows [C, L, R] -> [3, C, L, Rp] bfloat16: split_bf16's parts,
+    zero-padded along the row axis, as the tensor-core kernels read them."""
+    C, L, R = wrows.shape
+    parts = torch.zeros((3, C, L, Rp), dtype=torch.bfloat16,
+                        device=wrows.device)
+    for dst, part in zip(parts, split_bf16(wrows.to(torch.float32))):
+        dst[..., :R] = part
+    return parts
+
+
+@dataclasses.dataclass(frozen=True)
+class SlantMatrix:
+    """slant_geometry's G in the transit kernels' layouts, made by
+    ``prepare_slant`` once per forward, so that the launches of one
+    forward share it.  ``G`` [C, L, Lp] contiguous, Lp = L rounded up to
+    4, the upper triangle and the padding zero.  ``tiles`` (optional)
+    [C, Lk / 8, Lm, 8] contiguous, Lk, Lm = L rounded up to 8, 16: tile s
+    holds G[c, :, 8 s : 8 s + 8], zero-padded, which the tensor-core
+    folded kernel streams one tile a step."""
+
+    G: torch.Tensor
+    L: int
+    tiles: torch.Tensor | None = None
+
+    def plain(self) -> torch.Tensor:
+        """The [C, L, L] view the plain versions take."""
+        return self.G[..., :self.L]
+
+
+def _slant_tiles(G: torch.Tensor, L: int) -> torch.Tensor:
+    """[C, L, Lp] lower-triangular -> SlantMatrix.tiles."""
+    C = G.shape[0]
+    Lk, Lm = -(-L // 8) * 8, -(-L // 16) * 16
+    full = torch.zeros((C, Lm, Lk), dtype=G.dtype, device=G.device)
+    full[:, :L, :G.shape[2]] = G
+    return full.view(C, Lm, Lk // 8, 8).permute(0, 2, 1, 3).contiguous()
+
+
+def prepare_slant(G: torch.Tensor, dtype: torch.dtype = torch.float32,
+                  tiles: bool = False) -> SlantMatrix:
+    """G [C, L, L] -> SlantMatrix in ``dtype`` (the kernels read
+    float32), with the tiled layout too if ``tiles``."""
+    C, L, L2 = G.shape
+    if L != L2:
+        raise ValueError(f"prepare_slant: G has shape {tuple(G.shape)}, "
+                         "expected [C, L, L]")
+    out = torch.zeros((C, L, -(-L // 4) * 4), dtype=dtype, device=G.device)
+    out[..., :L] = torch.tril(G)
+    return SlantMatrix(out, L, _slant_tiles(out, L) if tiles else None)
+
+
+def _slant32(fn: str, G, C: int, L: int, dev: torch.device,
+             tiles: bool = False) -> torch.Tensor:
+    """G as the kernels read it, float32: [C, L, Lp], or the tiled layout
+    if ``tiles``.  A SlantMatrix is checked and passed on as it is (its
+    tiles made if it has none), a plain [C, L, L] tensor prepared."""
+    if not isinstance(G, SlantMatrix):
+        _check(fn, "G", G, (C, L, L), dev)
+        G = prepare_slant(G, tiles=tiles)
+    _check(fn, "G", G.G, (C, L, -(-L // 4) * 4), dev)
+    if G.L != L or G.G.dtype != torch.float32 or not G.G.is_contiguous():
+        raise ValueError(f"{fn}: the SlantMatrix is not prepare_slant's "
+                         f"contiguous float32 layout for L = {L}")
+    if not tiles:
+        return G.G
+    if G.tiles is None:
+        return _slant_tiles(G.G, L)
+    _check(fn, "G tiles", G.tiles,
+           (C, -(-L // 8), -(-L // 16) * 16, 8), dev)
+    if G.tiles.dtype != torch.float32 or not G.tiles.is_contiguous():
+        raise ValueError(f"{fn}: the SlantMatrix's tiles are not "
+                         "contiguous float32")
+    return G.tiles
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home
@@ -266,39 +380,54 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> Path:
     """build/<name>_<hash>.so, keyed on the source, the csrc headers it
-    includes (``#include "x.cuh"``, which include no further ones) and
-    the flags."""
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    for header in re.findall(rb'^\s*#include\s+"([^"]+)"', src, re.M):
-        src += (_CSRC / header.decode()).read_bytes()
+    includes (``#include "x.cuh"``, and those they include) and the
+    flags."""
+    todo, seen, src = [f"{name}.cu"], set(), b""
+    while todo:
+        fname = todo.pop()
+        if fname in seen:
+            continue
+        seen.add(fname)
+        text = (_CSRC / fname).read_bytes()
+        src += text
+        todo += sorted(h.decode() for h in re.findall(
+            rb'^\s*#include\s+"([^"]+)"', text, re.M))
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode())
     return _BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
 
-def build_kernels(names=tuple(_KERNELS)) -> None:
+def build_kernels(names=tuple(_KERNELS),
+                  ptxas_verbose: bool = False) -> dict[str, str]:
     """Compile csrc/<name>.cu for every name whose library is missing,
-    one nvcc each, all started together; raise if any fails."""
+    one nvcc each, all started together; raise if any fails.  Returns
+    what nvcc wrote to stderr for each name it built: with
+    ``ptxas_verbose`` the registers, shared memory and spills of every
+    kernel."""
     todo = [(n, _so_path(n)) for n in names]
     todo = [(n, so) for n, so in todo if not so.is_file()]
     if not todo:
-        return
+        return {}
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    extra = ("-Xptxas", "-v") if ptxas_verbose else ()
     procs = []
     for name, so in todo:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         procs.append((name, so, tmp, subprocess.Popen(
-            [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            [nvcc, *_NVCC_FLAGS, *extra, "-o", str(tmp),
+             str(_CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
+    failed, logs = [], {}
     for name, so, tmp, proc in procs:
         _, err = proc.communicate()
+        logs[name] = err
         if proc.returncode == 0:
             os.replace(tmp, so)
         else:
             failed.append(f"{name}.cu ({proc.returncode}):\n{err}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
 
 
 def load_kernel(name: str) -> ctypes.CDLL:
@@ -416,7 +545,8 @@ def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
     tab [R, L, W] static absorber rows; wrows [C, L, R] per-chain
     weights; (G [C, L, L], wgt [C, L]) from slant_geometry of each
     chain's radii.  G is taken as lower-triangular (as slant_geometry's
-    is exactly): entries above the diagonal are ignored.
+    is exactly): entries above the diagonal are ignored.  G may also be
+    ``prepare_slant``'s SlantMatrix, which is then not copied.
 
     A CPU ``wgt`` runs ``transit_plain``.  A CUDA ``wgt`` launches the
     kernel in float32 on the current stream, without synchronising, and
@@ -424,7 +554,8 @@ def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
     kernel does not take, and never falls back.
     """
     if wgt.device.type == "cpu":
-        return transit_plain(tab, wrows, G, wgt)
+        return transit_plain(
+            tab, wrows, G.plain() if isinstance(G, SlantMatrix) else G, wgt)
     if wgt.device.type != "cuda":
         raise ValueError(f"fused_transit: unsupported device {wgt.device}")
 
@@ -432,9 +563,9 @@ def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
     C = wgt.shape[0]
     dev = wgt.device
     for name, x, shape in (("tab", tab, (R, L, W)),
-                           ("wrows", wrows, (C, L, R)),
-                           ("G", G, (C, L, L)), ("wgt", wgt, (C, L))):
+                           ("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
         _check("fused_transit", name, x, shape, dev)
+    G32 = _slant32("fused_transit", G, C, L, dev)
     if min(R, L, W, C) < 1:
         raise ValueError("fused_transit: empty row, layer, wn or chain axis")
     Rp, Lp, Wp = (-(-n // 4) * 4 for n in (R, L, W))
@@ -449,16 +580,15 @@ def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
     if max(Rp * L * Wp, C * L * Lp, C * L * Rp, C * W) >= 2**31:
         raise ValueError("fused_transit: tensors beyond 2^31 elements")
 
-    # The kernel copies rows in 16-byte pieces: zero-pad R (tab, wrows),
-    # W (tab) and G's last axis to multiples of 4.  G's upper triangle is
-    # zeroed, so the kernel, like transit_plain, ignores it.
+    # The kernel copies rows in 16-byte pieces: zero-pad R (tab, wrows)
+    # and W (tab) to multiples of 4; G32's last axis is padded likewise
+    # and its upper triangle zeroed, so the kernel, like transit_plain,
+    # ignores it.
     f32 = torch.float32
     tab32 = torch.zeros((Rp, L, Wp), dtype=f32, device=dev)
     tab32[:R, :, :W] = tab
     wrows32 = torch.zeros((C, L, Rp), dtype=f32, device=dev)
     wrows32[..., :R] = wrows
-    G32 = torch.zeros((C, L, Lp), dtype=f32, device=dev)
-    G32[..., :L] = torch.tril(G)
     wgt32 = wgt.to(f32).contiguous()
     out = torch.empty((C, W), dtype=f32, device=dev)
 
@@ -477,6 +607,39 @@ def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
 
 #: kernel launches made by fused_transit (plain-path calls do not count)
 fused_transit.launches = 0
+
+
+def _ptr(x: torch.Tensor | None):
+    """data_ptr, or a null pointer for an operand the kernel does not read."""
+    return None if x is None else x.data_ptr()
+
+
+def _eclipse_folded_smem(R: int, K: int, bf16: bool) -> int:
+    """Bytes of dynamic shared memory a block of the folded eclipse
+    kernels needs (as the launchers count them).  bfloat16: NSTAGE stages
+    of the table tile [Rp][MTILE_F + 8] and the weight parts
+    [3][CBM][Rp + 8] in bfloat16, and two buffers of Planck means
+    [MTILE_F / K][CBM] in float32.  float32: one layer's table slice and
+    the block's weights."""
+    if not bf16:
+        return 4 * (R * _F_TILE_F + _F_TY * _F_CPT * R)
+    Rp = -(-R // _MMA_K) * _MMA_K
+    stage = 2 * (Rp * (_F_MTILE_F + 8) + 3 * _F_CBM * (Rp + 8))
+    return _F_NSTAGE * stage + 2 * 4 * (_F_MTILE_F // K) * _F_CBM
+
+
+def _transit_folded_smem(L: int) -> int:
+    """Bytes of shared memory a block of the tensor-core folded transit
+    kernel needs (as its launcher counts them): ext for all layers
+    [FT_CB][Lk FT_W + 4] and the annulus weights [FT_CB][Lm] in float32,
+    then the larger of the warps' fill rings (FT_NS units each: 16 table
+    rows [16][FT_W + 8] in bfloat16 and weights [FT_CB][24] in float32)
+    and their G stages (2 x [Lm][8] float32 each).  The row count does
+    not enter."""
+    Lk, Lm = -(-L // 8) * 8, -(-L // 16) * 16
+    fill = _FT_CB * _FT_NS * (2 * 16 * (_FT_W + 8) + 4 * _FT_CB * 24)
+    slant = _FT_CB * 2 * Lm * 8 * 4
+    return 4 * (_FT_CB * (Lk * _FT_W + 4) + _FT_CB * Lm) + max(fill, slant)
 
 
 def _check_folded(fn: str, ft: FoldedTable, dev: torch.device) -> int:
@@ -516,8 +679,10 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     A CPU ``T`` runs ``eclipse_folded_plain``.  A CUDA ``T`` launches the
     kernel on the current stream, without synchronising: the table is
     read as stored (float32 or bfloat16), everything else in float32,
-    and the result is cast to ``T.dtype``.  It raises on any input the
-    kernel does not take, and never falls back.
+    and the result is cast to ``T.dtype``.  A bfloat16 table takes the
+    tensor-core kernel, whose fill contracts the weights' three bfloat16
+    parts (``split_bf16``) exactly.  It raises on any input the kernel
+    does not take, and never falls back.
     """
     if T.device.type == "cpu":
         return eclipse_folded_plain(ft, wn_out, mu, muw, wrows, T, drp,
@@ -541,18 +706,25 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
                          f"1..{_MAX_NMU}")
     if min(R, L, C) < 1:
         raise ValueError(f"{fn}: empty row, layer or chain axis")
-    smem = 4 * (R * _F_TILE_F + _F_TY * _F_CPT * R)
+    Rp = -(-R // _MMA_K) * _MMA_K
+    smem = _eclipse_folded_smem(R, K, bool(bf16))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{fn}: {R} rows need {smem} B of shared memory, "
                          f"more than a block has ({_SMEM_LIMIT})")
-    if -(-C // (_F_TY * _F_CPT)) > _MAX_GRID_Y:
+    # the grid's second axis: chain blocks (float32) or fine tiles (bf16)
+    if bf16 and -(-W * K // _F_MTILE_F) > _MAX_GRID_Y:
+        raise ValueError(f"{fn}: {W * K} fine wavenumbers exceed the grid's "
+                         f"{_MAX_GRID_Y * _F_MTILE_F}")
+    if not bf16 and -(-C // (_F_TY * _F_CPT)) > _MAX_GRID_Y:
         raise ValueError(f"{fn}: {C} chains exceed the grid's "
                          f"{_MAX_GRID_Y * _F_TY * _F_CPT}")
-    if max(C * L * R, C * W) >= 2**31:
+    if max(3 * C * L * Rp, C * W) >= 2**31:
         raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
+    # a bfloat16 table: the weights as three bfloat16 parts (split_bf16)
     f32 = torch.float32
-    wrows32 = wrows.to(f32).contiguous()
+    wrows32 = None if bf16 else wrows.to(f32).contiguous()
+    wparts = _split_rows(wrows, Rp) if bf16 else None
     T32 = T.to(f32).contiguous()
     drp32 = drp.to(f32).contiguous()
     wn32 = wn_out.to(f32).contiguous()
@@ -565,10 +737,10 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bart_fused_eclipse_folded(
-            ft.tab.data_ptr(), wrows32.data_ptr(), T32.data_ptr(),
+            ft.tab.data_ptr(), _ptr(wrows32), _ptr(wparts), T32.data_ptr(),
             drp32.data_ptr(), wn32.data_ptr(), minv.data_ptr(),
             wmu.data_ptr(), out.data_ptr(),
-            R, L, W, Fp, C, K, nmu, int(bool(powers)), bf16, stream)
+            R, Rp, L, W, Fp, C, K, nmu, int(bool(powers)), bf16, stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
     fused_eclipse_folded.launches += 1
@@ -588,11 +760,16 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     A CPU ``wgt`` runs ``transit_folded_plain``.  A CUDA ``wgt`` launches
     the kernel on the current stream, without synchronising: the table
     is read as stored (float32 or bfloat16), everything else in float32,
-    and the result is cast to ``wgt.dtype``.  It raises on any input the
-    kernel does not take, and never falls back.
+    and the result is cast to ``wgt.dtype``.  A bfloat16 table takes the
+    tensor-core kernel: the fill exactly, on the weights' three bfloat16
+    parts (``split_bf16``'s rule, applied in the kernel), and the slant
+    product in 3xTF32 (``split_tf32``).  G may be
+    ``prepare_slant``'s SlantMatrix, which is then not copied.  It raises
+    on any input the kernel does not take, and never falls back.
     """
     if wgt.device.type == "cpu":
-        return transit_folded_plain(ft, wrows, G, wgt)
+        return transit_folded_plain(
+            ft, wrows, G.plain() if isinstance(G, SlantMatrix) else G, wgt)
     if wgt.device.type != "cuda":
         raise ValueError(f"fused_transit_folded: unsupported device "
                          f"{wgt.device}")
@@ -602,29 +779,32 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     R, L, Fp = ft.tab.shape
     W, K = ft.W, ft.K
     C = wgt.shape[0]
-    for name, x, shape in (("wrows", wrows, (C, L, R)), ("G", G, (C, L, L)),
-                           ("wgt", wgt, (C, L))):
+    for name, x, shape in (("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
         _check(fn, name, x, shape, dev)
+    G32 = _slant32(fn, G, C, L, dev, tiles=bool(bf16))
     if min(R, L, C) < 1:
         raise ValueError(f"{fn}: empty row, layer or chain axis")
-    Rp, Lp = (-(-n // 4) * 4 for n in (R, L))
-    smem = _transit_smem(L)
-    if smem > _SMEM_LIMIT:
+    Lp = -(-L // 4) * 4
+    # the row axis as the kernel reads it: padded to the depth of one
+    # bf16 product for a bfloat16 table (the kernel splits the float32
+    # weights into split_bf16's parts in registers), to 16 bytes for a
+    # float32 one
+    pad = _MMA_K if bf16 else 4
+    Rk = -(-R // pad) * pad
+    smem = _transit_folded_smem(L) if bf16 else _transit_smem(L)
+    if smem > _SMEM_LIMIT or (bf16 and L > 16 * _FT_MT):
         raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory, "
                          f"more than a block has ({_SMEM_LIMIT})")
     if -(-W * K // _T_TILE_W) > _MAX_GRID_Y:
         raise ValueError(f"{fn}: {W * K} fine wavenumbers exceed the grid's "
                          f"{_MAX_GRID_Y * _T_TILE_W}")
-    if max(C * L * Lp, C * L * Rp, C * W) >= 2**31:
+    if max(C * L * Lp, C * L * Rk, C * W) >= 2**31:
         raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
-    # per call only the small operands are padded: wrows' row axis and
-    # G's last axis to multiples of 4 (G's upper triangle zeroed)
+    # per call only the weights are padded
     f32 = torch.float32
-    wrows32 = torch.zeros((C, L, Rp), dtype=f32, device=dev)
+    wrows32 = torch.zeros((C, L, Rk), dtype=f32, device=dev)
     wrows32[..., :R] = wrows
-    G32 = torch.zeros((C, L, Lp), dtype=f32, device=dev)
-    G32[..., :L] = torch.tril(G)
     wgt32 = wgt.to(f32).contiguous()
     out = torch.empty((C, W), dtype=f32, device=dev)
 
@@ -633,7 +813,7 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bart_fused_transit_folded(
             ft.tab.data_ptr(), wrows32.data_ptr(), G32.data_ptr(),
-            wgt32.data_ptr(), out.data_ptr(), R, Rp, L, W, Fp, C, K, bf16,
+            wgt32.data_ptr(), out.data_ptr(), R, Rk, L, W, Fp, C, K, bf16,
             stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")

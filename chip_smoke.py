@@ -18,7 +18,7 @@ smooth bins.  Phases:
 
   0. the card's name and power limit (nvidia-smi); no card -> exit 2
   1. build the four kernels from bart_tpu_torch/csrc with nvcc, in
-     parallel
+     parallel, and print each kernel's registers and spills
   2. each kernel vs its plain torch version on random rows at the bench
      shape and a ragged one (eclipse: both quadratures; transit: rows
      whose slant tau crosses unity inside the atmosphere; folded: float32
@@ -35,10 +35,12 @@ smooth bins.  Phases:
 
 Each path's launch counts are zeroed just before its phase 3 and read
 just after its phase 4.  Any failed check raises and exits non-zero.
-The last two lines of stdout are the kernels' JSON record and the
-result JSON.
+The last two lines of stdout are the kernels' JSON record (with, for
+the folded kernels, the share of their FMAs that runs on tensor cores)
+and the result JSON.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels   # phases 0-2, then the kernels' times
 """
 
 from __future__ import annotations
@@ -89,6 +91,8 @@ FOLD_K1_BAND_RTOL = 0.05
 # (Hopper architecture white paper), so 1/16 of the FLOP rate.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 SFU_PS = F32_FLOPS / 16
+# dense tensor-core peaks of the same data sheet, FLOP/s
+BF16_FLOPS, TF32_FLOPS = 989e12, 495e12
 
 
 def bound(fmas: float, exps: float, nbytes: float) -> tuple[float, str, str]:
@@ -126,6 +130,17 @@ def transit_bound(R, L, F, C, K, nbytes_in):
     exponentials."""
     return bound(C * F * (L * R + L * (L + 1) // 2 + L), C * F * L,
                  nbytes_in + 4 * C * (F // K))
+
+
+def tensor_share(fill_fmas: float, slant_fmas: float, all_fmas: float):
+    """What a folded kernel runs on tensor cores: (share of the bound's
+    FMAs, their types, ms those FMAs take at the types' dense peaks times
+    the passes used).  The fill is three bfloat16 passes (the weights'
+    three parts), the slant product three TF32 passes."""
+    ms = 2e3 * 3 * (fill_fmas / BF16_FLOPS + slant_fmas / TF32_FLOPS)
+    kinds = ["bf16 x 3 passes (fill)"] + (
+        ["tf32 x 3 passes (slant)"] if slant_fmas else [])
+    return (fill_fmas + slant_fmas) / all_fmas, " + ".join(kinds), ms
 
 
 def check(ok: bool, msg: str) -> None:
@@ -424,6 +439,77 @@ def folded_kernels_vs_plain(fused, filters, f32: dict, quads: dict) -> dict:
     return max_abs
 
 
+def ptxas_summary(log: str):
+    """(kernel, registers, spill bytes) for every entry function in the
+    output of ``nvcc -Xptxas -v``; the kernel's name is cut from its
+    mangled symbol."""
+    import re
+
+    out = []
+    for m in re.finditer(
+            r"Function properties for (\S+)\s+(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\s+"
+            r"ptxas info\s+: Used (\d+) registers", log):
+        # ...<len>fused_x_kernelI<template arguments>EEv<parameters>
+        name = re.search(r".*\d(fused_\w+?_kernel)(I\w+?E(?=Ev))?", m.group(1))
+        out.append(((name.group(1) + (name.group(2) or "")) if name
+                    else m.group(1),
+                    int(m.group(5)), int(m.group(3)) + int(m.group(4))))
+    return out
+
+
+def kernel_times(fused, f32: dict, quads: dict) -> None:
+    """``--kernels``: the four kernels' times on phase 2's random rows at
+    the full-width shapes (the folded ones on float32 and bfloat16
+    tables, 1,125 fine bins x 32), without the forwards."""
+    import torch
+
+    from bart_tpu_torch.demo import (fine_structure, random_rows,
+                                     random_transit_rows)
+
+    R, Rt, L, W, C, K = 27, 41, 100, 1125, 512, FOLD_K
+
+    def fine_table(tab):
+        factor = torch.tensor(fine_structure(tab.shape[0], W, K), **f32)
+        return (tab[..., None] * factor).reshape(*tab.shape[:2], W * K)
+
+    tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
+                              for a in random_rows(R, L, 2501, C, seed=7))
+    for quad, ((mu, muw), powers) in quads.items():
+        rest = [torch.tensor(mu, **f32), torch.tensor(muw, **f32), wrows, T,
+                drp]
+        print(f"# kernels: fused_eclipse {quad} "
+              f"{cuda_ms(lambda: fused.fused_eclipse(tab, wn, *rest, powers), 20):.3f} ms")
+    tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
+                              for a in random_rows(R, L, W, C, seed=7))
+    fine = fine_table(tab)
+    for tdt in (torch.bfloat16, torch.float32):
+        ft = fused.folded_table(fine, K, tdt)
+        for quad, ((mu, muw), powers) in quads.items():
+            rest = [torch.tensor(mu, **f32), torch.tensor(muw, **f32), wrows,
+                    T, drp]
+            ms = cuda_ms(lambda: fused.fused_eclipse_folded(ft, wn, *rest,
+                                                            powers), 5)
+            print(f"# kernels: fused_eclipse_folded {str(tdt)[6:]} {quad} "
+                  f"{W} bins x {K}: {ms:.3f} ms")
+    del tab, wrows, fine, ft
+    args = [torch.tensor(a, **f32)
+            for a in random_transit_rows(Rt, L, 2501, C, seed=7)[:4]]
+    print(f"# kernels: fused_transit "
+          f"{cuda_ms(lambda: fused.fused_transit(*args), 20):.3f} ms; with a "
+          f"prepared G "
+          f"{cuda_ms(lambda: fused.fused_transit(*args[:2], fused.prepare_slant(args[2]), args[3]), 20):.3f} ms")
+    tab, wrows, G, wgt = (torch.tensor(a, **f32)
+                          for a in random_transit_rows(Rt, L, W, C, seed=7)[:4])
+    fine = fine_table(tab)
+    Gp = fused.prepare_slant(G)
+    for tdt in (torch.bfloat16, torch.float32):
+        ft = fused.folded_table(fine, K, tdt)
+        ms = cuda_ms(lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt), 5)
+        print(f"# kernels: fused_transit_folded {str(tdt)[6:]} {W} bins x "
+              f"{K}: {ms:.3f} ms")
+
+
 def folded_path(fused, inp, solution: str, grid, fm_k1, nchain: int,
                 f32: dict, budget_bytes: float) -> dict:
     """Phases 3 and 4 of one folded path (``grid`` None builds the fine
@@ -645,13 +731,17 @@ def main() -> int:
 
     # --- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
-    fused.build_kernels()
+    logs = fused.build_kernels(ptxas_verbose=True)
     names = ("fused_eclipse", "fused_transit", "fused_eclipse_folded",
              "fused_transit_folded")
     for name in names:
         fused.load_kernel(name)
     print(f"# phase 1: {len(names)} kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for kernel, regs, spill in ptxas_summary(log):
+            print(f"# phase 1: {name}.cu {kernel}: {regs} registers, "
+                  f"{spill} B of spill stores and loads")
 
     # --- phase 2: kernel vs plain on random rows ----------------------
     inp_full = demo_inputs()
@@ -688,6 +778,9 @@ def main() -> int:
         del tab, wrows
     t_max_abs = transit_kernel_vs_plain(fused, inp_full.filters, f32)
     f_max_abs = folded_kernels_vs_plain(fused, inp_full.filters, f32, quads)
+    if "--kernels" in sys.argv[1:]:
+        kernel_times(fused, f32, quads)
+        return 0
     fused.fused_eclipse.launches = 0   # comparisons do not count
 
     # --- phase 3: full-width forward -----------------------------------
@@ -832,7 +925,16 @@ def main() -> int:
     ft_bound = transit_bound(fttab.tab.shape[0], L, fttab.W * fttab.K, nchain,
                              fttab.K, nbytes(fttab.tab, *ftpath["rows"][True]))
 
-    def record(name, replaces, by_path, max_abs_err, ms, plain_ms, bnd):
+    pts = nchain * L * ftab.W * ftab.K
+    f_R, f_nmu = ftab.tab.shape[0], int(f_rows[1].shape[0])
+    f_tensor = tensor_share(pts * f_R, 0, pts * (f_R + f_nmu + 4))
+    pts = nchain * fttab.W * fttab.K
+    ft_R, tri = fttab.tab.shape[0], L * (L + 1) // 2
+    ft_tensor = tensor_share(pts * L * ft_R, pts * tri,
+                             pts * (L * ft_R + tri + L))
+
+    def record(name, replaces, by_path, max_abs_err, ms, plain_ms, bnd,
+               tensor=(0.0, None, 0.0)):
         # launches: on all main paths; launches_by_path: on each that
         # runs this kernel (the K = 1 kernels also serve the smooth bins
         # of the folded paths)
@@ -842,6 +944,10 @@ def main() -> int:
                 "launches_by_path": by_path,
                 "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "bound_term": bnd[2],
+                # share of the bound's FMAs on tensor cores, in which
+                # types, and their time at those types' dense peaks
+                "tensor_fmas": tensor[0], "tensor_type": tensor[1],
+                "tensor_ms": tensor[2],
                 # no single PyTorch call computes any of the four
                 "library_ms": None}
 
@@ -856,10 +962,11 @@ def main() -> int:
         record("fused_eclipse_folded", FOLDED_REPLACES,
                {"folded_eclipse": fpath["launches"][0]},
                f_max_abs["eclipse"], ft_["eclipse"]["k_ms"],
-               ft_["eclipse"]["p_ms"], f_bound),
+               ft_["eclipse"]["p_ms"], f_bound, f_tensor),
         record("fused_transit_folded", FOLDED_TRANSIT_REPLACES,
                {"folded_transit": ftpath["launches"][0]}, f_max_abs["transit"],
-               ft_["transit"]["k_ms"], ft_["transit"]["p_ms"], ft_bound),
+               ft_["transit"]["k_ms"], ft_["transit"]["p_ms"], ft_bound,
+               ft_tensor),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -329,15 +329,25 @@ def test_folded_kernel_source_constants_match_python():
     np.testing.assert_allclose(lit("kC2"), const.C2, rtol=1e-15)
     assert lit("kTauClamp") == fused.TAU_CLAMP
     for macro, value in (("TILE_F", fused._F_TILE_F), ("TY", fused._F_TY),
-                         ("CPT", fused._F_CPT), ("MAX_NMU", fused._MAX_NMU)):
+                         ("CPT", fused._F_CPT), ("MAX_NMU", fused._MAX_NMU),
+                         ("MTILE_F", fused._F_MTILE_F),
+                         ("CBM", fused._F_CBM), ("NSTAGE", fused._F_NSTAGE),
+                         ("MTHREADS", fused._F_MTHREADS)):
         assert re.search(rf"#define {macro} (\d+)", src).group(1) == str(value)
     assert "extern \"C\" int bart_fused_eclipse_folded(" in src
     tsrc = (fused._CSRC / "fused_transit_folded.cu").read_text()
     assert "extern \"C\" int bart_fused_transit_folded(" in tsrc
     assert '#include "fused_transit.cuh"' in tsrc
+    for macro, value in (("FT_W", fused._FT_W), ("FT_CB", fused._FT_CB),
+                         ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT)):
+        assert re.search(rf"#define {macro} (\d+)", tsrc).group(1) == str(value)
+    # both tensor-core kernels contract split_bf16's parts in steps of 16
+    assert fused._MMA_K == 16 and "mma_bf16(" in src and "mma_bf16(" in tsrc
+    assert "mma_tf32(" in tsrc
     assert set(fused._KERNELS) == {p.stem for p in fused._CSRC.glob("*.cu")}
     # every sub-sample count the wrappers let through is a lane group
     assert all(32 % k == 0 and fused._F_TILE_F % k == 0
+               and fused._F_MTILE_F % k == 0 and fused._FT_W % k == 0
                for k in fused._FOLD_K)
 
 
@@ -390,6 +400,82 @@ def test_transit_folded_kernel_matches_plain_on_card(cuda_device, k,
                                rtol=1e-5)
 
 
+# shapes (R, L, W, C, k) that the tensor-core tiles make ragged: chains
+# one past a multiple of 16 and of 32, R exactly 16 and 48 (one and three
+# products deep), W k one bin short of and one past a fine tile (64
+# points for the eclipse, 32 for the transit), K = 16
+_RAGGED_ECLIPSE = [(16, 23, 15, 17, 4), (48, 23, 17, 33, 4),
+                   (16, 23, 31, 17, 4), (48, 23, 33, 33, 4),
+                   (19, 23, 75, 6, 16), (27, 9, 7, 33, 16),
+                   (33, 12, 9, 17, 16)]
+_RAGGED_TRANSIT = [(16, 23, 7, 17, 4), (48, 23, 9, 33, 4),
+                   (41, 23, 75, 6, 16), (17, 100, 5, 9, 32),
+                   (33, 104, 3, 17, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table_dtype", [F32, BF16])
+@pytest.mark.parametrize("shape", _RAGGED_ECLIPSE)
+@pytest.mark.parametrize("quad", ["raygrid", "expsum"])
+def test_eclipse_folded_kernel_ragged_shapes_on_card(cuda_device, quad, shape,
+                                                     table_dtype):
+    fine, args, powers = _eclipse(quad, shape[:4], shape[4])
+    ft = _ft(fine, shape[4], F32, table_dtype, cuda_device)
+    rest = [_t(a, F32, cuda_device) for a in args[1:]]
+    got = fused.fused_eclipse_folded(ft, *rest, powers=powers)
+    ref = fused.eclipse_folded_plain(ft, *rest, powers=powers)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=2e-4 if powers else 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table_dtype", [F32, BF16])
+@pytest.mark.parametrize("shape", _RAGGED_TRANSIT)
+def test_transit_folded_kernel_ragged_shapes_on_card(cuda_device, shape,
+                                                     table_dtype):
+    fine, args = _transit(shape[:4], shape[4])
+    ft = _ft(fine, shape[4], F32, table_dtype, cuda_device)
+    rest = [_t(a, F32, cuda_device) for a in args[1:]]
+    got = fused.fused_transit_folded(ft, *rest)
+    ref = fused.transit_folded_plain(ft, *rest)
+    prepared = fused.fused_transit_folded(
+        ft, rest[0], fused.prepare_slant(rest[1]), rest[2])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5)
+    assert torch.equal(prepared, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", ["eclipse", "transit"])
+def test_tensor_core_fill_keeps_tiny_weights_on_card(cuda_device, geometry):
+    """Weights of 1e-32..1e-25 are normal float32 numbers whose smallest
+    bfloat16 part is subnormal (and still exact: split_bf16 holds down to
+    2^-109); the table is scaled up to match, so ext is as in the unscaled
+    problem.  The fill must keep what the float32 FMAs of the plain
+    version keep."""
+    scale = 2.0 ** -133
+    if geometry == "eclipse":
+        fine, args, powers = _eclipse("raygrid", (19, 23, 75, 6), 4)
+        args = list(args)
+        args[4] = args[4] * scale                      # wrows, in float64
+        run, plain = fused.fused_eclipse_folded, fused.eclipse_folded_plain
+        kw, rtol = dict(powers=powers), 1e-4
+    else:
+        fine, args = _transit((41, 23, 75, 6), 4)
+        args = list(args)
+        args[1] = args[1] * scale
+        run, plain = fused.fused_transit_folded, fused.transit_folded_plain
+        kw, rtol = {}, 1e-5
+    rest = [_t(a, F32, cuda_device) for a in args[1:]]
+    ft = _ft(fine / scale, 4, F32, BF16, cuda_device)
+    assert bool(torch.isfinite(ft.tab.float()).all())
+    got, ref = run(ft, *rest, **kw), plain(ft, *rest, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)
+
+
 @pytest.mark.gpu
 def test_folded_kernels_raise_on_what_they_do_not_take(cuda_device):
     fine, args, _ = _eclipse(shape=(5, 9, 12, 3), k=4)
@@ -399,8 +485,9 @@ def test_folded_kernels_raise_on_what_they_do_not_take(cuda_device):
     odd = fused.FoldedTable(_t(np.ones((5, 9, 16)), F32, cuda_device), 3, 5)
     with pytest.raises(ValueError, match="K = 3"):
         fused.fused_eclipse_folded(odd, *rest)
-    tfine, targs = _transit((3, 200, 8, 2), 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused.fused_transit_folded(
-            _ft(tfine, 4, F32, None, cuda_device),
-            *[_t(a, F32, cuda_device) for a in targs[1:]])
+    for L, table_dtype in ((200, F32), (200, BF16), (113, BF16)):
+        tfine, targs = _transit((3, L, 8, 2), 4)
+        with pytest.raises(ValueError, match="shared memory"):
+            fused.fused_transit_folded(
+                _ft(tfine, 4, F32, table_dtype, cuda_device),
+                *[_t(a, F32, cuda_device) for a in targs[1:]])
