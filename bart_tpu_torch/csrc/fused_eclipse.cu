@@ -5,7 +5,7 @@
 // torch version bart_tpu_torch/rt/fused.py:eclipse_plain: for every
 // (chain c, wavenumber w), walking the layers l = 0 .. L-1,
 //
-//   ext_l = sum_r wrows[c, l, r] tab[r, l, w]         (full f32 FMAs)
+//   ext_l = sum_r wrows[c, l, r] tab[r, l, w]
 //   tau_l = tau_{l-1} + 0.5 (ext_{l-1} + ext_l) drp[c, l]
 //   B_l   = C1 wn^3 / expm1(C2 wn / T[c, l])
 //   S_l   = sum_q wmu_q exp(-min(tau_l, 88) minv_q)    (raygrid)
@@ -14,29 +14,81 @@
 //
 // and out[c, w] = 2 pi (F + B_{L-1} S_{L-1}).
 //
-// Design.  One thread per (chain, wn) carries (ext, tau, B, S, F) in
-// registers across a loop over all L layers: no layer padding, the
-// ragged wn and chain edges are masked here.  A block covers TILE_W
-// wavenumbers x CB chains.  Per layer it stages tab[:, l, tile]
-// (R x TILE_W floats, 13.8 KB at R = 27) and its chains' wrows[c, l, :]
-// in shared memory; staging all layers, as the TPU block
-// [Lp, R, tile] did, would need ~3 MB and a block has 227 KB.
+// Design.  The contraction runs on tensor cores in 3xTF32: the table
+// and the weights are float32 (this is bart_tpu's Precision.HIGHEST
+// path, not the bfloat16 publication table), so each operand is split in
+// registers into big = tf32(x) and small = x - big (hopper.cuh:
+// split_tf32; bart_tpu_torch.rt.fused.split_tf32 states the rule) and
+// small x big + big x small + big x big on mma.sync.m16n8k8 keeps every
+// product to 2^-21 of the float32 one; the sums are float32.  One pass
+// (plain TF32) would be 2^-11 off, beyond every tolerance; the table's
+// bytes stay as they are.  Per layer the product is [TILE_W wavenumbers
+// x Rp rows] x [Rp x CB chains]: A is the table tile, staged
+// [row][wavenumber] as it lies in memory with a row stride of TILE_W + 8
+// words, so that the fragment's plain loads (lane (g, t) reads row t,
+// column g) fall on bank 8 t + g: no conflict; B the weights, staged
+// [chain][row] with a stride of Rp + 4 (bank 4 g + t).  A block covers
+// TILE_W = 64 wavenumbers x CB = 32 chains with 8 warps, each a
+// 16-wavenumber m-tile x two 8-chain n-tiles, so a thread carries
+// (ext, tau, B, S, flux) of 8 (wavenumber, chain) pairs in registers,
+// fed from the accumulator fragments; two blocks fit an SM (128
+// registers a thread, 55 KB of shared memory at R = 27), so one computes
+// while the other waits at its barrier.  The table tile, the weights and
+// the chains' (C2 / T, drp / 2) of layer l + 3 are in flight (cp.async,
+// a ring of NSTAGE = 4; the two scalars through registers, loaded a
+// layer earlier still) while layer l is computed: one barrier per layer,
+// and a thread's copies differ from layer to layer by a constant offset
+// (no division in the loop).  With 32 chains a block the table is read
+// from L2 16 times per launch (0.43 GB at R = 27, L = 100, W = 2501; the
+// 4-chain blocks of the first version read it 128 times, 3.5 GB).
+// blockIdx.x walks the chain blocks, so the blocks resident at once
+// share a few table tiles.
 //
-// Bound on the H100.  Per (chain, layer, wn): R FMAs and 6 exponentials
-// in raygrid mode (1 Planck + 5 angles), 2 in powers mode.  The table
-// (27 MB at R = 27, L = 100, W = 2501) fits in the 50 MB L2, so the
-// per-layer staging of every chain block is served from L2; the
-// exponentials (SFU) and the per-layer barrier set the pace.  No
-// tensor cores and no TF32: this matches Precision.HIGHEST.  expf and
-// expm1f are the accurate library versions (no --use_fast_math).
+// Bound on the H100.  Per 512-chain batch at R = 27, L = 100, W = 2501:
+// 128 M (chain, layer, wavenumber) points, each 27 FMAs of fill (three
+// TF32 passes over 32 padded rows: 0.05 ms at the dense TF32 peak) and,
+// on the float32 pipes, the recurrence, one Planck exponential and
+// division, and 5 exponentials (raygrid) or one and an 8-term Horner
+// polynomial (expsum).  What binds it is the float32 pipes' instruction
+// rate: expf and expm1f are the accurate library versions (no
+// --use_fast_math), about a dozen instructions each.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W: 0.91 ms a launch (raygrid; 3.02 ms for
+// the float32-pipe version with 4-chain blocks), of which, by leaving
+// parts out, the Planck function 0.22, the quadrature 0.22, the fill
+// 0.28 and the copies 0.11 ms: the parts add up (PERF.md has the table).
 
 #include <cuda_runtime.h>
 
-#define TILE_W 128   // wavenumbers per block (threadIdx.x)
-#define CB 4         // chains per block (threadIdx.y)
+#include "hopper.cuh"
+
+#define TILE_W 64    // wavenumbers per block
+#define CB 32        // chains per block
+#define NSTAGE 4     // layers in the shared-memory ring
+#define NTHREADS 256 // threads per block (8 warps)
 #define MAX_NMU 16   // quadrature nodes held in shared memory
 
+// Timing aid (ablate_folded.py --k1): -DBART_ABLATE=<bits> builds the kernel
+// without 1 its global -> shared copies of the table and the weights, 2
+// its tensor-core products, 4 its quadrature exponentials, 8 its Planck
+// exponential and division; 16 takes the fast __expf in the quadrature
+// (the result is then nearly right; all others give wrong results).
+#ifndef BART_ABLATE
+#define BART_ABLATE 0
+#endif
+#if BART_ABLATE & 4
+#define BART_EXPF(x) (1.0f + (x))
+#elif BART_ABLATE & 16
+#define BART_EXPF(x) __expf(x)
+#else
+#define BART_EXPF(x) expf(x)
+#endif
+
 namespace {
+
+static_assert(TILE_W % 16 == 0 && CB % 16 == 0 &&
+                  NTHREADS == 32 * (TILE_W / 16) * (CB / 16),
+              "the warp tiling: a warp per 16 wavenumbers x 16 chains");
+static_assert((NSTAGE & (NSTAGE - 1)) == 0, "the ring index is l & (NSTAGE - 1)");
 
 // 2 h c^2 and h c / k of bart_tpu_torch.constants (cgs; the CPU tests
 // check these literals against the Python constants)
@@ -45,120 +97,295 @@ constexpr float kC2 = 1.4387686603333911f;
 constexpr float kTwoPi = 6.2831853071795865f;
 constexpr float kTauClamp = 88.0f;
 
-template <bool POWERS>
-__device__ __forceinline__ float smix(float tau, const float* minv,
-                                      const float* wmu, int nmu) {
-  const float tau_c = fminf(tau, kTauClamp);
-  float acc = 0.0f;
-  if (POWERS) {
-    const float u = expf(-tau_c);
-    for (int q = nmu - 1; q >= 0; --q) acc = u * (wmu[q] + acc);
-  } else {
-    for (int q = 0; q < nmu; ++q) acc = acc + wmu[q] * expf(-tau_c * minv[q]);
-  }
-  return acc;
+constexpr int kTS = TILE_W + 8;   // row stride of the table tile, in words
+
+// Words of one stage of the ring for Rp rows (a multiple of 8): the table
+// tile [Rp][kTS], the weights [CB][Rp + 4] and the chains' C2 / T and
+// drp / 2, [2][CB].  Every part is a multiple of 16 bytes.
+__host__ __device__ constexpr size_t stage_words(int Rp) {
+  return (size_t)Rp * kTS + (size_t)CB * (Rp + 4) + 2 * CB;
+}
+__host__ __device__ constexpr size_t smem_bytes(int Rp) {
+  return 4 * NSTAGE * stage_words(Rp);
 }
 
-template <bool POWERS>
-__global__ void __launch_bounds__(TILE_W * CB)
-fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, W]
-                     const float* __restrict__ wrows,   // [C, L, R]
+// NMU > 0: the quadrature has exactly NMU nodes and its loops unroll;
+// NMU == 0: any 1..MAX_NMU nodes.
+template <bool POWERS, int NMU>
+__global__ void __launch_bounds__(NTHREADS, 512 / NTHREADS)
+fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
+                     const float* __restrict__ wrows,   // [C, L, Rp]
                      const float* __restrict__ T,       // [C, L]
                      const float* __restrict__ drp,     // [C, L]
                      const float* __restrict__ wn,      // [W]
                      const float* __restrict__ minv,    // [nmu]
                      const float* __restrict__ wmu,     // [nmu]
                      float* __restrict__ out,           // [C, W]
-                     int R, int L, int W, int C, int nmu) {
-  extern __shared__ float smem[];
-  float* tab_s = smem;                   // [R][TILE_W]
-  float* wr_s = smem + R * TILE_W;       // [CB][R]
-  __shared__ float T_s[CB], dr_s[CB];
+                     int R, int Rp, int L, int W, int Wp, int C,
+                     int nmu_any) {
+  const int nmu = NMU ? NMU : nmu_any;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
   __shared__ float minv_s[MAX_NMU], wmu_s[MAX_NMU];
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TILE_W + tx;
-  const int nthreads = TILE_W * CB;
-  const int w0 = blockIdx.x * TILE_W;
-  const int c0 = blockIdx.y * CB;
-  const int w = w0 + tx;
-  const int c = c0 + ty;
+  const int WS = Rp + 4;             // row stride of the weights
+  const int KS = Rp / 8;             // k-steps of the fill
+  const size_t stage = stage_words(Rp);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int fw = (warp % (TILE_W / 16)) * 16;   // the warp's wavenumbers
+  const int ch = (warp / (TILE_W / 16)) * 16;   // and chains, 16 of each
+  const int c0 = blockIdx.x * CB;
+  const int w0 = blockIdx.y * TILE_W;
 
   if (tid < nmu) {
     minv_s[tid] = minv[tid];
     wmu_s[tid] = wmu[tid];
   }
-  const float wnv = (w < W) ? wn[w] : 1.0f;
-  const float wn3 = kC1 * (wnv * wnv * wnv);
-  const float c2wn = kC2 * wnv;
+#if BART_ABLATE & 1
+  for (size_t i = tid; i < NSTAGE * stage; i += NTHREADS) ring[i] = 0.0f;
+  __syncthreads();
+#endif
 
-  float ext_p = 0.0f, tau = 0.0f, B_p = 0.0f, S_p = 0.0f, flux = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    __syncthreads();  // every thread is done reading the last layer
-    for (int i = tid; i < R * TILE_W; i += nthreads) {
-      const int r = i / TILE_W, ww = w0 + i % TILE_W;
-      tab_s[i] = (ww < W) ? tab[((size_t)r * L + l) * W + ww] : 0.0f;
-    }
-    for (int i = tid; i < CB * R; i += nthreads) {
-      const int cc = c0 + i / R, r = i % R;
-      wr_s[i] = (cc < C) ? wrows[((size_t)cc * L + l) * R + r] : 0.0f;
-    }
-    if (tid < CB) {
-      const int cc = c0 + tid;
-      T_s[tid] = (cc < C) ? T[(size_t)cc * L + l] : 1000.0f;
-      dr_s[tid] = (cc < C) ? drp[(size_t)cc * L + l] : 0.0f;
-    }
-    __syncthreads();
-
-    const float* wr = wr_s + ty * R;
-    float ext = 0.0f;
-    for (int r = 0; r < R; ++r) ext = fmaf(wr[r], tab_s[r * TILE_W + tx], ext);
-    const float B = wn3 / expm1f(c2wn / T_s[ty]);
-    if (l > 0) tau = tau + 0.5f * (ext_p + ext) * dr_s[ty];
-    const float S = smix<POWERS>(tau, minv_s, wmu_s, nmu);
-    if (l > 0) flux = flux + 0.5f * (B_p + B) * (S_p - S);
-    ext_p = ext;
-    B_p = B;
-    S_p = S;
+  // This thread's first two weight copies of a stage (task i = tid + j
+  // NTHREADS is 16 bytes q of chain cc), reckoned once: the divisions by a
+  // run-time row count stay out of the layer loop.
+  const int rq = Rp / 4, nwtask = CB * rq;
+  int w_dst[2], w_src[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = tid + j * NTHREADS;
+    const int q = i % rq, cc = i / rq;
+    const int c = c0 + cc;
+    w_dst[j] = cc * WS + 4 * q;
+    // -1: nothing to copy (beyond the tasks); -2: zero-fill (beyond C)
+    w_src[j] = i >= nwtask ? -1 : c >= C ? -2 : (int)((size_t)c * L * Rp + 4 * q);
   }
-  if (w < W && c < C) out[(size_t)c * W + w] = kTwoPi * (flux + B_p * S_p);
+  // the chain whose (T, drp) this thread stages, a layer ahead of the copy
+  const int ac = (tid < CB && c0 + tid < C) ? c0 + tid : -1;
+  float a_T = 1000.0f, a_dr = 0.0f;
+  auto load_aux = [&](int l) {
+    if (ac >= 0 && l < L) {
+      a_T = T[(size_t)ac * L + l];
+      a_dr = drp[(size_t)ac * L + l];
+    }
+  };
+
+  // stage ``l`` of the ring: the table tile tab[:, l, w0 : w0 + TILE_W]
+  // (rows R..Rp-1 and columns beyond Wp zero-filled), the weights of the
+  // block's chains (chains beyond C zero-filled) and their C2 / T, drp / 2
+  // from the registers load_aux(l) filled
+  auto copy_stage = [&](int l) {
+    float* tb = ring + (size_t)(l & (NSTAGE - 1)) * stage;
+    float* wb = tb + (size_t)Rp * kTS;
+    if (tid < CB) {
+      float* ax = wb + (size_t)CB * WS;
+      ax[tid] = kC2 / a_T;
+      ax[CB + tid] = 0.5f * a_dr;
+    }
+    if (BART_ABLATE & 1) return;
+    const float* src = tab + (size_t)l * Wp + w0;
+    for (int i = tid; i < Rp * (TILE_W / 4); i += NTHREADS) {
+      const int r = i / (TILE_W / 4), q = i % (TILE_W / 4);
+      const bool ok = r < R && w0 + 4 * q < Wp;
+      cp_async16(tb + r * kTS + 4 * q,
+                 ok ? src + (size_t)r * L * Wp + 4 * q : tab, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (w_src[j] != -1)
+        cp_async16(wb + w_dst[j],
+                   wrows + (w_src[j] < 0 ? 0 : w_src[j] + l * Rp),
+                   w_src[j] >= 0);
+    }
+    for (int i = tid + 2 * NTHREADS; i < nwtask; i += NTHREADS) {
+      const int q = i % rq, cc = i / rq;
+      const int c = c0 + cc;
+      const bool ok = c < C;
+      cp_async16(wb + cc * WS + 4 * q,
+                 ok ? wrows + ((size_t)c * L + l) * Rp + 4 * q : wrows, ok);
+    }
+  };
+
+  // this thread's 8 (wavenumber, chain) pairs: e = 4 nt + i is wavenumber
+  // w0 + fw + g + 8 (i / 2), chain c0 + ch + 8 nt + 2 t + (i & 1)
+  float wnv[2], wn3[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int w = w0 + fw + g + 8 * k;
+    wnv[k] = (w < W) ? wn[w] : 1.0f;
+    wn3[k] = kC1 * (wnv[k] * wnv[k] * wnv[k]);
+  }
+  float ext_p[8], tau[8], B_p[8], S_p[8], flux[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    ext_p[e] = tau[e] = B_p[e] = S_p[e] = flux[e] = 0.0f;
+
+  for (int l = 0; l < NSTAGE - 1; ++l) {
+    load_aux(l);
+    if (l < L) copy_stage(l);
+    cp_async_commit();
+  }
+  load_aux(NSTAGE - 1);
+
+  for (int l = 0; l < L; ++l) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // stage l is there; every thread is done with l - 1
+    if (l + NSTAGE - 1 < L) copy_stage(l + NSTAGE - 1);
+    cp_async_commit();
+    load_aux(l + NSTAGE);
+
+    const float* tb = ring + (size_t)(l & (NSTAGE - 1)) * stage;
+    const float* wb = tb + (size_t)Rp * kTS;
+    const float* ax = wb + (size_t)CB * WS;
+
+    // ---- ext of layer l: three TF32 passes per 8 rows; the two small
+    // products and the big one in accumulators of their own --------------
+    float acc_s[2][4], acc_b[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc_s[nt][i] = acc_b[nt][i] = 0.0f;
+    for (int ks = 0; ks < ((BART_ABLATE & 2) ? 0 : KS); ++ks) {
+      // A: (wavenumber fw + g (+ 8), row 8 ks + t (+ 4))
+      const float* ta = tb + (8 * ks + t) * kTS + fw + g;
+      uint32_t ab[4], as[4];
+      split_tf32(ta[0], ab[0], as[0]);
+      split_tf32(ta[8], ab[1], as[1]);
+      split_tf32(ta[4 * kTS], ab[2], as[2]);
+      split_tf32(ta[4 * kTS + 8], ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        // B: (row 8 ks + t (+ 4), chain ch + 8 nt + g)
+        const float* wa = wb + (ch + 8 * nt + g) * WS + 8 * ks + t;
+        uint32_t bb[2], bs[2];
+        split_tf32(wa[0], bb[0], bs[0]);
+        split_tf32(wa[4], bb[1], bs[1]);
+        mma_tf32(acc_s[nt], as, bb);
+        mma_tf32(acc_s[nt], ab, bs);
+        mma_tf32(acc_b[nt], ab, bb);
+      }
+    }
+
+    // ---- recurrence, Planck, quadrature and flux on the fragments -------
+    // C2 / T and drp / 2 of the thread's 4 chains, j = 2 nt + (i & 1)
+    float c2T[4], hdr[4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float2 a = *reinterpret_cast<const float2*>(ax + ch + 8 * nt + 2 * t);
+      const float2 d =
+          *reinterpret_cast<const float2*>(ax + CB + ch + 8 * nt + 2 * t);
+      c2T[2 * nt] = a.x;
+      c2T[2 * nt + 1] = a.y;
+      hdr[2 * nt] = d.x;
+      hdr[2 * nt + 1] = d.y;
+    }
+    float S[8], B[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int j = 2 * (e >> 2) + (e & 1), k = (e >> 1) & 1;
+      const float ext = acc_s[e >> 2][e & 3] + acc_b[e >> 2][e & 3];
+      if (l > 0) tau[e] = tau[e] + (ext_p[e] + ext) * hdr[j];
+      ext_p[e] = ext;
+#if BART_ABLATE & 8
+      B[e] = wn3[k] * (c2T[j] * wnv[k]);
+#else
+      B[e] = wn3[k] / expm1f(c2T[j] * wnv[k]);
+#endif
+    }
+    if (POWERS) {
+      float u[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        u[e] = BART_EXPF(-fminf(tau[e], kTauClamp));
+        S[e] = wmu_s[nmu - 1];
+      }
+#pragma unroll
+      for (int q = nmu - 2; q >= 0; --q) {
+        const float aq = wmu_s[q];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) S[e] = fmaf(u[e], S[e], aq);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) S[e] = u[e] * S[e];
+    } else {
+      float tc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        tc[e] = -fminf(tau[e], kTauClamp);
+        S[e] = 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < nmu; ++q) {
+        const float aq = wmu_s[q], mq = minv_s[q];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) S[e] = S[e] + aq * BART_EXPF(tc[e] * mq);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (l > 0)
+        flux[e] = flux[e] + (0.5f * (B_p[e] + B[e])) * (S_p[e] - S[e]);
+      B_p[e] = B[e];
+      S_p[e] = S[e];
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- close with B_{L-1} S_{L-1} --------------------------------------
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = c0 + ch + 8 * (e >> 2) + 2 * t + (e & 1);
+    const int w = w0 + fw + g + 8 * ((e >> 1) & 1);
+    if (c < C && w < W)
+      out[(size_t)c * W + w] = kTwoPi * (flux[e] + B_p[e] * S_p[e]);
+  }
 }
 
-template <bool POWERS>
+template <bool POWERS, int NMU>
 cudaError_t launch(const float* tab, const float* wrows, const float* T,
                    const float* drp, const float* wn, const float* minv,
-                   const float* wmu, float* out, int R, int L, int W, int C,
-                   int nmu, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)R * TILE_W + (size_t)CB * R);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_eclipse_kernel<POWERS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 block(TILE_W, CB);
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (C + CB - 1) / CB);
-  fused_eclipse_kernel<POWERS><<<grid, block, smem, stream>>>(
-      tab, wrows, T, drp, wn, minv, wmu, out, R, L, W, C, nmu);
+                   const float* wmu, float* out, int R, int Rp, int L, int W,
+                   int Wp, int C, int nmu, cudaStream_t stream) {
+  const int ntile = (W + TILE_W - 1) / TILE_W;
+  if (Rp % 8 != 0 || Rp < R || Wp % 4 != 0 || Wp < W || ntile > 65535 ||
+      (long long)C * L * Rp >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(Rp);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_eclipse_kernel<POWERS, NMU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((C + CB - 1) / CB, ntile);
+  fused_eclipse_kernel<POWERS, NMU><<<grid, NTHREADS, smem, stream>>>(
+      tab, wrows, T, drp, wn, minv, wmu, out, R, Rp, L, W, Wp, C, nmu);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Returns the cudaError_t of
-// the launch: 0 when the kernel was queued on ``stream``.
+// Plain C entry point (bound with ctypes).  tab [R, L, Wp] is the table
+// with its wavenumber axis zero-padded to Wp, W rounded up to 4 (16
+// bytes: bart_tpu_torch.rt.fused.rows_table); wrows [C, L, Rp] the
+// weights zero-padded to Rp rows, R rounded up to 8.  Returns the
+// cudaError_t of the launch: 0 when the kernel was queued on ``stream``.
 extern "C" int bart_fused_eclipse(const float* tab, const float* wrows,
                                   const float* T, const float* drp,
                                   const float* wn, const float* minv,
-                                  const float* wmu, float* out, int R, int L,
-                                  int W, int C, int nmu, int powers,
-                                  cudaStream_t stream) {
+                                  const float* wmu, float* out, int R, int Rp,
+                                  int L, int W, int Wp, int C, int nmu,
+                                  int powers, cudaStream_t stream) {
   if (nmu < 1 || nmu > MAX_NMU || R < 1 || L < 1 || W < 1 || C < 1)
     return (int)cudaErrorInvalidValue;
+  // the quadratures in use get unrolled instances: expsum's 8 powers,
+  // raygrid's 5 angles
+#define BART_K1(POWERS, NMU)                                                 \
+  launch<POWERS, NMU>(tab, wrows, T, drp, wn, minv, wmu, out, R, Rp, L, W,   \
+                      Wp, C, nmu, stream)
   const cudaError_t e =
-      powers ? launch<true>(tab, wrows, T, drp, wn, minv, wmu, out, R, L, W,
-                            C, nmu, stream)
-             : launch<false>(tab, wrows, T, drp, wn, minv, wmu, out, R, L, W,
-                             C, nmu, stream);
+      powers ? (nmu == 8 ? BART_K1(true, 8) : BART_K1(true, 0))
+             : (nmu == 5 ? BART_K1(false, 5) : BART_K1(false, 0));
+#undef BART_K1
   return (int)e;
 }

@@ -1,17 +1,22 @@
 // Fused transit absorption, K = 1, for Hopper (sm_90a): the entry point
-// of the kernel in fused_transit.cuh that replaces the Pallas TPU kernel
-// bart_tpu/rt/fused.py:_tkernel (design and bound: see the header).
+// of the tensor-core kernel in fused_transit_mma.cuh, on a float32 table,
+// that replaces the Pallas TPU kernel bart_tpu/rt/fused.py:_tkernel
+// (design and bound: see the header).
 
-#include "fused_transit.cuh"
+#include "fused_transit_mma.cuh"
 
-// Plain C entry point (bound with ctypes).  tab [R, L, Wp], wrows
-// [C, L, R] and G [C, L, Lp] with R, Wp = W rounded up to 4 and Lp = L
-// rounded up to 4 (zero padding).  Returns the cudaError_t of the
-// launch: 0 when the kernel was queued on ``stream``.
+// Plain C entry point (bound with ctypes).  tab [Rt, L, Wp] is the table
+// with its wavenumber axis zero-padded to Wp, W rounded up to 4 (16
+// bytes: bart_tpu_torch.rt.fused.rows_table); wrows [C, L, R] the
+// weights zero-padded to R rows, Rt rounded up to 8; G in tiles
+// [C, Lk / 8, Lm, 8] (tile s holds G[c, :, 8 s : 8 s + 8]; Lk, Lm = L
+// rounded up to 8, 16; lower-triangular, zero padding); out [C, W].
+// Returns the cudaError_t of the launch: 0 when the kernel was queued on
+// ``stream``.
 extern "C" int bart_fused_transit(const float* tab, const float* wrows,
                                   const float* G, const float* wgt,
-                                  float* out, int R, int L, int W, int C,
-                                  cudaStream_t stream) {
-  return launch_transit<float>(tab, wrows, G, wgt, out, R, R, L, W,
-                               (W + 3) & ~3, C, 1, stream);
+                                  float* out, int Rt, int R, int L, int W,
+                                  int Wp, int C, cudaStream_t stream) {
+  return launch_transit_mma<float>(tab, wrows, G, wgt, out, Rt, R, L, W, Wp,
+                                   C, 1, stream);
 }

@@ -20,7 +20,8 @@ inside them (opacity.grid.fine_bin_mask) go through the folded kernel;
 the smooth bins run the K = 1 kernel on the bin-mean table, and
 ``_assemble`` puts the two pieces back in wn order.  Each dispatch part's
 table (line rows and continuum rows) is assembled once, here, in its
-kernel's layout.
+kernel's layout (K = 1: a RowsTable; folded: a FoldedTable), so that a
+forward copies no table.
 """
 
 from __future__ import annotations
@@ -41,10 +42,11 @@ from bart_tpu_torch.opacity.rayleigh import h2_rayleigh_cross_section
 from bart_tpu_torch.physics.hydro import anchor_index, radius_profile
 from bart_tpu_torch.physics.pt import n_pt_params, pt_generator
 from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
-from bart_tpu_torch.rt.fused import (FoldedTable, folded_table, fused_eclipse,
-                                     fused_eclipse_folded, fused_transit,
-                                     fused_transit_folded, interp_weights,
-                                     prepare_slant, unfold_table)
+from bart_tpu_torch.rt.fused import (FoldedTable, RowsTable, folded_table,
+                                     fused_eclipse, fused_eclipse_folded,
+                                     fused_transit, fused_transit_folded,
+                                     interp_weights, prepare_slant,
+                                     rows_table, unfold_table)
 from bart_tpu_torch.rt.transit_geom import slant_geometry
 from bart_tpu_torch.utils.grids import folded_fine_grid
 
@@ -104,12 +106,15 @@ class ForwardModel:
 
     The tables live in one dict (``tables``) under bart_tpu's keys, so a
     model can also run on tables carried over from the JAX package
-    (``tables_from_jax``).  A folded model (``fold_osamp`` > 1) holds, in
-    place of bart_tpu's ``sigmak``/``frowsk`` and ``sigmas``/``frowss``,
-    one table per dispatch part: ``tabk`` (a FoldedTable: line and
-    continuum rows of the folded bins, bfloat16 with ``fold_bf16``) and,
-    with an adaptive split, ``tabs`` (the bin-mean rows of the smooth
-    bins); ``sigma`` is then the bin-mean table.
+    (``tables_from_jax``).  A K = 1 model holds its one dispatch part's
+    table as ``tab`` (a RowsTable: line rows, then continuum rows), of
+    which ``sigma`` and ``frows`` are views.  A folded model
+    (``fold_osamp`` > 1) holds, in place of bart_tpu's
+    ``sigmak``/``frowsk`` and ``sigmas``/``frowss``, one table per
+    dispatch part: ``tabk`` (a FoldedTable: line and continuum rows of the
+    folded bins, bfloat16 with ``fold_bf16``) and, with an adaptive split,
+    ``tabs`` (a RowsTable: the bin-mean rows of the smooth bins);
+    ``sigma`` is then the bin-mean table.
     """
 
     def __init__(self, config: ForwardConfig, *, wn_grid: np.ndarray,
@@ -226,14 +231,31 @@ class ForwardModel:
         if self.fold > 1:
             self._fold_setup(opacity.sigma, frows, len(wn_grid), fold_adapt)
         else:
-            self._tables["sigma"] = opacity.sigma.to(device=dev, dtype=dtype)
-            if frows is not None:
-                self._tables["frows"] = frows.contiguous()
+            self._tables.update(self._k1_tables(
+                opacity.sigma.to(device=dev, dtype=dtype), frows))
         self.i0 = anchor_index(pressure, cfg.refpress)
         self.r0_km = system.r_planet / 1000.0
         self.g0_si = system.g_planet_si
         self.pt_args = [system.r_star, system.t_star, cfg.tint, system.sma,
                         system.g_planet_cgs, cfg.tint_type]
+
+    @staticmethod
+    def _k1_tables(sigma: torch.Tensor, frows: torch.Tensor | None) -> dict:
+        """The K = 1 model's table in the kernels' layout, laid out once:
+        ``tab``, the RowsTable of the line rows [M*nT, L, W] with the
+        continuum rows appended, and ``sigma`` [M, nT, L, W] and
+        ``frows`` as views of it.  A table that needs neither continuum
+        rows nor padding is taken as it is, not copied."""
+        M, nT, L, W = sigma.shape
+        blocks = [sigma.reshape(M * nT, L, W)]
+        if frows is not None:
+            blocks.append(frows)
+        tab = rows_table(blocks)
+        out = {"tab": tab,
+               "sigma": tab.plain()[:M * nT].unflatten(0, (M, nT))}
+        if frows is not None:
+            out["frows"] = tab.plain()[M * nT:]
+        return out
 
     def _fold_setup(self, sigma_fine: torch.Tensor,
                     frows: torch.Tensor | None, n_out: int,
@@ -274,7 +296,7 @@ class ForwardModel:
                 # columns must follow the bin split
                 fine.append(frows[:, :, idx_f])
                 smooth.append(frows.mean(-1)[:, :, idx_s])
-            t["tabs"] = torch.cat(smooth, dim=0)
+            t["tabs"] = rows_table(smooth)
             t["wn_f"], t["wn_s"] = t["wn"][idx_f], t["wn"][idx_s]
         t["tabk"] = folded_table(torch.cat(fine, dim=0).flatten(2), K, k_dt)
 
@@ -291,11 +313,12 @@ class ForwardModel:
         """Carry bart_tpu ForwardModel tables (as numpy arrays, under
         bart_tpu's keys and in its layouts) over to this model: the
         opacity table, band weights, base abundances, quadrature and the
-        rest, on this model's device and dtype.  Of a folded model,
-        ``sigmak`` [K, M*nT, L, W_f] and ``frowsk`` become this model's
-        ``tabk`` and ``sigmas`` and ``frowss`` its ``tabs``; bfloat16
-        tables (numpy's ml_dtypes.bfloat16) stay bfloat16.  Raises if
-        the keys or shapes differ from this model's."""
+        rest, on this model's device and dtype.  Of a K = 1 model,
+        ``sigma`` and ``frows`` become ``tab`` (and views of it).  Of a
+        folded model, ``sigmak`` [K, M*nT, L, W_f] and ``frowsk`` become
+        this model's ``tabk`` and ``sigmas`` and ``frowss`` its ``tabs``;
+        bfloat16 tables (numpy's ml_dtypes.bfloat16) stay bfloat16.
+        Raises if the keys or shapes differ from this model's."""
         mine = self._tables
         given = dict(numpy_tables)
         parts = {}
@@ -304,8 +327,8 @@ class ForwardModel:
             have = [given.pop(k) for k in keys if k in given]
             if have:
                 parts[part] = have
-        if set(given) | set(parts) != set(mine):
-            have = set(given) | set(parts)
+        have = set(given) | set(parts) | ({"tab"} if self.fold == 1 else set())
+        if have != set(mine):
             raise ValueError(
                 f"table keys differ: missing {sorted(set(mine) - have)}, "
                 f"unexpected {sorted(have - set(mine))}")
@@ -318,6 +341,8 @@ class ForwardModel:
             return torch.tensor(a, dtype=self.dtype, device=self.device)
 
         out = {k: carry(v) for k, v in given.items()}
+        if self.fold == 1:
+            out.update(self._k1_tables(out["sigma"], out.get("frows")))
         if "tabk" in parts:
             # rows along axis 1 of bart_tpu's sub-sample-major layout
             tabk = torch.cat([carry(v) for v in parts["tabk"]], dim=1)
@@ -326,11 +351,13 @@ class ForwardModel:
                                  f"model folds by {self.fold}")
             out["tabk"] = folded_table(unfold_table(tabk), self.fold)
         if "tabs" in parts:
-            out["tabs"] = torch.cat([carry(v) for v in parts["tabs"]], dim=0)
+            out["tabs"] = rows_table([carry(v) for v in parts["tabs"]])
 
         def shape(v):
             if isinstance(v, FoldedTable):
                 return (*v.tab.shape[:2], v.W, v.K)
+            if isinstance(v, RowsTable):
+                return (*v.tab.shape[:2], v.W)
             return tuple(v.shape)
 
         for k, v in out.items():
@@ -412,9 +439,10 @@ class ForwardModel:
     def _fused_rows(self, params: torch.Tensor, t: dict, T_safe, q, rad_cm):
         """(parts, wrows [C, L, R]): the extinction as one rows
         contraction per dispatch part (tab, folded?, wn, output-bin
-        indices or None): one K = 1 part, tab [R, L, W]; folded, the
-        FoldedTable of the fine bins and, with an adaptive split, the
-        K = 1 table of the smooth bins.  Columns in bart_tpu's order:
+        indices or None): one K = 1 part, the RowsTable ``tab``; folded,
+        the FoldedTable of the fine bins and, with an adaptive split, the
+        RowsTable of the smooth bins.  No table is copied here.  Columns
+        in bart_tpu's order:
         line rows (molecule x T-node), CIA T-node rows, Rayleigh, cloud
         deck, extended cloud; the weight formulas mirror the unfused
         extinction term by term."""
@@ -461,10 +489,7 @@ class ForwardModel:
                 parts.append((t["tabs"], False, t["wn_s"],
                               self._idx_smooth_t))
             return parts, wrows
-        tab = sigma.reshape(M * nT, L, W)
-        if "frows" in t:
-            tab = torch.cat([tab, t["frows"]], dim=0)
-        return [(tab, False, t["wn"], None)], wrows
+        return [(t["tab"], False, t["wn"], None)], wrows
 
     def _spectrum(self, params, t, T_safe, q, rad_cm):
         """Extinction rows -> geometry -> spectrum [C, W] through the
@@ -474,11 +499,9 @@ class ForwardModel:
         if self.config.solution == "transit":
             G, wgt = slant_geometry(rad_cm)
             if G.is_cuda:
-                # the kernels' padded lower-triangular layout, made once
-                # for the launches of this forward
-                G = prepare_slant(G, tiles=any(
-                    folded and tab.tab.dtype == torch.bfloat16
-                    for tab, folded, _, _ in parts))
+                # the kernels' lower-triangular tiles, made once for the
+                # launches of this forward
+                G = prepare_slant(G)
             absorbed = self._assemble(
                 [((fused_transit_folded if folded else fused_transit)(
                     tab, wrows, G, wgt), idx)

@@ -33,6 +33,11 @@ over each bin's K sub-samples taken AFTER the exponential: of S_l
 bin's sub-samples are neighbours in memory; ``fold_table`` gives
 bart_tpu's sub-sample-major layout and ``unfold_table`` undoes it.
 
+A K = 1 table is handed to the kernels as a ``RowsTable`` (``rows_table``:
+[R, L, Wp] contiguous, the wn axis zero-padded to 16 bytes), made once at
+model set-up; a plain [R, L, W] tensor is also taken and prepared on the
+spot.
+
 ``fused_eclipse``, ``fused_transit``, ``fused_eclipse_folded`` and
 ``fused_transit_folded`` are the entry points.  On CPU tensors they run
 the batched torch versions ``eclipse_plain``, ``transit_plain``,
@@ -63,27 +68,30 @@ __all__ = ["fused_eclipse", "eclipse_plain", "fused_transit",
            "fused_transit_folded", "transit_folded_plain", "FoldedTable",
            "folded_table", "fold_table", "unfold_table", "interp_weights",
            "smix", "load_kernel", "build_kernels", "split_bf16",
-           "split_tf32", "SlantMatrix", "prepare_slant"]
+           "split_tf32", "SlantMatrix", "prepare_slant", "RowsTable",
+           "rows_table"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
-# fused_eclipse.cu: TILE_W, CB, MAX_NMU (the tests check the source)
+# fused_eclipse.cu: TILE_W, CB, NSTAGE, NTHREADS, MAX_NMU (the tests check
+# the source)
 _MAX_NMU = 16          # the kernel keeps the quadrature in shared memory
-_TILE_W, _CB = 128, 4
-# fused_transit.cuh: TILE_W, CB, NB, RC
-_T_TILE_W, _T_CB, _T_NB, _T_RC = 32, 8, 16, 24
+_TILE_W, _CB, _NSTAGE, _NTHREADS = 64, 32, 4, 256
 # fused_eclipse_folded.cu: TILE_F, TY, CPT (float32 tables); MTILE_F,
 # CBM, NSTAGE, MTHREADS (bfloat16 tables, the tensor-core kernel)
 _F_TILE_F, _F_TY, _F_CPT = 128, 2, 4
 _F_MTILE_F, _F_CBM, _F_NSTAGE, _F_MTHREADS = 64, 32, 4, 256
-# fused_transit_folded.cu, the tensor-core kernel: FT_W, FT_CB, FT_NS,
-# FT_MT
+# fused_transit_mma.cuh (the K = 1 and the folded transit kernel): FT_W,
+# FT_CB, FT_NS, FT_MT
 _FT_W, _FT_CB, _FT_NS, _FT_MT = 32, 8, 5, 7
-#: the tensor-core kernels pad the row axis to the depth of one bf16 product
-_MMA_K = 16
+#: the tensor-core kernels pad the row axis to the depth of one product:
+#: 16 rows in bfloat16, 8 in TF32
+_MMA_K, _MMA_K32 = 16, 8
+#: a RowsTable's wn axis is padded to 16 bytes of float32
+_ROWS_ALIGN = 4
 _MAX_GRID_Y = 65535
 #: sub-samples per bin the folded kernels take: the K lanes of a warp
 _FOLD_K = (2, 4, 8, 16, 32)
@@ -94,8 +102,8 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 #: kernel name -> the argtypes of its extern "C" entry ``bart_<name>``
 #: (pointers, ints, the stream); the source is csrc/<name>.cu
 _KERNELS = {
-    "fused_eclipse": [_VP] * 8 + [_CI] * 6 + [_VP],
-    "fused_transit": [_VP] * 5 + [_CI] * 4 + [_VP],
+    "fused_eclipse": [_VP] * 8 + [_CI] * 8 + [_VP],
+    "fused_transit": [_VP] * 5 + [_CI] * 6 + [_VP],
     "fused_eclipse_folded": [_VP] * 9 + [_CI] * 10 + [_VP],
     "fused_transit_folded": [_VP] * 5 + [_CI] * 8 + [_VP],
 }
@@ -215,6 +223,51 @@ def unfold_table(tabk: torch.Tensor) -> torch.Tensor:
     return tabk.permute(1, 2, 3, 0).reshape(R, L, W * K)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowsTable:
+    """A K = 1 table in the kernels' layout: ``tab`` [R, L, Wp]
+    contiguous, whose first W columns are in use and the rest zero (Wp is
+    W rounded up to 16 bytes of float32, so that every row of the table
+    can be copied in 16-byte pieces)."""
+
+    tab: torch.Tensor
+    W: int
+
+    def plain(self) -> torch.Tensor:
+        """The columns in use as a view [R, L, W]."""
+        return self.tab[..., :self.W]
+
+
+def rows_table(rows, dtype: torch.dtype | None = None) -> RowsTable:
+    """[R, L, W] (or a sequence of such blocks of rows, stacked along the
+    row axis) -> RowsTable in ``dtype`` (default: as given).  Done once,
+    at model set-up; a single contiguous block that needs no padding and
+    no cast is taken as it is, not copied."""
+    blocks = [rows] if isinstance(rows, torch.Tensor) else list(rows)
+    first = blocks[0]
+    if any(b.dim() != 3 or b.shape[1:] != first.shape[1:] for b in blocks):
+        raise ValueError("rows_table: expected [R, L, W] blocks of one "
+                         f"[L, W], got {[tuple(b.shape) for b in blocks]}")
+    dtype = dtype or first.dtype
+    _, L, W = first.shape
+    Wp = -(-W // _ROWS_ALIGN) * _ROWS_ALIGN
+    if (len(blocks) == 1 and Wp == W and first.dtype == dtype
+            and first.is_contiguous()):
+        return RowsTable(first, W)
+    tab = torch.zeros((sum(b.shape[0] for b in blocks), L, Wp), dtype=dtype,
+                      device=first.device)
+    r = 0
+    for b in blocks:
+        tab[r:r + b.shape[0], :, :W] = b
+        r += b.shape[0]
+    return RowsTable(tab, W)
+
+
+def _plain_rows(tab) -> torch.Tensor:
+    """The [R, L, W] tensor the plain versions take."""
+    return tab.plain() if isinstance(tab, RowsTable) else tab
+
+
 def eclipse_folded_plain(ft: FoldedTable, wn_out: torch.Tensor,
                          mu: torch.Tensor, muw: torch.Tensor,
                          wrows: torch.Tensor, T: torch.Tensor,
@@ -292,6 +345,18 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, small
 
 
+def _pad_rows(wrows: torch.Tensor, Rp: int) -> torch.Tensor:
+    """wrows [C, L, R] -> [C, L, Rp] float32 contiguous, zero-padded
+    along the row axis, as the kernels copy them in 16-byte pieces (the
+    weights are the only operand laid out per call)."""
+    C, L, R = wrows.shape
+    if R == Rp:
+        return wrows.to(torch.float32).contiguous()
+    out = torch.zeros((C, L, Rp), dtype=torch.float32, device=wrows.device)
+    out[..., :R] = wrows
+    return out
+
+
 def _split_rows(wrows: torch.Tensor, Rp: int) -> torch.Tensor:
     """wrows [C, L, R] -> [3, C, L, Rp] bfloat16: split_bf16's parts,
     zero-padded along the row axis, as the tensor-core kernels read them."""
@@ -308,14 +373,14 @@ class SlantMatrix:
     """slant_geometry's G in the transit kernels' layouts, made by
     ``prepare_slant`` once per forward, so that the launches of one
     forward share it.  ``G`` [C, L, Lp] contiguous, Lp = L rounded up to
-    4, the upper triangle and the padding zero.  ``tiles`` (optional)
-    [C, Lk / 8, Lm, 8] contiguous, Lk, Lm = L rounded up to 8, 16: tile s
-    holds G[c, :, 8 s : 8 s + 8], zero-padded, which the tensor-core
-    folded kernel streams one tile a step."""
+    4, the upper triangle and the padding zero (the plain versions' form).
+    ``tiles`` [C, Lk / 8, Lm, 8] contiguous, Lk, Lm = L rounded up to 8,
+    16: tile s holds G[c, :, 8 s : 8 s + 8], zero-padded, which the
+    kernels stream one tile a step."""
 
     G: torch.Tensor
     L: int
-    tiles: torch.Tensor | None = None
+    tiles: torch.Tensor
 
     def plain(self) -> torch.Tensor:
         """The [C, L, L] view the plain versions take."""
@@ -331,35 +396,30 @@ def _slant_tiles(G: torch.Tensor, L: int) -> torch.Tensor:
     return full.view(C, Lm, Lk // 8, 8).permute(0, 2, 1, 3).contiguous()
 
 
-def prepare_slant(G: torch.Tensor, dtype: torch.dtype = torch.float32,
-                  tiles: bool = False) -> SlantMatrix:
+def prepare_slant(G: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> SlantMatrix:
     """G [C, L, L] -> SlantMatrix in ``dtype`` (the kernels read
-    float32), with the tiled layout too if ``tiles``."""
+    float32)."""
     C, L, L2 = G.shape
     if L != L2:
         raise ValueError(f"prepare_slant: G has shape {tuple(G.shape)}, "
                          "expected [C, L, L]")
     out = torch.zeros((C, L, -(-L // 4) * 4), dtype=dtype, device=G.device)
     out[..., :L] = torch.tril(G)
-    return SlantMatrix(out, L, _slant_tiles(out, L) if tiles else None)
+    return SlantMatrix(out, L, _slant_tiles(out, L))
 
 
-def _slant32(fn: str, G, C: int, L: int, dev: torch.device,
-             tiles: bool = False) -> torch.Tensor:
-    """G as the kernels read it, float32: [C, L, Lp], or the tiled layout
-    if ``tiles``.  A SlantMatrix is checked and passed on as it is (its
-    tiles made if it has none), a plain [C, L, L] tensor prepared."""
+def _slant32(fn: str, G, C: int, L: int, dev: torch.device) -> torch.Tensor:
+    """G as the kernels read it: the tiled layout, float32.  A
+    SlantMatrix is checked and passed on as it is, a plain [C, L, L]
+    tensor prepared."""
     if not isinstance(G, SlantMatrix):
         _check(fn, "G", G, (C, L, L), dev)
-        G = prepare_slant(G, tiles=tiles)
+        G = prepare_slant(G)
     _check(fn, "G", G.G, (C, L, -(-L // 4) * 4), dev)
     if G.L != L or G.G.dtype != torch.float32 or not G.G.is_contiguous():
         raise ValueError(f"{fn}: the SlantMatrix is not prepare_slant's "
                          f"contiguous float32 layout for L = {L}")
-    if not tiles:
-        return G.G
-    if G.tiles is None:
-        return _slant_tiles(G.G, L)
     _check(fn, "G tiles", G.tiles,
            (C, -(-L // 8), -(-L // 16) * 16, 8), dev)
     if G.tiles.dtype != torch.float32 or not G.tiles.is_contiguous():
@@ -458,31 +518,66 @@ def _check(fn, name, x, shape, device):
                         "floating-point tensor")
 
 
-def fused_eclipse(tab: torch.Tensor, wn: torch.Tensor, mu: torch.Tensor,
+def _rows32(fn: str, tab, dev: torch.device) -> tuple[torch.Tensor, int]:
+    """(tab [R, L, Wp] float32 contiguous, W) as the K = 1 kernels read
+    the table.  A RowsTable is checked and passed on as it is (cast if it
+    is not float32), a plain [R, L, W] tensor prepared on the spot."""
+    if not isinstance(tab, RowsTable):
+        if tab.dim() != 3:
+            raise ValueError(f"{fn}: tab has shape {tuple(tab.shape)}, "
+                             "expected [R, L, W]")
+        _check(fn, "tab", tab, tab.shape, dev)
+        tab = rows_table(tab, torch.float32)
+    t, W = tab.tab, tab.W
+    _check(fn, "tab", t, t.shape, dev)
+    if (t.dim() != 3 or not t.is_contiguous() or W < 1
+            or t.shape[2] != -(-W // _ROWS_ALIGN) * _ROWS_ALIGN):
+        raise ValueError(f"{fn}: table of shape {tuple(t.shape)} is not a "
+                         f"contiguous [R, L, Wp] with Wp = {W} rounded up to "
+                         f"{_ROWS_ALIGN} (rows_table)")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{fn}: table beyond 2^31 elements")
+    return t.to(torch.float32), W
+
+
+def _eclipse_smem(R: int) -> int:
+    """Bytes of dynamic shared memory a block of the K = 1 eclipse kernel
+    needs (as its launcher counts them): NSTAGE stages of the table tile
+    [Rp][TILE_W + 8], the weights [CB][Rp + 4] and the chains' two
+    scalars [2][CB], in float32; Rp = R rounded up to 8."""
+    Rp = -(-R // _MMA_K32) * _MMA_K32
+    return 4 * _NSTAGE * (Rp * (_TILE_W + 8) + _CB * (Rp + 4) + 2 * _CB)
+
+
+def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
                   muw: torch.Tensor, wrows: torch.Tensor, T: torch.Tensor,
                   drp: torch.Tensor, powers: bool = False) -> torch.Tensor:
     """Eclipse flux [C, W] from extinction rows, batched over chains.
 
-    tab [R, L, W] static absorber rows; wrows [C, L, R] per-chain
-    weights; T [C, L] K; drp [C, L] cm with drp[:, 0] == 0
+    tab the static absorber rows, a RowsTable (``rows_table``, made once)
+    or a plain [R, L, W] tensor (prepared on the spot); wrows [C, L, R]
+    per-chain weights; T [C, L] K; drp [C, L] cm with drp[:, 0] == 0
     (drp[:, l] = r_{l-1} - r_l); mu, muw [nmu] the angular quadrature
     (``powers=True`` requires rt.eclipse.expsum_weights).
 
     A CPU ``T`` runs ``eclipse_plain``.  A CUDA ``T`` launches the
     kernel in float32 on the current stream, without synchronising, and
-    returns the result cast to ``T.dtype``; it raises on any input the
-    kernel does not take, and never falls back.
+    returns the result cast to ``T.dtype``: the contraction in 3xTF32 on
+    tensor cores (``split_tf32``), the rest on the float32 pipes.  It
+    raises on any input the kernel does not take, and never falls back.
     """
     if T.device.type == "cpu":
-        return eclipse_plain(tab, wn, mu, muw, wrows, T, drp, powers)
+        return eclipse_plain(_plain_rows(tab), wn, mu, muw, wrows, T, drp,
+                             powers)
     if T.device.type != "cuda":
         raise ValueError(f"fused_eclipse: unsupported device {T.device}")
 
-    R, L, W = tab.shape
+    dev = T.device
+    tab32, W = _rows32("fused_eclipse", tab, dev)
+    R, L, Wp = tab32.shape
     C = T.shape[0]
     nmu = int(mu.shape[0])
-    dev = T.device
-    for name, x, shape in (("tab", tab, (R, L, W)), ("wn", wn, (W,)),
+    for name, x, shape in (("wn", wn, (W,)),
                            ("mu", mu, (nmu,)), ("muw", muw, (nmu,)),
                            ("wrows", wrows, (C, L, R)), ("T", T, (C, L)),
                            ("drp", drp, (C, L))):
@@ -490,18 +585,22 @@ def fused_eclipse(tab: torch.Tensor, wn: torch.Tensor, mu: torch.Tensor,
     if not 1 <= nmu <= _MAX_NMU:
         raise ValueError(f"fused_eclipse: {nmu} quadrature nodes, the "
                          f"kernel takes 1..{_MAX_NMU}")
-    if L < 1 or R < 1:
-        raise ValueError("fused_eclipse: empty layer or row axis")
-    smem = 4 * (R * _TILE_W + _CB * R)
+    if min(R, L, C) < 1:
+        raise ValueError("fused_eclipse: empty row, layer or chain axis")
+    Rp = -(-R // _MMA_K32) * _MMA_K32
+    smem = _eclipse_smem(R)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"fused_eclipse: {R} rows need {smem} B of shared "
                          f"memory, more than a block has ({_SMEM_LIMIT})")
-    if max(R * L * W, C * L * R) >= 2**31:
+    if -(-W // _TILE_W) > _MAX_GRID_Y:
+        raise ValueError(f"fused_eclipse: {W} wavenumbers exceed the "
+                         f"grid's {_MAX_GRID_Y * _TILE_W}")
+    if max(C * L * Rp, C * W) >= 2**31:
         raise ValueError("fused_eclipse: tensors beyond 2^31 elements")
 
+    # per call only the weights are padded
     f32 = torch.float32
-    tab32 = tab.to(f32).contiguous()
-    wrows32 = wrows.to(f32).contiguous()
+    wrows32 = _pad_rows(wrows, Rp)
     T32 = T.to(f32).contiguous()
     drp32 = drp.to(f32).contiguous()
     wn32 = wn.to(f32).contiguous()
@@ -517,7 +616,7 @@ def fused_eclipse(tab: torch.Tensor, wn: torch.Tensor, mu: torch.Tensor,
             tab32.data_ptr(), wrows32.data_ptr(), T32.data_ptr(),
             drp32.data_ptr(), wn32.data_ptr(), minv.data_ptr(),
             wmu.data_ptr(), out.data_ptr(),
-            R, L, W, C, nmu, int(bool(powers)), stream)
+            R, Rp, L, W, Wp, C, nmu, int(bool(powers)), stream)
     if err != 0:
         raise RuntimeError(f"fused_eclipse kernel launch failed: CUDA "
                            f"error {err}")
@@ -529,78 +628,90 @@ def fused_eclipse(tab: torch.Tensor, wn: torch.Tensor, mu: torch.Tensor,
 fused_eclipse.launches = 0
 
 
-def _transit_smem(L: int) -> int:
-    """Bytes of shared memory a block of the transit kernels needs: ext
-    for all layers, the annulus weights, two stage buffers (as the
-    kernel's launcher counts them)."""
-    Lp = -(-L // 4) * 4
-    return 4 * (_T_CB * Lp * _T_TILE_W + -(-_T_CB * L // 4) * 4
-                + 2 * _T_CB * max(_T_RC * (_T_TILE_W + _T_CB), _T_NB * Lp))
+def _transit_mma_smem(L: int, bf16: bool) -> int:
+    """Bytes of shared memory a block of the transit kernel needs (as its
+    launcher counts them): ext for all layers [FT_CB][Lk FT_W + 4] and
+    the annulus weights [FT_CB][Lm] in float32, then the larger of the
+    warps' fill rings (FT_NS units each; a bfloat16 table's unit: 16
+    table rows [16][FT_W + 8] in bfloat16 and weights [FT_CB][24] in
+    float32; a float32 table's: [8][FT_W + 8] and [FT_CB][12] in float32)
+    and their G stages (2 x [Lm][8] float32 each).  The row count does
+    not enter."""
+    Lk, Lm = -(-L // 8) * 8, -(-L // 16) * 16
+    unit = (2 * 16 * (_FT_W + 8) + 4 * _FT_CB * 24 if bf16
+            else 4 * 8 * (_FT_W + 8) + 4 * _FT_CB * 12)
+    fill = _FT_CB * _FT_NS * unit
+    slant = _FT_CB * 2 * Lm * 8 * 4
+    return 4 * (_FT_CB * (Lk * _FT_W + 4) + _FT_CB * Lm) + max(fill, slant)
 
 
-def fused_transit(tab: torch.Tensor, wrows: torch.Tensor, G: torch.Tensor,
+def _check_transit_fit(fn: str, L: int, F: int, bf16: bool) -> None:
+    """Raise if L layers or F (fine) wavenumbers exceed what a block or
+    the grid of the transit kernel holds."""
+    smem = _transit_mma_smem(L, bf16)
+    if smem > _SMEM_LIMIT or L > 16 * _FT_MT:
+        raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory "
+                         f"and {-(-L // 16)} register blocks, more than a "
+                         f"block has ({_SMEM_LIMIT}, {_FT_MT})")
+    if -(-F // _FT_W) > _MAX_GRID_Y:
+        raise ValueError(f"{fn}: {F} wavenumbers exceed the grid's "
+                         f"{_MAX_GRID_Y * _FT_W}")
+
+
+def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
                   wgt: torch.Tensor) -> torch.Tensor:
     """Annulus-integrated absorption out [C, W], batched over chains.
 
-    tab [R, L, W] static absorber rows; wrows [C, L, R] per-chain
-    weights; (G [C, L, L], wgt [C, L]) from slant_geometry of each
-    chain's radii.  G is taken as lower-triangular (as slant_geometry's
-    is exactly): entries above the diagonal are ignored.  G may also be
-    ``prepare_slant``'s SlantMatrix, which is then not copied.
+    tab the static absorber rows, a RowsTable (``rows_table``, made once)
+    or a plain [R, L, W] tensor (prepared on the spot); wrows [C, L, R]
+    per-chain weights; (G [C, L, L], wgt [C, L]) from slant_geometry of
+    each chain's radii.  G is taken as lower-triangular (as
+    slant_geometry's is exactly): entries above the diagonal are ignored.
+    G may also be ``prepare_slant``'s SlantMatrix, which is then not
+    copied.
 
     A CPU ``wgt`` runs ``transit_plain``.  A CUDA ``wgt`` launches the
     kernel in float32 on the current stream, without synchronising, and
-    returns the result cast to ``wgt.dtype``; it raises on any input the
-    kernel does not take, and never falls back.
+    returns the result cast to ``wgt.dtype``: both contractions in 3xTF32
+    on tensor cores (``split_tf32``).  It raises on any input the kernel
+    does not take, and never falls back.
     """
     if wgt.device.type == "cpu":
         return transit_plain(
-            tab, wrows, G.plain() if isinstance(G, SlantMatrix) else G, wgt)
+            _plain_rows(tab), wrows,
+            G.plain() if isinstance(G, SlantMatrix) else G, wgt)
     if wgt.device.type != "cuda":
         raise ValueError(f"fused_transit: unsupported device {wgt.device}")
 
-    R, L, W = tab.shape
-    C = wgt.shape[0]
+    fn = "fused_transit"
     dev = wgt.device
-    for name, x, shape in (("tab", tab, (R, L, W)),
-                           ("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
-        _check("fused_transit", name, x, shape, dev)
-    G32 = _slant32("fused_transit", G, C, L, dev)
-    if min(R, L, W, C) < 1:
-        raise ValueError("fused_transit: empty row, layer, wn or chain axis")
-    Rp, Lp, Wp = (-(-n // 4) * 4 for n in (R, L, W))
-    smem = _transit_smem(L)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_transit: {L} layers need {smem} B of "
-                         f"shared memory, more than a block has "
-                         f"({_SMEM_LIMIT})")
-    if -(-W // _T_TILE_W) > _MAX_GRID_Y:
-        raise ValueError(f"fused_transit: {W} wavenumbers exceed the "
-                         f"grid's {_MAX_GRID_Y * _T_TILE_W}")
-    if max(Rp * L * Wp, C * L * Lp, C * L * Rp, C * W) >= 2**31:
-        raise ValueError("fused_transit: tensors beyond 2^31 elements")
+    tab32, W = _rows32(fn, tab, dev)
+    R, L, Wp = tab32.shape
+    C = wgt.shape[0]
+    for name, x, shape in (("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
+        _check(fn, name, x, shape, dev)
+    Gt = _slant32(fn, G, C, L, dev)
+    if min(R, L, C) < 1:
+        raise ValueError(f"{fn}: empty row, layer or chain axis")
+    _check_transit_fit(fn, L, W, False)
+    Rp = -(-R // _MMA_K32) * _MMA_K32
+    if max(C * L * Rp, C * W) >= 2**31:
+        raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
-    # The kernel copies rows in 16-byte pieces: zero-pad R (tab, wrows)
-    # and W (tab) to multiples of 4; G32's last axis is padded likewise
-    # and its upper triangle zeroed, so the kernel, like transit_plain,
-    # ignores it.
+    # per call only the weights are padded
     f32 = torch.float32
-    tab32 = torch.zeros((Rp, L, Wp), dtype=f32, device=dev)
-    tab32[:R, :, :W] = tab
-    wrows32 = torch.zeros((C, L, Rp), dtype=f32, device=dev)
-    wrows32[..., :R] = wrows
+    wrows32 = _pad_rows(wrows, Rp)
     wgt32 = wgt.to(f32).contiguous()
     out = torch.empty((C, W), dtype=f32, device=dev)
 
-    lib = load_kernel("fused_transit")
+    lib = load_kernel(fn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bart_fused_transit(
-            tab32.data_ptr(), wrows32.data_ptr(), G32.data_ptr(),
-            wgt32.data_ptr(), out.data_ptr(), Rp, L, W, C, stream)
+            tab32.data_ptr(), wrows32.data_ptr(), Gt.data_ptr(),
+            wgt32.data_ptr(), out.data_ptr(), R, Rp, L, W, Wp, C, stream)
     if err != 0:
-        raise RuntimeError(f"fused_transit kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
     fused_transit.launches += 1
     return out.to(wgt.dtype)
 
@@ -626,20 +737,6 @@ def _eclipse_folded_smem(R: int, K: int, bf16: bool) -> int:
     Rp = -(-R // _MMA_K) * _MMA_K
     stage = 2 * (Rp * (_F_MTILE_F + 8) + 3 * _F_CBM * (Rp + 8))
     return _F_NSTAGE * stage + 2 * 4 * (_F_MTILE_F // K) * _F_CBM
-
-
-def _transit_folded_smem(L: int) -> int:
-    """Bytes of shared memory a block of the tensor-core folded transit
-    kernel needs (as its launcher counts them): ext for all layers
-    [FT_CB][Lk FT_W + 4] and the annulus weights [FT_CB][Lm] in float32,
-    then the larger of the warps' fill rings (FT_NS units each: 16 table
-    rows [16][FT_W + 8] in bfloat16 and weights [FT_CB][24] in float32)
-    and their G stages (2 x [Lm][8] float32 each).  The row count does
-    not enter."""
-    Lk, Lm = -(-L // 8) * 8, -(-L // 16) * 16
-    fill = _FT_CB * _FT_NS * (2 * 16 * (_FT_W + 8) + 4 * _FT_CB * 24)
-    slant = _FT_CB * 2 * Lm * 8 * 4
-    return 4 * (_FT_CB * (Lk * _FT_W + 4) + _FT_CB * Lm) + max(fill, slant)
 
 
 def _check_folded(fn: str, ft: FoldedTable, dev: torch.device) -> int:
@@ -760,10 +857,10 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     A CPU ``wgt`` runs ``transit_folded_plain``.  A CUDA ``wgt`` launches
     the kernel on the current stream, without synchronising: the table
     is read as stored (float32 or bfloat16), everything else in float32,
-    and the result is cast to ``wgt.dtype``.  A bfloat16 table takes the
-    tensor-core kernel: the fill exactly, on the weights' three bfloat16
-    parts (``split_bf16``'s rule, applied in the kernel), and the slant
-    product in 3xTF32 (``split_tf32``).  G may be
+    and the result is cast to ``wgt.dtype``.  The fill of a bfloat16
+    table is exact, on the weights' three bfloat16 parts (``split_bf16``'s
+    rule, applied in the kernel); that of a float32 table and the slant
+    product are in 3xTF32 (``split_tf32``).  G may be
     ``prepare_slant``'s SlantMatrix, which is then not copied.  It raises
     on any input the kernel does not take, and never falls back.
     """
@@ -781,30 +878,20 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     C = wgt.shape[0]
     for name, x, shape in (("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
         _check(fn, name, x, shape, dev)
-    G32 = _slant32(fn, G, C, L, dev, tiles=bool(bf16))
+    Gt = _slant32(fn, G, C, L, dev)
     if min(R, L, C) < 1:
         raise ValueError(f"{fn}: empty row, layer or chain axis")
-    Lp = -(-L // 4) * 4
+    _check_transit_fit(fn, L, W * K, bool(bf16))
     # the row axis as the kernel reads it: padded to the depth of one
-    # bf16 product for a bfloat16 table (the kernel splits the float32
-    # weights into split_bf16's parts in registers), to 16 bytes for a
-    # float32 one
-    pad = _MMA_K if bf16 else 4
+    # product (the kernel splits the float32 weights in registers)
+    pad = _MMA_K if bf16 else _MMA_K32
     Rk = -(-R // pad) * pad
-    smem = _transit_folded_smem(L) if bf16 else _transit_smem(L)
-    if smem > _SMEM_LIMIT or (bf16 and L > 16 * _FT_MT):
-        raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory, "
-                         f"more than a block has ({_SMEM_LIMIT})")
-    if -(-W * K // _T_TILE_W) > _MAX_GRID_Y:
-        raise ValueError(f"{fn}: {W * K} fine wavenumbers exceed the grid's "
-                         f"{_MAX_GRID_Y * _T_TILE_W}")
-    if max(C * L * Lp, C * L * Rk, C * W) >= 2**31:
+    if max(C * L * Rk, C * W) >= 2**31:
         raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
     # per call only the weights are padded
     f32 = torch.float32
-    wrows32 = torch.zeros((C, L, Rk), dtype=f32, device=dev)
-    wrows32[..., :R] = wrows
+    wrows32 = _pad_rows(wrows, Rk)
     wgt32 = wgt.to(f32).contiguous()
     out = torch.empty((C, W), dtype=f32, device=dev)
 
@@ -812,7 +899,7 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bart_fused_transit_folded(
-            ft.tab.data_ptr(), wrows32.data_ptr(), G32.data_ptr(),
+            ft.tab.data_ptr(), wrows32.data_ptr(), Gt.data_ptr(),
             wgt32.data_ptr(), out.data_ptr(), R, Rk, L, W, Fp, C, K, bf16,
             stream)
     if err != 0:

@@ -32,15 +32,20 @@ smooth bins.  Phases:
   4. a short snooker retrieval (run_mcmc) per path on synthetic data
   5. serialized times per path: kernel, plain version, whole forward,
      forward less the kernels
+  6. with ``--trace`` only: a torch.profiler trace of a few forwards per
+     path: the device-busy share of the wall time, the five device
+     operations that took most time and the five stages of the forward
+     during which the device idled longest
 
 Each path's launch counts are zeroed just before its phase 3 and read
 just after its phase 4.  Any failed check raises and exits non-zero.
-The last two lines of stdout are the kernels' JSON record (with, for
-the folded kernels, the share of their FMAs that runs on tensor cores)
-and the result JSON.
+The last two lines of stdout are the kernels' JSON record (with the
+share of each kernel's FMAs that runs on tensor cores) and the result
+JSON.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # phases 0-2, then the kernels' times
+    python3 chip_smoke.py --trace     # all phases, then phase 6
 """
 
 from __future__ import annotations
@@ -132,13 +137,17 @@ def transit_bound(R, L, F, C, K, nbytes_in):
                  nbytes_in + 4 * C * (F // K))
 
 
-def tensor_share(fill_fmas: float, slant_fmas: float, all_fmas: float):
-    """What a folded kernel runs on tensor cores: (share of the bound's
-    FMAs, their types, ms those FMAs take at the types' dense peaks times
-    the passes used).  The fill is three bfloat16 passes (the weights'
-    three parts), the slant product three TF32 passes."""
-    ms = 2e3 * 3 * (fill_fmas / BF16_FLOPS + slant_fmas / TF32_FLOPS)
-    kinds = ["bf16 x 3 passes (fill)"] + (
+def tensor_share(fill_fmas: float, slant_fmas: float, all_fmas: float,
+                 fill_type: str):
+    """What a kernel runs on tensor cores: (share of the bound's FMAs,
+    their types, ms those FMAs take at the types' dense peaks times the
+    passes used).  The fill is three passes: bfloat16 on a bfloat16 table
+    (the weights' three parts, ``fill_type`` "bf16"), TF32 on a float32
+    table (big and small parts of both operands, "tf32", every K = 1
+    launch); the slant product three TF32 passes."""
+    fill_peak = {"bf16": BF16_FLOPS, "tf32": TF32_FLOPS}[fill_type]
+    ms = 2e3 * 3 * (fill_fmas / fill_peak + slant_fmas / TF32_FLOPS)
+    kinds = [f"{fill_type} x 3 passes (fill)"] + (
         ["tf32 x 3 passes (slant)"] if slant_fmas else [])
     return (fill_fmas + slant_fmas) / all_fmas, " + ".join(kinds), ms
 
@@ -209,7 +218,8 @@ def transit_kernel_vs_plain(fused, filters, f32: dict) -> float:
     from bart_tpu_torch.obs.bands import band_integrate, build_band_matrix
 
     max_abs = 0.0
-    for (R, L, W, C) in ((41, 100, 2501, 512), (17, 23, 300, 6)):
+    for (R, L, W, C) in ((41, 100, 2501, 512), (17, 23, 300, 6),
+                         (48, 23, 301, 33)):
         args = [torch.tensor(a, **f32)
                 for a in random_transit_rows(R, L, W, C, seed=7)[:4]]
         got = fused.fused_transit(*args)
@@ -253,8 +263,10 @@ def transit_path(fused, fm, inp, nchain: int, f32: dict) -> dict:
 
     fmt = build_demo_model(inp, device=f32["device"], dtype=torch.float32,
                            grid=fm.opacity, solution="transit", cia=True)
-    check(fmt.sigma.data_ptr() == fm.sigma.data_ptr(),
-          "the transit model holds a second opacity table")
+    check(fmt.opacity.sigma.data_ptr() == fm.opacity.sigma.data_ptr(),
+          "the transit model holds a second opacity grid")
+    check(fmt.tables["tab"].tab.shape[0] == 27 + 14,
+          "the transit model's prepared table lacks the CIA rows")
     fused.fused_transit.launches = 0          # the transit path starts here
     rng = np.random.default_rng(1)
     spread = np.where(np.arange(7) == 5, 10.0, 0.005)    # radius in km
@@ -274,10 +286,12 @@ def transit_path(fused, fm, inp, nchain: int, f32: dict) -> dict:
     # the forward's own rows through the plain version, on out itself
     t = fmt.tables
     T_safe, q, rad_cm, _ = fmt._profiles(params, t)
-    ((tab, _, _, _),), wrows = fmt._fused_rows(params, t, T_safe, q, rad_cm)
+    ((rtab, _, _, _),), wrows = fmt._fused_rows(params, t, T_safe, q, rad_cm)
+    check(rtab is t["tab"], "the forward does not use the prepared table")
+    tab = rtab.plain().contiguous()      # for the plain version
     G, wgt = slant_geometry(rad_cm)
     n = fused.fused_transit.launches
-    got = fused.fused_transit(tab, wrows, G, wgt)
+    got = fused.fused_transit(rtab, wrows, G, wgt)
     fused.fused_transit.launches = n     # a comparison, not the path's
     plain = fused.transit_plain(tab, wrows, G, wgt)
     r_star2 = (fmt.system.r_star * 100.0) ** 2
@@ -320,7 +334,7 @@ def transit_path(fused, fm, inp, nchain: int, f32: dict) -> dict:
     check(res.accept_rate > 0.0, "no accepted transit proposal")
     check(launches > before, "transit retrieval did not launch the kernel")
     return dict(fm=fmt, forward=forward, params=params, launches=launches,
-                rows=(tab, wrows, G, wgt))
+                rows=(tab, wrows, G, wgt), rtab=rtab)
 
 
 def transit_times(fused, path: dict):
@@ -333,7 +347,10 @@ def transit_times(fused, path: dict):
 
     fmt, rows = path["fm"], path["rows"]
     t = fmt.tables
-    k_ms = cuda_ms(lambda: fused.fused_transit(*rows), 20)
+    # as the forward launches it: the prepared table and slant matrix
+    Gp = fused.prepare_slant(rows[2])
+    k_ms = cuda_ms(lambda: fused.fused_transit(path["rtab"], rows[1], Gp,
+                                               rows[3]), 20)
     p_ms = cuda_ms(lambda: fused.transit_plain(*rows), 5)
     fwd = serialized_ms(lambda p: path["forward"](p)[0], path["params"], 20)
     zero_spec = torch.zeros(rows[1].shape[0], rows[0].shape[2],
@@ -551,7 +568,7 @@ def folded_path(fused, inp, solution: str, grid, fm_k1, nchain: int,
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB): "
           f"{n_f} of {n_f + n_s} bins fine ({n_f / (n_f + n_s):.3f}); tabk "
           f"{tuple(t['tabk'].tab.shape)} {str(t['tabk'].tab.dtype)[6:]}, "
-          f"tabs {tuple(t['tabs'].shape)}")
+          f"tabs {tuple(t['tabs'].tab.shape)}")
     check(n_f + n_s == len(inp.wn), "the split lost bins")
     check(t["tabk"].tab.dtype == torch.bfloat16, "fine rows are not bf16")
     check(bool(torch.isfinite(fm.opacity.sigma).all()),
@@ -588,14 +605,16 @@ def folded_path(fused, inp, solution: str, grid, fm_k1, nchain: int,
     if transit:
         geom = slant_geometry(rad_cm)
         rows = {True: (wrows, *geom), False: (wrows, *geom)}
-        plains = {True: fused.transit_folded_plain, False: fused.transit_plain}
+        plains = {True: fused.transit_folded_plain,
+                  False: lambda tab, *a: fused.transit_plain(tab.plain(), *a)}
         rtol = OUT_RTOL
     else:
         dr = rad_cm[:, :-1] - rad_cm[:, 1:]
         drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
         tail = (t["mu"], t["mu_w"], wrows, T_safe, drp, fm._powers)
         rows = {True: (t["wn_f"], *tail), False: (t["wn_s"], *tail)}
-        plains = {True: fused.eclipse_folded_plain, False: fused.eclipse_plain}
+        plains = {True: fused.eclipse_folded_plain,
+                  False: lambda tab, *a: fused.eclipse_plain(tab.plain(), *a)}
         rtol = SPEC_RTOL[fm._powers]
     pieces, errs = [], []
     for (tab, folded, _, idx), kernel in zip(parts, kernels):
@@ -670,10 +689,16 @@ def folded_times(fused, path: dict) -> dict:
     (tabk, _, _, idx_f), (tabs, _, _, idx_s) = parts
     kernels, plains = path["kernels"], path["plains"]
     counts = [k.launches for k in kernels]
+    krows = rows
+    if path["solution"] == "transit":
+        # as the forward launches the kernels: one prepared slant matrix
+        wr, G, wgt = rows[True]
+        krows = dict.fromkeys(
+            rows, (wr, fused.prepare_slant(G), wgt))
     out = dict(
-        k_ms=cuda_ms(lambda: kernels[0](tabk, *rows[True]), 5),
+        k_ms=cuda_ms(lambda: kernels[0](tabk, *krows[True]), 5),
         p_ms=cuda_ms(lambda: plains[True](tabk, *rows[True]), 2),
-        k1_ms=cuda_ms(lambda: kernels[1](tabs, *rows[False]), 10))
+        k1_ms=cuda_ms(lambda: kernels[1](tabs, *krows[False]), 10))
     out["fwd"] = serialized_ms(lambda p: path["forward"](p)[0],
                                path["params"], 5)
     C, n_wn = path["params"].shape[0], t["wn"].shape[0]
@@ -697,6 +722,133 @@ def folded_times(fused, path: dict) -> dict:
     for k, n in zip(kernels, counts):
         k.launches = n
     return out
+
+
+#: the stages of a forward that ``--trace`` labels: functions that
+#: bart_tpu_torch.rt.forward calls by these names
+TRACE_STAGES = ("pt_generator", "radius_profile", "slant_geometry",
+                "prepare_slant", "band_integrate", "fused_eclipse",
+                "fused_transit", "fused_eclipse_folded",
+                "fused_transit_folded")
+
+
+def is_device_event(event) -> bool:
+    """A profiler event that ran on the card (a kernel, a copy, a memset),
+    not the device-side echo of a ``stage:`` label."""
+    from torch.autograd import DeviceType
+
+    return (event.device_type == DeviceType.CUDA
+            and not event.name.startswith("stage:"))
+
+
+def busy_and_gaps(intervals):
+    """(busy time, [(gap start, gap end)]) of device intervals
+    [(start, end)]: the length of their union and the idle stretches
+    between its pieces, in the intervals' unit."""
+    busy, gaps = 0.0, []
+    cur_s, cur_e = None, None
+    for s, e in sorted(intervals):
+        if cur_e is None:
+            cur_s, cur_e = s, e
+        elif s > cur_e:
+            busy += cur_e - cur_s
+            gaps.append((cur_e, s))
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, gaps
+
+
+def trace_forwards(paths: dict, smi: str, nfwd: int = 5) -> None:
+    """Phase 6: one torch.profiler trace of ``nfwd`` forwards per path,
+    each window ending in a host read.  Prints, per path, the wall time
+    with and without the profiler, the device-busy share of the traced
+    window, the five device operations that took most time, and the five
+    stages of the forward during which the device idled longest (the
+    stages are labelled with record_function for the trace only).
+    Raises if the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import bart_tpu_torch.rt.forward as fwd_mod
+
+    def labelled(name, fn):
+        def wrapper(*args, **kwargs):
+            with record_function("stage:" + name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    def run(forward, params):
+        t0 = time.perf_counter()
+        for _ in range(nfwd):
+            out = forward(params)[0]
+        float(out.sum())
+        return 1e3 * (time.perf_counter() - t0)
+
+    saved = {name: getattr(fwd_mod, name) for name in TRACE_STAGES}
+    saved_rows = fwd_mod.ForwardModel._fused_rows
+    try:
+        for name, fn in saved.items():
+            setattr(fwd_mod, name, labelled(name, fn))
+        fwd_mod.ForwardModel._fused_rows = labelled("rows", saved_rows)
+        for path, (forward, params) in paths.items():
+            run(forward, params)                         # warm
+            plain_ms = run(forward, params)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_ms = run(forward, params)
+                torch.cuda.synchronize()
+            events = list(prof.events())
+            dev = [e for e in events if is_device_event(e)]
+            if not dev:
+                raise RuntimeError(f"chip_smoke: trace {path}: "
+                                   "torch.profiler recorded no device activity")
+            busy_us, gaps = busy_and_gaps(
+                [(e.time_range.start, e.time_range.end) for e in dev])
+            start = min(e.time_range.start for e in events)
+            end = max(e.time_range.end for e in events)
+            gaps = [(start, min(e.time_range.start for e in dev))] + gaps + [
+                (max(e.time_range.end for e in dev), end)]
+            by_op = {}
+            for e in dev:
+                n, us = by_op.get(e.name, (0, 0.0))
+                by_op[e.name] = (n + 1,
+                                 us + e.time_range.end - e.time_range.start)
+            stages = [(e.time_range.start, e.time_range.end, e.name[6:])
+                      for e in events if e.device_type == DeviceType.CPU
+                      and e.name.startswith("stage:")]
+            idle = {}
+            for gs, ge in gaps:
+                left = ge - gs
+                for ss, se, label in stages:
+                    over = min(ge, se) - max(gs, ss)
+                    if over > 0:
+                        idle[label] = idle.get(label, 0.0) + over
+                        left -= over
+                idle["other"] = idle.get("other", 0.0) + max(left, 0.0)
+            window_us = end - start
+            top_ops = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:5]
+            top_idle = sorted(idle.items(), key=lambda kv: -kv[1])[:5]
+            print(f"# phase 6 ({smi}): trace of {nfwd} {path} forwards: "
+                  f"wall {wall_ms:.2f} ms traced, {plain_ms:.2f} ms untraced; "
+                  f"traced window {window_us / 1e3:.2f} ms, device busy "
+                  f"{busy_us / 1e3:.2f} ms = {busy_us / window_us:.3f} of it "
+                  f"in {len(dev)} device operations")
+            print(f"# phase 6: {path}: device operations: " + "; ".join(
+                f"{name[:60]} {us / 1e3:.3f} ms x{n}"
+                for name, (n, us) in top_ops))
+            print(f"# phase 6: {path}: device idle by forward stage: "
+                  + "; ".join(f"{label} {us / 1e3:.2f} ms"
+                              for label, us in top_idle))
+            check(0.0 < busy_us <= window_us, f"trace {path}: busy time "
+                  f"{busy_us} us outside the window {window_us} us")
+    finally:
+        for name, fn in saved.items():
+            setattr(fwd_mod, name, fn)
+        fwd_mod.ForwardModel._fused_rows = saved_rows
 
 
 def main() -> int:
@@ -746,7 +898,8 @@ def main() -> int:
     # --- phase 2: kernel vs plain on random rows ----------------------
     inp_full = demo_inputs()
     max_abs = 0.0
-    for (R, L, W, C) in ((27, 100, 2501, 512), (18, 23, 300, 6)):
+    for (R, L, W, C) in ((27, 100, 2501, 512), (18, 23, 300, 6),
+                         (48, 23, 301, 33)):
         tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
                                   for a in random_rows(R, L, W, C, seed=7))
         bands = build_band_matrix(wn.cpu().numpy(), inp_full.filters,
@@ -811,7 +964,9 @@ def main() -> int:
     # the same rows through the plain version
     t = fm.tables
     T_safe, q, rad_cm, _ = fm._profiles(params, t)
-    ((tab, _, _, _),), wrows = fm._fused_rows(params, t, T_safe, q, rad_cm)
+    ((rtab, _, _, _),), wrows = fm._fused_rows(params, t, T_safe, q, rad_cm)
+    check(rtab is t["tab"], "the forward does not use the prepared table")
+    tab = rtab.plain().contiguous()      # for the plain version
     dr = rad_cm[:, :-1] - rad_cm[:, 1:]
     drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
     plain = fused.eclipse_plain(tab, t["wn"], t["mu"], t["mu_w"], wrows,
@@ -864,7 +1019,7 @@ def main() -> int:
     # --- phase 5: times ------------------------------------------------
     mu, muw = t["mu"], t["mu_w"]
     k_ms = cuda_ms(lambda: fused.fused_eclipse(
-        tab, t["wn"], mu, muw, wrows, T_safe, drp, fm._powers), 20)
+        rtab, t["wn"], mu, muw, wrows, T_safe, drp, fm._powers), 20)
     p_ms = cuda_ms(lambda: fused.eclipse_plain(
         tab, t["wn"], mu, muw, wrows, T_safe, drp, fm._powers), 5)
     fwd_ms, fwd_rounds = serialized_ms(lambda p: forward(p)[0], params, 20)
@@ -908,6 +1063,15 @@ def main() -> int:
               f"the kernels {x['rest'][0]:.3f} ms (rounds "
               f"{', '.join(f'{v:.2f}' for v in x['rest'][1])})")
 
+    # --- phase 6 (--trace): where the forwards' wall time goes ---------
+    if "--trace" in sys.argv[1:]:
+        trace_forwards({
+            "eclipse": (forward, params),
+            "transit": (tpath["forward"], tpath["params"]),
+            "folded eclipse": (fpath["forward"], fpath["params"]),
+            "folded transit": (ftpath["forward"], ftpath["params"])},
+            smi.strip())
+
     # --- the kernels' record: bounds from this run's shapes ------------
     nmu = int(mu.shape[0])
     R, L, W = tab.shape
@@ -925,16 +1089,24 @@ def main() -> int:
     ft_bound = transit_bound(fttab.tab.shape[0], L, fttab.W * fttab.K, nchain,
                              fttab.K, nbytes(fttab.tab, *ftpath["rows"][True]))
 
+    # the FMAs of the bounds above that run on tensor cores
+    tri = L * (L + 1) // 2
+    pts = nchain * L * W
+    e_tensor = tensor_share(pts * R, 0, pts * (R + nmu + 4), "tf32")
+    pts = nchain * W
+    t_R = ttab.shape[0]
+    t_tensor = tensor_share(pts * L * t_R, pts * tri,
+                            pts * (L * t_R + tri + L), "tf32")
     pts = nchain * L * ftab.W * ftab.K
     f_R, f_nmu = ftab.tab.shape[0], int(f_rows[1].shape[0])
-    f_tensor = tensor_share(pts * f_R, 0, pts * (f_R + f_nmu + 4))
+    f_tensor = tensor_share(pts * f_R, 0, pts * (f_R + f_nmu + 4), "bf16")
     pts = nchain * fttab.W * fttab.K
-    ft_R, tri = fttab.tab.shape[0], L * (L + 1) // 2
+    ft_R = fttab.tab.shape[0]
     ft_tensor = tensor_share(pts * L * ft_R, pts * tri,
-                             pts * (L * ft_R + tri + L))
+                             pts * (L * ft_R + tri + L), "bf16")
 
     def record(name, replaces, by_path, max_abs_err, ms, plain_ms, bnd,
-               tensor=(0.0, None, 0.0)):
+               tensor):
         # launches: on all main paths; launches_by_path: on each that
         # runs this kernel (the K = 1 kernels also serve the smooth bins
         # of the folded paths)
@@ -954,11 +1126,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("fused_eclipse", KERNEL_REPLACES,
                {"eclipse": launches, "folded_eclipse": fpath["launches"][1]},
-               max_abs, k_ms, p_ms, e_bound),
+               max_abs, k_ms, p_ms, e_bound, e_tensor),
         record("fused_transit", TRANSIT_REPLACES,
                {"transit": tpath["launches"],
                 "folded_transit": ftpath["launches"][1]},
-               t_max_abs, tk_ms, tp_ms, t_bound),
+               t_max_abs, tk_ms, tp_ms, t_bound, t_tensor),
         record("fused_eclipse_folded", FOLDED_REPLACES,
                {"folded_eclipse": fpath["launches"][0]},
                f_max_abs["eclipse"], ft_["eclipse"]["k_ms"],

@@ -337,7 +337,8 @@ def test_folded_kernel_source_constants_match_python():
     assert "extern \"C\" int bart_fused_eclipse_folded(" in src
     tsrc = (fused._CSRC / "fused_transit_folded.cu").read_text()
     assert "extern \"C\" int bart_fused_transit_folded(" in tsrc
-    assert '#include "fused_transit.cuh"' in tsrc
+    assert '#include "fused_transit_mma.cuh"' in tsrc
+    tsrc = (fused._CSRC / "fused_transit_mma.cuh").read_text()
     for macro, value in (("FT_W", fused._FT_W), ("FT_CB", fused._FT_CB),
                          ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT)):
         assert re.search(rf"#define {macro} (\d+)", tsrc).group(1) == str(value)

@@ -29,7 +29,7 @@ from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
 from bart_tpu_torch.inference.retrieval import run_mcmc
 from bart_tpu_torch.opacity.grid import OpacityGrid, fine_bin_mask
 from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
-from bart_tpu_torch.rt.fused import FoldedTable, fold_table
+from bart_tpu_torch.rt.fused import FoldedTable, RowsTable, fold_table
 from bart_tpu_torch.utils.grids import folded_fine_grid
 
 F64 = torch.float64
@@ -152,8 +152,10 @@ def test_folded_forward_matches_bart_tpu(demo, geometry, fold_adapt,
         np.testing.assert_array_equal(fmt._idx_fine, fmj._idx_fine)
         np.testing.assert_array_equal(fmt._idx_smooth, fmj._idx_smooth)
         assert 0 < n_f < NW
-        assert tabs["tabs"].shape == (6 + 16, NL, NW - n_f)
-        assert tabs["tabs"].dtype == F64        # the K = 1 part stays wide
+        for t in (tabs, fmt.tables):
+            assert isinstance(t["tabs"], RowsTable)
+            assert t["tabs"].plain().shape == (6 + 16, NL, NW - n_f)
+            assert t["tabs"].tab.dtype == F64   # the K = 1 part stays wide
     for t in (tabs, fmt.tables):
         ft = t["tabk"]
         assert isinstance(ft, FoldedTable) and (ft.K, ft.W) == (K, n_f)

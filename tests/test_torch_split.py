@@ -300,32 +300,46 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
 
 
 def test_transit_mma_source_constants_and_smem_match_python():
-    src = (fused._CSRC / "fused_transit_folded.cu").read_text()
+    src = (fused._CSRC / "fused_transit_mma.cuh").read_text()
     env = _macros(src)
     for macro, value in (("FT_W", fused._FT_W), ("FT_CB", fused._FT_CB),
                          ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT)):
         assert env[macro] == value
-    for name in ("kES", "kTS", "kGS", "kWF", "kUnitBytes"):
+    for name in ("kES", "kTS", "kGS", "kWF", "kWF32", "kUnitBytes",
+                 "kUnitBytes32"):
         expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
         env[name] = eval(expr, {"__builtins__": {}}, env)
     assert (env["kES"], env["kTS"], env["kGS"], env["kWF"]) == (32, 40, 8, 24)
-    assert env["kUnitBytes"] == 2048
+    assert (env["kUnitBytes"], env["kUnitBytes32"]) == (2048, 1664)
+    # the float32 tile's fragment loads: lane (g, t) -> bank 8 t + g of the
+    # table tile and 12 g + t of the weights, all different
+    g, t = np.divmod(np.arange(32), 4)
+    assert len(set((env["kTS"] * t + g) % 32)) == 32
+    assert len(set((env["kWF32"] * g + t) % 32)) == 32
     for L in (100, 23, 104, 9, 112):
-        want = (_cxx_return(src, "ft_ext_bytes", {**env, "L": L})
-                + max(env["FT_CB"] * env["FT_NS"] * env["kUnitBytes"],
-                      _cxx_return(src, "ft_slant_bytes", {**env, "L": L})))
-        assert fused._transit_folded_smem(L) == want
-    assert fused._transit_folded_smem(100) == 192128
+        for bf16, unit in ((True, "kUnitBytes"), (False, "kUnitBytes32")):
+            want = (_cxx_return(src, "ft_ext_bytes", {**env, "L": L})
+                    + max(env["FT_CB"] * env["FT_NS"] * env[unit],
+                          _cxx_return(src, "ft_slant_bytes", {**env, "L": L})))
+            assert fused._transit_mma_smem(L, bf16) == want
+    assert fused._transit_mma_smem(100, True) == 192128
+    assert fused._transit_mma_smem(100, False) == 176768
     assert all(fused._FT_W % k == 0 for k in fused._FOLD_K)
 
 
 def test_limits_the_wrappers_raise_on():
     # L beyond the shared-memory cap of the tensor-core transit kernel
     # (tau's registers cap it at 16 FT_MT layers before shared memory does)
-    assert fused._transit_folded_smem(16 * fused._FT_MT) <= fused._SMEM_LIMIT
-    assert fused._transit_folded_smem(200) > fused._SMEM_LIMIT
-    assert fused._transit_smem(108) <= fused._SMEM_LIMIT < \
-        fused._transit_smem(109)
+    for bf16 in (True, False):
+        assert fused._transit_mma_smem(16 * fused._FT_MT, bf16) \
+            <= fused._SMEM_LIMIT < fused._transit_mma_smem(200, bf16)
+        fused._check_transit_fit("fn", 16 * fused._FT_MT, 80032, bf16)
+        with pytest.raises(ValueError, match="register blocks"):
+            fused._check_transit_fit("fn", 16 * fused._FT_MT + 1, 300, bf16)
+        with pytest.raises(ValueError, match="shared memory"):
+            fused._check_transit_fit("fn", 200, 300, bf16)
+        with pytest.raises(ValueError, match="exceed the grid"):
+            fused._check_transit_fit("fn", 100, 32 * 65535 + 1, bf16)
     # K outside _FOLD_K, a table that is not folded_table's
     cpu = torch.device("cpu")
     odd = fused.FoldedTable(torch.ones(5, 9, 16, dtype=F32), 3, 5)

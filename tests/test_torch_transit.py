@@ -190,14 +190,18 @@ def test_fused_transit_on_cpu_is_the_plain_path():
 
 
 def test_kernel_source_constants_match_python():
-    src = (fused._CSRC / "fused_transit.cuh").read_text() \
-        + (fused._CSRC / "fused_transit.cu").read_text()
+    entry = (fused._CSRC / "fused_transit.cu").read_text()
+    assert '#include "fused_transit_mma.cuh"' in entry
+    src = (fused._CSRC / "fused_transit_mma.cuh").read_text() + entry
     assert float(re.search(r"kTauClamp = ([0-9.e+-]+)f;", src).group(1)) \
         == TAU_CLAMP
-    for macro, value in (("TILE_W", fused._T_TILE_W), ("CB", fused._T_CB),
-                         ("NB", fused._T_NB), ("RC", fused._T_RC)):
+    for macro, value in (("FT_W", fused._FT_W), ("FT_CB", fused._FT_CB),
+                         ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT)):
         assert re.search(rf"#define {macro} (\d+)", src).group(1) == str(value)
     assert "extern \"C\" int bart_fused_transit(" in src
+    # the K = 1 entry takes the float32 instance: the 3xTF32 fill in steps
+    # of 8 rows
+    assert "launch_transit_mma<float>(" in entry and fused._MMA_K32 == 8
     assert set(fused._KERNELS) == {p.stem for p in fused._CSRC.glob("*.cu")}
 
 
@@ -215,7 +219,7 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(17, 23, 300, 6), (41, 100, 2501, 64),
-                                   (5, 108, 70, 9)])   # the largest L
+                                   (5, 112, 70, 9)])   # the largest L
 def test_kernel_matches_plain_on_card(cuda_device, shape):
     ts = [t.to(cuda_device) for t in
           _torch(random_transit_rows(*shape)[:4], torch.float32)]
@@ -224,8 +228,8 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     ref = fused.transit_plain(*ts)
     torch.cuda.synchronize()
     assert fused.fused_transit.launches == before + 1
-    # f32 sums in other orders over up to 108 layers and 44 rows; the
-    # H100 gives 3e-7..8e-7 (chip_smoke.py's OUT_RTOL)
+    # 3xTF32 products (2^-21 an operand) summed in float32 in other
+    # orders over up to 112 layers and 48 rows (chip_smoke.py's OUT_RTOL)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5)
 
@@ -235,4 +239,9 @@ def test_kernel_raises_beyond_shared_memory(cuda_device):
     ts = [t.to(cuda_device) for t in
           _torch(random_transit_rows(3, 200, 40, 2)[:4], torch.float32)]
     with pytest.raises(ValueError, match="shared memory"):
+        fused.fused_transit(*ts)
+    # tau's register fragments cap L before shared memory does
+    ts = [t.to(cuda_device) for t in
+          _torch(random_transit_rows(3, 113, 40, 2)[:4], torch.float32)]
+    with pytest.raises(ValueError, match="register blocks"):
         fused.fused_transit(*ts)

@@ -148,7 +148,8 @@ def test_transit_forward_matches_bart_tpu(demo, case):
     ((tab, folded, _, idx),), wrows = fmt._fused_rows(torch.tensor(P), tabs,
                                                       T, q, rad)
     assert not folded and idx is None
-    assert tab.shape[0] == wrows.shape[2] \
+    assert tab is tabs["tab"]                 # the prepared table, as it is
+    assert tab.tab.shape[0] == wrows.shape[2] \
         == np.asarray(grid.sigma).shape[1] + tabs["frows"].shape[0]
     absorbed = fused_transit(tab, wrows, *slant_geometry(rad))
     np.testing.assert_allclose(absorbed.numpy(), _jax_absorbed(fmj, P),
@@ -179,8 +180,15 @@ def test_tables_from_jax_carries_transit_cia_tables(demo):
                              scattering="ray", cloudtop=True)
     assert {"cia0_temps", "cia0_wn", "cia0_abs", "frows"} <= set(tabs)
     for k, v in tabs.items():
-        np.testing.assert_allclose(v.numpy(), fmt.tables[k].numpy(),
+        # the K = 1 table in the kernels' layout: compare its plain form
+        v, mine = (x.plain() if k == "tab" else x
+                   for x in (v, fmt.tables[k]))
+        np.testing.assert_allclose(v.numpy(), mine.numpy(),
                                    rtol=1e-15, err_msg=k)
+    # line rows, then the continuum rows, as views of the one table
+    n_line = tabs["sigma"].shape[0] * tabs["sigma"].shape[1]
+    assert tabs["tab"].tab.shape[0] == n_line + tabs["frows"].shape[0]
+    assert tabs["frows"].data_ptr() == tabs["tab"].tab[n_line:].data_ptr()
     with pytest.raises(ValueError, match="keys differ"):
         fmt.tables_from_jax({k: np.asarray(v) for k, v in fmj.tables.items()
                              if k != "frows"})
