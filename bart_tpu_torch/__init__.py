@@ -15,7 +15,8 @@ Public API entry points (lazily imported):
 
     bart_tpu_torch.ForwardModel / ForwardConfig   the forward model
     bart_tpu_torch.Likelihood / ParamSpace        likelihood wiring
-    bart_tpu_torch.EnsembleSampler                the snooker sampler
+    bart_tpu_torch.EnsembleSampler                the ensemble sampler
+                                                  (snooker, demc, mrw, unif)
     bart_tpu_torch.run_mcmc                       the retrieval
     bart_tpu_torch.build_opacity_grid             the opacity table build
 """

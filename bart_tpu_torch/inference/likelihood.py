@@ -35,14 +35,22 @@ class ParamSpace:
         self.ishare = np.where(self.stepsize < 0)[0]
         self.nfree = len(self.ifree)
         self.npars = len(self.pinit)
+        self._consts = {}    # (device, dtype) -> (pinit, ifree)
 
     def expand(self, free: torch.Tensor) -> torch.Tensor:
         """free[..., nfree] -> full[..., npars] (fixed and shared
-        entries filled)."""
-        full = torch.as_tensor(self.pinit, dtype=free.dtype,
-                               device=free.device)
-        full = full.expand(*free.shape[:-1], self.npars).clone()
-        full[..., self.ifree] = free
+        entries filled).  ``pinit`` and the free indices are put on the
+        device once per (device, dtype): a capture may not copy them from
+        the host."""
+        key = (free.device, free.dtype)
+        if key not in self._consts:
+            self._consts[key] = (
+                torch.as_tensor(self.pinit, dtype=free.dtype,
+                                device=free.device),
+                torch.as_tensor(self.ifree, device=free.device))
+        pinit, ifree = self._consts[key]
+        full = pinit.expand(*free.shape[:-1], self.npars).clone()
+        full.index_copy_(full.dim() - 1, ifree, free)
         for j in self.ishare:
             full[..., j] = full[..., int(-self.stepsize[j]) - 1]
         return full
@@ -114,3 +122,7 @@ class Likelihood:
         logl = torch.where(valid.to(logl.device) & inb, logl,
                            torch.full_like(logl, -torch.inf))
         return logl, model
+
+    def chisq(self, free: torch.Tensor) -> torch.Tensor:
+        """chi^2 [C] = -2 log L (priors included; inf where rejected)."""
+        return -2.0 * self(free)[0]

@@ -5,11 +5,14 @@ Per-layer radii anchored at R(p0) = R0 with layer-varying gravity
 g(r) = g0 R0^2 / r^2, in the reference's discrete scheme (makeatm
 radpress): the anchor formula, then one recurrence down and one up
 from the anchor layer.  The recurrences are a Python loop of about
-2 L steps, each a few tiny ops on [C] tensors — host-bound on the card
-until a later change captures them in a CUDA graph.
+2 L steps, each a few tiny ops on [C] tensors: host-bound on the card
+when run eagerly, replayed without the host inside a CUDA graph
+(ForwardModel.graphed, inference.samplers.StepGraph).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,6 +24,13 @@ __all__ = ["radius_profile", "anchor_index"]
 # Gas constant N_A * k_B [J mol-1 K-1]: the 0.5 (T/mu) R / g terms then
 # come out directly in km.
 _R_GAS = 6.02214076e23 * 1.380649e-23
+
+
+@functools.lru_cache(maxsize=None)
+def _log10(p0: float, dtype: torch.dtype, device: torch.device):
+    """log10(p0) as a device scalar, made once per (p0, dtype, device): a
+    capture may not copy p0 from the host."""
+    return torch.log10(torch.full((), p0, dtype=dtype, device=device))
 
 
 def anchor_index(pressure: np.ndarray, p0: float) -> int:
@@ -45,9 +55,8 @@ def radius_profile(pressure: torch.Tensor, temperature: torch.Tensor,
     t_over_mu = temperature / mu                                 # [C, L]
 
     # interpolated T/mu at p0 in log-pressure space (makeatm.py:212-218)
-    tm0 = interp(torch.log10(torch.tensor(p0, dtype=pressure.dtype,
-                                          device=pressure.device)),
-                 logp, t_over_mu)                                # [C]
+    tm0 = interp(_log10(p0, pressure.dtype, pressure.device), logp,
+                 t_over_mu)                                      # [C]
 
     rad_i0 = R0 + 0.5 * (t_over_mu[:, i0] + tm0) * _R_GAS * torch.log(
         p0 / pressure[i0]) / g0

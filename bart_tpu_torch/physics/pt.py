@@ -90,8 +90,8 @@ def pt_line(p: torch.Tensor, log_kappa, log_gamma1, log_gamma2, alpha,
     T_irr = beta * math.sqrt(R_star / (2.0 * sma)) * T_star
     tau = kappa * (p * const.BAR_TO_BARYE) / grav                # [C, L]
 
-    xi1 = _xi(gamma1, tau)
-    xi2 = _xi(gamma2, tau)
+    # both streams in one pass of _xi's fixed-work series and fraction
+    xi1, xi2 = _xi(torch.stack([gamma1, gamma2]), tau)
 
     T4 = 0.75 * (
         T_int**4 * (2.0 / 3.0 + tau)

@@ -159,12 +159,17 @@ class ForwardModel:
         self.species = list(species)
         self.i_h2 = int(np.where(sp == "H2")[0][0])
         self.i_he = int(np.where(sp == "He")[0][0])
-        self.i_metals = np.where(
-            (sp != "He") & (sp != "H2") & (sp != "H-") & (sp != "e-"))[0]
         self.i_molfit = np.array(
             [int(np.where(sp == m)[0][0]) for m in cfg.molfit], int)
-        self.i_opac = np.array(
-            [int(np.where(sp == m)[0][0]) for m in opacity.species], int)
+        # the index arrays a forward gathers with live on the device: a
+        # capture may not copy them from the host
+        self.i_metals = torch.as_tensor(np.where(
+            (sp != "He") & (sp != "H2") & (sp != "H-") & (sp != "e-"))[0],
+            device=dev)
+        self.i_opac = torch.as_tensor(
+            [int(np.where(sp == m)[0][0]) for m in opacity.species],
+            device=dev)
+        self._graphs = {}   # chain count -> _ForwardGraph (graphed())
         if species_masses is None:
             from bart_tpu_torch.linelist.molecules import get_molecule
 
@@ -309,6 +314,22 @@ class ForwardModel:
     def sigma(self) -> torch.Tensor:
         return self._tables["sigma"]
 
+    @property
+    def wn(self) -> torch.Tensor:
+        return self._tables["wn"]
+
+    @property
+    def pressure(self) -> torch.Tensor:
+        return self._tables["pressure"]
+
+    @property
+    def mu(self) -> torch.Tensor:
+        return self._tables["mu"]
+
+    @property
+    def mu_w(self) -> torch.Tensor:
+        return self._tables["mu_w"]
+
     def tables_from_jax(self, numpy_tables: dict) -> dict:
         """Carry bart_tpu ForwardModel tables (as numpy arrays, under
         bart_tpu's keys and in its layouts) over to this model: the
@@ -399,6 +420,26 @@ class ForwardModel:
         """The forward over a chain batch as a plain callable."""
         return lambda batch: self(batch)
 
+    def graphed(self):
+        """The forward over a chain batch as a CUDA graph replay, the
+        counterpart of bart_tpu's ``jitted()``: one graph per chain count
+        C, captured over a static [C, n_params] input buffer at the first
+        call with that C.  The callable copies ``params`` into the buffer,
+        replays and returns the graph's own output tensors, which the next
+        call with the same C overwrites.  Only on a CUDA model: it raises
+        on the CPU, and a failed capture raises."""
+        if self.device.type != "cuda":
+            raise RuntimeError(f"ForwardModel.graphed: a CUDA graph needs a "
+                               f"CUDA model, this one is on {self.device}")
+
+        def forward(params: torch.Tensor):
+            C = int(params.shape[0])
+            if C not in self._graphs:
+                self._graphs[C] = _ForwardGraph(self, params)
+            return self._graphs[C](params)
+
+        return forward
+
     # -----------------------------------------------------------------
     def _profiles(self, params: torch.Tensor, t: dict):
         """params [C, n] -> (T [C, L], q [C, L, S], radius [C, L] cm,
@@ -452,7 +493,7 @@ class ForwardModel:
         M, nT, L, W = sigma.shape
         C = T_safe.shape[0]
         n_tot = t["p_barye"] / (const.K_BOLTZ * T_safe)           # [C, L]
-        n_mol = q[:, :, self.i_opac] * n_tot[..., None]           # [C, L, M]
+        n_mol = q[:, :, self.i_opac] * n_tot[..., None]        # [C, L, M]
         w_t = interp_weights(self.n_t, self.t_min, self.t_step, T_safe)
         cols = [(n_mol[..., None] * w_t[:, :, None, :]).reshape(C, L, M * nT)]
 
@@ -529,3 +570,27 @@ class ForwardModel:
         for vals, idx in pieces:
             out[:, idx] = vals
         return out
+
+
+class _ForwardGraph:
+    """One chain count's forward captured as a CUDA graph over a static
+    input buffer (ForwardModel.graphed), warmed up on the first call's
+    parameters."""
+
+    def __init__(self, fm: ForwardModel, params: torch.Tensor):
+        dev = fm.device
+        self.params = params.to(device=dev, dtype=fm.dtype, copy=True)
+        side = torch.cuda.Stream(dev)      # PyTorch's rule: warm up aside
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fm(self.params)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fm(self.params)
+
+    def __call__(self, params: torch.Tensor):
+        self.params.copy_(params)
+        self.graph.replay()
+        return self.out

@@ -624,7 +624,9 @@ def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
     return out.to(T.dtype)
 
 
-#: kernel launches made by fused_eclipse (plain-path calls do not count)
+#: kernel launches made by fused_eclipse, counted in Python at each launch
+#: (plain-path calls do not count): a CUDA graph capture counts once, its
+#: replays never (chip_smoke.py counts those in a profiler trace)
 fused_eclipse.launches = 0
 
 
@@ -716,7 +718,9 @@ def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
     return out.to(wgt.dtype)
 
 
-#: kernel launches made by fused_transit (plain-path calls do not count)
+#: kernel launches made by fused_transit, counted in Python at each launch
+#: (plain-path calls do not count): a CUDA graph capture counts once, its
+#: replays never (chip_smoke.py counts those in a profiler trace)
 fused_transit.launches = 0
 
 
@@ -844,7 +848,9 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     return out.to(T.dtype)
 
 
-#: kernel launches made by fused_eclipse_folded
+#: kernel launches made by fused_eclipse_folded, counted in Python at each launch
+#: (plain-path calls do not count): a CUDA graph capture counts once, its
+#: replays never (chip_smoke.py counts those in a profiler trace)
 fused_eclipse_folded.launches = 0
 
 
@@ -908,5 +914,7 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     return out.to(wgt.dtype)
 
 
-#: kernel launches made by fused_transit_folded
+#: kernel launches made by fused_transit_folded, counted in Python at each launch
+#: (plain-path calls do not count): a CUDA graph capture counts once, its
+#: replays never (chip_smoke.py counts those in a profiler trace)
 fused_transit_folded.launches = 0

@@ -4,7 +4,8 @@
 The main paths are the MCMC hot loops of the demo CH4 retrievals at the
 benchmark's full width (100 layers x 2501 wn x 30,000 lines x 27
 T-nodes, 512 chains): PT profile -> abundances -> hydrostatic radii ->
-rows -> a fused CUDA kernel -> bands -> likelihood -> snooker step.
+rows -> a fused CUDA kernel -> bands -> likelihood -> snooker step, the
+whole step captured as one CUDA graph and replayed once a step.
 Eclipse runs the fused eclipse kernel on the 27 line rows; transit
 (examples/demo_transit.cfg: a fitted radius and the in-repo H2-H2 CIA
 table, 27 + 14 = 41 rows) runs slant_geometry and the fused transit
@@ -29,19 +30,32 @@ smooth bins.  Phases:
      the fine build, the fine share of bins, a forward per geometry held
      against the plain versions part by part and against the K = 1
      forward
-  4. a short snooker retrieval (run_mcmc) per path on synthetic data
+  4. a short snooker retrieval (run_mcmc: each block the replay of one
+     captured step) per path on synthetic data; then per path (4b) the
+     512-chain step eager and graphed: from one state and one block of
+     variates the graphed block must equal the eager block bit for bit,
+     a torch.profiler trace of a replayed block must hold each of the
+     path's kernels once a step, and the step (eager and graphed), the
+     forward (eager and ``graphed()``) and the device-busy share of the
+     graphed block are timed; eclipse only (4c): a graphed 512-chain
+     retrieval from uniform starts that must recover the demo truth
+     (tests/test_end_to_end.py:71-87's four criteria)
   5. serialized times per path: kernel, plain version, whole forward,
      forward less the kernels
   6. with ``--trace`` only: a torch.profiler trace of a few forwards per
-     path: the device-busy share of the wall time, the five device
-     operations that took most time and the five stages of the forward
-     during which the device idled longest
+     path, eager and ``graphed()``: the device-busy share of the wall
+     time, the five device operations that took most time and the five
+     stages of the forward during which the device idled longest (a
+     graph replay runs no stage)
 
 Each path's launch counts are zeroed just before its phase 3 and read
-just after its phase 4.  Any failed check raises and exits non-zero.
-The last two lines of stdout are the kernels' JSON record (with the
-share of each kernel's FMAs that runs on tensor cores) and the result
-JSON.
+just after its phase 4: the wrappers count in Python, so they see the
+eager launches and each graph capture, never a replay.  The kernels'
+``launches`` are counted on the device instead: each path's kernels in
+the trace of its replayed block (phase 4b).  Any failed check raises and
+exits non-zero.  The last two lines of stdout are the kernels' JSON
+record (with the share of each kernel's FMAs that runs on tensor cores)
+and the result JSON.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # phases 0-2, then the kernels' times
@@ -52,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +113,25 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 SFU_PS = F32_FLOPS / 16
 # dense tensor-core peaks of the same data sheet, FLOP/s
 BF16_FLOPS, TF32_FLOPS = 989e12, 495e12
+
+
+#: steps of a block in phase 4b (timed with one host read a block)
+BLOCK = 10
+#: the name of each wrapper's kernel among a trace's device events (the
+#: folded paths' fine tables are bfloat16, so the float32 instance of the
+#: transit template is the K = 1 launch)
+TRACE_KERNEL = {"fused_eclipse": r"fused_eclipse_kernel",
+                "fused_transit": r"fused_transit_mma_kernel<float>",
+                "fused_eclipse_folded": r"fused_eclipse_folded_\w+_kernel",
+                "fused_transit_folded":
+                    r"fused_transit_mma_kernel<__nv_bfloat16>"}
+#: phase 4c: steps, burn-in and block of the truth-recovery retrieval
+#: (512 chains from uniform starts; tests/test_end_to_end.py runs 8 x
+#: 6,000).  3,000 steps with 1,500 of burn-in held three criteria but not
+#: split-R-hat (1.25-1.45 against 1.35, on an H100): the plateau
+#: directions' autocorrelation time is ~800 steps, so the split halves
+#: need ~2,500 steps each
+TRUTH_STEPS, TRUTH_BURNIN, TRUTH_BLOCK = 10000, 5000, 250
 
 
 def bound(fmas: float, exps: float, nbytes: float) -> tuple[float, str, str]:
@@ -319,22 +353,24 @@ def transit_path(fused, fm, inp, nchain: int, f32: dict) -> dict:
     space = ParamSpace(pinit=DEMO_PARAMS_TRANSIT, pmin=pmin, pmax=pmax,
                        stepsize=step)
     like = Likelihood(fmt, space, data, uncert)
-    before = fused.fused_transit.launches
     t0 = time.perf_counter()
     res = run_mcmc(like, space, nchains=nchain, numit=nchain * 30,
                    burnin=10, block=10, seed=7, verbose=False)
     mcmc_s = time.perf_counter() - t0
-    launches = fused.fused_transit.launches   # the transit path ends here
     print(f"# phase 4: transit snooker {nchain} chains x "
-          f"{res.niter_total // nchain} steps in {mcmc_s:.2f} s: best chi2 "
-          f"{-2 * res.best_loglike:.3f}, accept {res.accept_rate:.3f}; "
-          f"kernel launches {launches} ({launches - before} in the "
-          f"retrieval)")
+          f"{res.niter_total // nchain} graphed steps in {mcmc_s:.2f} s "
+          f"(capture included): best chi2 {-2 * res.best_loglike:.3f}, "
+          f"accept {res.accept_rate:.3f}")
     check(np.isfinite(res.best_loglike), "non-finite transit best loglike")
     check(res.accept_rate > 0.0, "no accepted transit proposal")
-    check(launches > before, "transit retrieval did not launch the kernel")
+    step = step_phase("transit", like, space, fmt, params,
+                      [fused.fused_transit])
+    launches = fused.fused_transit.launches   # the transit path ends here
+    print(f"# phase 4: transit path: {launches} kernel launches counted in "
+          "Python (eager calls, warm-ups, captures)")
+    check(launches > 0, "the transit path did not launch the kernel")
     return dict(fm=fmt, forward=forward, params=params, launches=launches,
-                rows=(tab, wrows, G, wgt), rtab=rtab)
+                rows=(tab, wrows, G, wgt), rtab=rtab, step=step)
 
 
 def transit_times(fused, path: dict):
@@ -654,25 +690,26 @@ def folded_path(fused, inp, solution: str, grid, fm_k1, nchain: int,
                             [0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
     space = ParamSpace(pinit=base, pmin=pmin, pmax=pmax, stepsize=step)
     like = Likelihood(fm, space, data, uncert)
-    before = [k.launches for k in kernels]
     t0 = time.perf_counter()
     res = run_mcmc(like, space, nchains=nchain, numit=nchain * 30,
                    burnin=10, block=10, seed=7, verbose=False)
     mcmc_s = time.perf_counter() - t0
-    counts = [k.launches for k in kernels]     # the folded path ends here
     print(f"# phase 4: folded {solution} snooker {nchain} chains x "
-          f"{res.niter_total // nchain} steps in {mcmc_s:.2f} s: best chi2 "
-          f"{-2 * res.best_loglike:.3f}, accept {res.accept_rate:.3f}; "
-          f"launches: folded kernel {counts[0]}, K = 1 kernel {counts[1]} "
-          f"({counts[0] - before[0]} and {counts[1] - before[1]} in the "
-          f"retrieval)")
+          f"{res.niter_total // nchain} graphed steps in {mcmc_s:.2f} s "
+          f"(capture included): best chi2 {-2 * res.best_loglike:.3f}, "
+          f"accept {res.accept_rate:.3f}")
     check(np.isfinite(res.best_loglike), "non-finite folded best loglike")
     check(res.accept_rate > 0.0, "no accepted folded proposal")
-    check(all(n > b for n, b in zip(counts, before)),
-          f"folded {solution} retrieval did not launch both kernels")
+    step = step_phase(f"folded {solution}", like, space, fm, params, kernels)
+    counts = [k.launches for k in kernels]     # the folded path ends here
+    print(f"# phase 4: folded {solution} path: launches counted in Python "
+          f"(eager calls, warm-ups, captures): folded kernel {counts[0]}, "
+          f"K = 1 kernel {counts[1]}")
+    check(all(n > 0 for n in counts),
+          f"the folded {solution} path did not launch both kernels")
     return dict(fm=fm, forward=forward, params=params, launches=counts,
                 parts=parts, rows=rows, kernels=kernels, plains=plains,
-                solution=solution)
+                solution=solution, step=step)
 
 
 def folded_times(fused, path: dict) -> dict:
@@ -759,6 +796,178 @@ def busy_and_gaps(intervals):
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy, gaps
+
+
+def step_phase(label: str, like, space, fm, params, kernels) -> dict:
+    """Phase 4b of one path: the MCMC step at the forward's chain count,
+    eager and graphed.  From one state and one block of variates the
+    graphed block (the captured step replayed BLOCK times) must equal the
+    eager block bit for bit; a torch.profiler trace of one replayed block
+    must hold each of the path's ``kernels`` once a step.  Then
+    serialized times, best of three blocks each ending in a host read:
+    the step eager and graphed, the forward eager and ``graphed()`` (which
+    must equal the eager forward bit for bit); and the device-busy ms of
+    a traced graphed step and of a traced ``graphed()`` forward.  Returns
+    the times, the traced launch counts and the busy figures."""
+    import torch
+
+    from bart_tpu_torch.inference.samplers import EnsembleSampler
+
+    s = EnsembleSampler(loglike_fn=like, nfree=space.nfree,
+                        nmodel=int(like.data.shape[0]),
+                        nchains=int(params.shape[0]), pmin=space.free_min,
+                        pmax=space.free_max,
+                        stepsize=space.stepsize[space.ifree])
+    gen = torch.Generator(device=like.device)
+    gen.manual_seed(11)
+    state = s.init_state(gen)
+    saved = gen.get_state()
+    eager = s.run_block(state, gen, BLOCK, graphed=False)
+    gen.set_state(saved)
+    t0 = time.perf_counter()
+    graphed = s.run_block(state, gen, BLOCK, graphed=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    names = list(state._fields) + ["positions block", "loglike block",
+                                   "models block"]
+    differ = {name: rel_err(g, e) for name, g, e in zip(
+        names, [*graphed[0], *graphed[1:]], [*eager[0], *eager[1:]])
+        if not torch.equal(g, e)}
+    print(f"# phase 4b: {label}: graphed block ({BLOCK} steps, warm-up, "
+          f"capture and replays {first_s:.2f} s) vs eager block from one "
+          f"state and one block of variates: "
+          + (f"differ (max rel err) {differ}" if differ else
+             "equal bit for bit (state, positions, loglike, models, "
+             "archive, best)"))
+    check(not differ, f"{label}: graphed block differs from the eager "
+          f"block: {differ}")
+
+    # the kernels on the device: a trace of one replayed block
+    def block():
+        nonlocal st
+        st = s.run_block(st, gen, BLOCK, graphed=True)[0]
+
+    st = graphed[0]
+    dev, busy_us, window_us = trace_device(block)
+    check(bool(dev), f"{label}: the trace of a replayed block holds no "
+          "device activity")
+    counts = {k.__name__: sum(1 for e in dev
+                              if re.search(TRACE_KERNEL[k.__name__], e.name))
+              for k in kernels}
+    print(f"# phase 4b: {label}: trace of one replayed block: {len(dev)} "
+          f"device operations ({len(dev) / BLOCK:.0f} a step, the block's "
+          f"draws included), kernels {counts}; device busy "
+          f"{busy_us / 1e3:.2f} of {window_us / 1e3:.2f} ms = "
+          f"{busy_us / window_us:.3f}; kernel names: "
+          + "; ".join(sorted({e.name[:90] for e in dev
+                              if "fused_" in e.name})))
+    check(all(n == BLOCK for n in counts.values()),
+          f"{label}: the replayed block launched {counts}, expected each "
+          f"kernel {BLOCK} times")
+
+    def block_ms(graph: bool):
+        nonlocal st
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            st = s.run_block(st, gen, BLOCK, graphed=graph)[0]
+            float(st.loglike.sum())
+            times.append(1e3 * (time.perf_counter() - t0) / BLOCK)
+        return min(times), times
+
+    out = {"eager": block_ms(False), "graph": block_ms(True),
+           "fwd": serialized_ms(lambda p: fm(p)[0], params, 10)}
+    gfwd = fm.graphed()
+    check(torch.equal(gfwd(params)[0], fm(params)[0]),
+          f"{label}: graphed forward differs from the eager forward")
+    out["gfwd"] = serialized_ms(lambda p: gfwd(p)[0], params, 10)
+    # the same number of graphed forwards, traced: the step's device work
+    # less the forward's is the sampler's, the likelihood's and the draws'
+    fwd_busy_us = trace_device(
+        lambda: [gfwd(params) for _ in range(BLOCK)])[1]
+    out.update(counts=counts, busy_window=busy_us / window_us,
+               busy_step=busy_us / 1e3 / BLOCK,
+               busy_fwd=fwd_busy_us / 1e3 / BLOCK)
+    return out
+
+
+def trace_device(fn):
+    """(device events, their busy us, the window us) of a torch.profiler
+    trace of ``fn()`` and a synchronise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events if is_device_event(e)]
+    busy_us, _ = busy_and_gaps([(e.time_range.start, e.time_range.end)
+                                for e in dev])
+    window_us = (max(e.time_range.end for e in events)
+                 - min(e.time_range.start for e in events))
+    return dev, busy_us, window_us
+
+
+def print_steps(label: str, st: dict, smi: str) -> None:
+    """Phase 5's line of one path's phase 4b times."""
+    def ms(x):
+        return f"{x[0]:.3f} ms (rounds {', '.join(f'{v:.2f}' for v in x[1])})"
+
+    print(f"# phase 5 ({smi}): {label}: 512-chain step eager {ms(st['eager'])},"
+          f" graphed {ms(st['graph'])}; forward eager {ms(st['fwd'])}, "
+          f"graphed() {ms(st['gfwd'])}; device busy {st['busy_step']:.3f} ms "
+          f"a graphed step = {st['busy_step'] / st['graph'][0]:.3f} of its "
+          f"untraced time ({st['busy_window']:.3f} of the traced window), "
+          f"{st['busy_fwd']:.3f} ms a graphed() forward: the sampler, the "
+          f"likelihood and the draws {st['busy_step'] - st['busy_fwd']:.3f} "
+          f"ms of device work a step")
+
+
+def truth_phase(like, space, nchain: int) -> None:
+    """Phase 4c: a graphed retrieval of the K = 1 eclipse path at
+    ``nchain`` chains from uniform starts, on data made from TRUTH with
+    3% noise, held to tests/test_end_to_end.py:71-87's four criteria:
+    pulls < 3.5 on the data-constrained directions, the central 99%
+    interval covering the truth, chi2/dof < 3, split-R-hat < 1.35."""
+    import torch
+
+    from bart_tpu_torch.demo import TRUTH
+    from bart_tpu_torch.inference.retrieval import run_mcmc
+
+    t0 = time.perf_counter()
+    res = run_mcmc(like, space, nchains=nchain,
+                   numit=nchain * TRUTH_STEPS, burnin=TRUTH_BURNIN,
+                   block=TRUTH_BLOCK, seed=7, verbose=False)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    flat = res.posterior.transpose(1, 0, 2).reshape(space.nfree, -1)
+    mean, std = flat.mean(1), flat.std(1)
+    truth = TRUTH[space.ifree]
+    constrained = std < 0.5 * (space.free_max - space.free_min) / np.sqrt(12)
+    pulls = np.abs(mean - truth) / np.maximum(std, 1e-12)
+    q = np.percentile(flat, [0.5, 99.5], axis=1)
+    covered = (truth > q[0]) & (truth < q[1])
+    chi2_dof = -2.0 * res.best_loglike / int(like.data.shape[0])
+    print(f"# phase 4c: truth recovery, {nchain} chains x {TRUTH_STEPS} "
+          f"graphed steps (burn-in {TRUTH_BURNIN}) in {took:.2f} s "
+          f"({1e3 * took / TRUTH_STEPS:.3f} ms a step, host statistics "
+          f"included): mean {np.array2string(mean, precision=4)}, std "
+          f"{np.array2string(std, precision=4)}, truth "
+          f"{np.array2string(truth, precision=4)}; constrained "
+          f"{constrained.tolist()}, pulls "
+          f"{np.array2string(pulls, precision=3)}; 99% interval covers "
+          f"{covered.tolist()}; chi2/dof {chi2_dof:.3f}; split-Rhat "
+          f"{np.array2string(res.psrf_rank, precision=4)}; accept "
+          f"{res.accept_rate:.3f}, fgamma {res.fgamma_final:.3f}")
+    check(bool(np.all(pulls[constrained] < 3.5)),
+          f"truth recovery: pulls {pulls} on {constrained}")
+    check(bool(np.all(covered)), "truth recovery: the 99% interval misses "
+          f"the truth ({q}, {truth})")
+    check(chi2_dof < 3.0, f"truth recovery: chi2/dof {chi2_dof}")
+    check(bool(np.all(res.psrf_rank < 1.35)),
+          f"truth recovery: split-Rhat {res.psrf_rank}")
 
 
 def trace_forwards(paths: dict, smi: str, nfwd: int = 5) -> None:
@@ -991,19 +1200,22 @@ def main() -> int:
                        pmax=[-1, 1, 1, 1, 1.2, 1.5],
                        stepsize=[0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
     like = Likelihood(fm, space, data, uncert)
-    before = fused.fused_eclipse.launches
     t0 = time.perf_counter()
     res = run_mcmc(like, space, nchains=nchain, numit=nchain * 30,
                    burnin=10, block=10, seed=7, verbose=False)
     mcmc_s = time.perf_counter() - t0
-    launches = fused.fused_eclipse.launches           # main path ends here
     print(f"# phase 4: snooker {nchain} chains x {res.niter_total // nchain} "
-          f"steps in {mcmc_s:.2f} s: best chi2 {-2 * res.best_loglike:.3f}, "
-          f"accept {res.accept_rate:.3f}; kernel launches {launches} "
-          f"({launches - before} in the retrieval)")
+          f"graphed steps in {mcmc_s:.2f} s (capture included): best chi2 "
+          f"{-2 * res.best_loglike:.3f}, accept {res.accept_rate:.3f}")
     check(np.isfinite(res.best_loglike), "non-finite best loglike")
     check(res.accept_rate > 0.0, "no accepted proposal")
-    check(launches > before, "retrieval did not launch the kernel")
+    estep = step_phase("eclipse", like, space, fm, params,
+                       [fused.fused_eclipse])
+    truth_phase(like, space, nchain)
+    launches = fused.fused_eclipse.launches           # main path ends here
+    print(f"# phase 4: eclipse path: {launches} kernel launches counted in "
+          "Python (eager calls, warm-ups, captures)")
+    check(launches > 0, "the eclipse path did not launch the kernel")
 
     # --- phases 3 and 4, transit ---------------------------------------
     tpath = transit_path(fused, fm, inp_full, nchain, f32)
@@ -1041,6 +1253,7 @@ def main() -> int:
           f"{fwd_ms:.3f} ms (rounds {', '.join(f'{x:.2f}' for x in fwd_rounds)}),"
           f" forward less the kernel {rest_ms:.3f} ms (rounds "
           f"{', '.join(f'{x:.2f}' for x in rest_rounds)})")
+    print_steps("eclipse", estep, smi.strip())
     tk_ms, tp_ms, (tf_ms, tf_rounds), (tr_ms, tr_rounds) = transit_times(
         fused, tpath)
     print(f"# phase 5 ({smi.strip()}): per {nchain}-chain batch: transit "
@@ -1049,6 +1262,7 @@ def main() -> int:
           f"{', '.join(f'{x:.2f}' for x in tf_rounds)}), forward less the "
           f"kernel {tr_ms:.3f} ms (rounds "
           f"{', '.join(f'{x:.2f}' for x in tr_rounds)})")
+    print_steps("transit", tpath["step"], smi.strip())
 
     ft_ = {name: folded_times(fused, path)
            for name, path in (("eclipse", fpath), ("transit", ftpath))}
@@ -1062,6 +1276,7 @@ def main() -> int:
               f"{', '.join(f'{v:.2f}' for v in x['fwd'][1])}), forward less "
               f"the kernels {x['rest'][0]:.3f} ms (rounds "
               f"{', '.join(f'{v:.2f}' for v in x['rest'][1])})")
+        print_steps(f"folded {name}", path["step"], smi.strip())
 
     # --- phase 6 (--trace): where the forwards' wall time goes ---------
     if "--trace" in sys.argv[1:]:
@@ -1069,7 +1284,13 @@ def main() -> int:
             "eclipse": (forward, params),
             "transit": (tpath["forward"], tpath["params"]),
             "folded eclipse": (fpath["forward"], fpath["params"]),
-            "folded transit": (ftpath["forward"], ftpath["params"])},
+            "folded transit": (ftpath["forward"], ftpath["params"]),
+            "eclipse graphed()": (fm.graphed(), params),
+            "transit graphed()": (tpath["fm"].graphed(), tpath["params"]),
+            "folded eclipse graphed()": (fpath["fm"].graphed(),
+                                         fpath["params"]),
+            "folded transit graphed()": (ftpath["fm"].graphed(),
+                                         ftpath["params"])},
             smi.strip())
 
     # --- the kernels' record: bounds from this run's shapes ------------
@@ -1105,15 +1326,19 @@ def main() -> int:
     ft_tensor = tensor_share(pts * L * ft_R, pts * tri,
                              pts * (L * ft_R + tri + L), "bf16")
 
-    def record(name, replaces, by_path, max_abs_err, ms, plain_ms, bnd,
-               tensor):
-        # launches: on all main paths; launches_by_path: on each that
-        # runs this kernel (the K = 1 kernels also serve the smooth bins
-        # of the folded paths)
+    def record(name, replaces, max_abs_err, ms, plain_ms, bnd, tensor):
+        # launches: on the device, in the traces of the replayed blocks of
+        # every main path that runs this kernel (the K = 1 kernels also
+        # serve the smooth bins of the folded paths); python_launches: the
+        # wrapper's own count over the same paths (eager calls, warm-ups,
+        # captures: a replay is never counted there)
+        by_path = {p: st["counts"][name] for p, st in steps.items()
+                   if name in st["counts"]}
         return {"name": name, "route": "cuda",
                 "source": f"bart_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
+                "python_launches": python[name],
                 "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "bound_term": bnd[2],
                 # share of the bound's FMAs on tensor cores, in which
@@ -1123,22 +1348,24 @@ def main() -> int:
                 # no single PyTorch call computes any of the four
                 "library_ms": None}
 
+    steps = {"eclipse": estep, "transit": tpath["step"],
+             "folded_eclipse": fpath["step"],
+             "folded_transit": ftpath["step"]}
+    python = {"fused_eclipse": launches + fpath["launches"][1],
+              "fused_transit": tpath["launches"] + ftpath["launches"][1],
+              "fused_eclipse_folded": fpath["launches"][0],
+              "fused_transit_folded": ftpath["launches"][0]}
     print(json.dumps({"kernels": [
-        record("fused_eclipse", KERNEL_REPLACES,
-               {"eclipse": launches, "folded_eclipse": fpath["launches"][1]},
-               max_abs, k_ms, p_ms, e_bound, e_tensor),
-        record("fused_transit", TRANSIT_REPLACES,
-               {"transit": tpath["launches"],
-                "folded_transit": ftpath["launches"][1]},
-               t_max_abs, tk_ms, tp_ms, t_bound, t_tensor),
+        record("fused_eclipse", KERNEL_REPLACES, max_abs, k_ms, p_ms,
+               e_bound, e_tensor),
+        record("fused_transit", TRANSIT_REPLACES, t_max_abs, tk_ms, tp_ms,
+               t_bound, t_tensor),
         record("fused_eclipse_folded", FOLDED_REPLACES,
-               {"folded_eclipse": fpath["launches"][0]},
                f_max_abs["eclipse"], ft_["eclipse"]["k_ms"],
                ft_["eclipse"]["p_ms"], f_bound, f_tensor),
         record("fused_transit_folded", FOLDED_TRANSIT_REPLACES,
-               {"folded_transit": ftpath["launches"][0]}, f_max_abs["transit"],
-               ft_["transit"]["k_ms"], ft_["transit"]["p_ms"], ft_bound,
-               ft_tensor),
+               f_max_abs["transit"], ft_["transit"]["k_ms"],
+               ft_["transit"]["p_ms"], ft_bound, ft_tensor),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

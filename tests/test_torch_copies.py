@@ -5,6 +5,7 @@ imports nothing of bart_tpu.  Each copy is held against its original."""
 
 import dataclasses
 import re
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 import bart_tpu.constants as jconst
 import bart_tpu.inference.gr as jgr
 import bart_tpu.io.kurucz as jkurucz
+import bart_tpu.inference.retrieval as jretrieval
 import bart_tpu.io.tep as jtep
 import bart_tpu.linelist.hitran as jhitran
 import bart_tpu.linelist.molecules as jmol
@@ -21,6 +23,7 @@ import bart_tpu.utils.grids as jgrids
 
 import bart_tpu_torch.constants as const
 import bart_tpu_torch.inference.gr as gr
+import bart_tpu_torch.inference.retrieval as retrieval
 import bart_tpu_torch.io.kurucz as kurucz
 import bart_tpu_torch.io.tep as tep
 import bart_tpu_torch.linelist.hitran as hitran
@@ -115,6 +118,32 @@ def _convergence_diagnostics():
                                       getattr(jgr, name)(chains), err_msg=name)
 
 
+def _sample_store():
+    with tempfile.TemporaryDirectory() as tmp:
+        _sample_stores(Path(tmp))
+
+
+def _sample_stores(tmp_path):
+    rng = np.random.default_rng(4)
+    blocks = [rng.normal(size=(5, 3, 2)) for _ in range(3)]
+    for path in (None, "store"):
+        stores = [mod._SampleStore(
+            3, 2, 20, np.float64,
+            None if path is None else str(tmp_path / f"{path}{i}.dat"), n0=2)
+            for i, mod in enumerate((retrieval, jretrieval))]
+        for s in stores:
+            for b in blocks:
+                s.append(b)
+            s.flush()
+        got, ref = stores
+        assert got.n == ref.n == 17
+        np.testing.assert_array_equal(got.iterations(4), ref.iterations(4))
+        np.testing.assert_array_equal(got.samples(2, 3), ref.samples(2, 3))
+        if path is not None:     # the memmap sidecar, as written to disk
+            assert (tmp_path / "store0.dat").read_bytes() == \
+                (tmp_path / "store1.dat").read_bytes()
+
+
 COPIES = {
     "constants": _constants,
     "molecules": _molecules,
@@ -124,6 +153,7 @@ COPIES = {
     "blackbody_star": _blackbody_star,
     "planet_system": _planet_system,
     "convergence_diagnostics": _convergence_diagnostics,
+    "sample_store": _sample_store,
 }
 
 

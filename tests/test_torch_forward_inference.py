@@ -23,8 +23,7 @@ from bart_tpu.rt.forward import ForwardModel as JModel
 from bart_tpu_torch.demo import DEMO_PARAMS, TRUTH, build_demo_model, demo_inputs
 from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
 from bart_tpu_torch.inference.retrieval import run_mcmc
-from bart_tpu_torch.inference.samplers import (EnsembleSampler, SamplerState,
-                                               Variates)
+from bart_tpu_torch.inference.samplers import EnsembleSampler, SamplerState
 from bart_tpu_torch.opacity.grid import OpacityGrid
 from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
 from bart_tpu_torch.rt.fused import RowsTable
@@ -132,6 +131,17 @@ def test_forward_matches_bart_tpu_batched(demo, cfg):
                                bt.numpy(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("name", ["wn", "pressure", "mu", "mu_w", "sigma"])
+def test_forward_views_match_bart_tpu(demo, name):
+    inp, grid = demo
+    fmj = _jax_model(inp, grid, quadrature="expsum")
+    fmt = _torch_model(inp, grid, quadrature="expsum")
+    got = getattr(fmt, name)
+    assert got is fmt.tables[name]
+    np.testing.assert_allclose(got.numpy(), np.asarray(getattr(fmj, name)),
+                               rtol=1e-12)
+
+
 @pytest.mark.parametrize("cfg,kw", [
     ({"pt_type": "iso"}, {}),
     ({"pt_type": "madhu_noinv"}, {}),
@@ -190,6 +200,20 @@ def test_likelihood_matches_with_prior_and_bounds(demo):
         np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-9)
 
 
+def test_likelihood_chisq_matches_bart_tpu(demo):
+    inp, grid = demo
+    fmj, fmt = _jax_model(inp, grid), _torch_model(inp, grid)
+    sp_t, sp_j = _spaces()
+    data = np.asarray(fmj.jitted()(jnp.asarray(TRUTH))[0])
+    free = np.tile(TRUTH[sp_t.ifree], (3, 1)) + np.random.default_rng(3) \
+        .normal(0, 0.02, (3, sp_t.nfree))
+    got = Likelihood(fmt, sp_t, data, 0.03 * data).chisq(torch.tensor(free))
+    lj = jlike.Likelihood(fmj, sp_j, data, 0.03 * data)
+    ref = [float(lj.chisq(jnp.asarray(f))) for f in free]
+    assert got.shape == (3,)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9)
+
+
 def test_likelihood_wlike_raises(demo):
     sp_t, _ = _spaces()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -215,22 +239,6 @@ def _gauss_jax(x):
     return -0.5 * d @ (_PREC @ d), 2.0 * x
 
 
-def _jax_variates(key, state, n, d):
-    """bart_tpu's snooker draws from one key, in its draw order
-    (samplers.py:218-246, then the accept uniform at :264)."""
-    kp, ka = jax.random.split(key)
-    keys = jax.random.split(kp, 6)
-    nz_eff = jnp.maximum(state.z_count, 3)
-    z = [jax.random.randint(keys[i], (n,), 0, nz_eff) for i in range(3)]
-    noise = jax.random.normal(keys[3], (n, d), jnp.float64)
-    gs = jax.random.uniform(keys[4], (n, 1), jnp.float64, 1.2, 2.2)
-    u_sn = jax.random.uniform(keys[5], (n,), jnp.float64)
-    u_acc = jax.random.uniform(ka, (n,), jnp.float64)
-    t = lambda a, dt=F64: torch.tensor(np.asarray(a), dtype=dt)
-    return Variates(*[t(zi, torch.int64) for zi in z], t(noise), t(gs),
-                    t(u_sn), t(u_acc))
-
-
 def _to_torch_state(s):
     return SamplerState(**{
         k: torch.tensor(np.asarray(v), dtype=torch.int64
@@ -239,26 +247,13 @@ def _to_torch_state(s):
 
 
 def test_snooker_step_replays_bart_tpu():
-    n, d = 8, 3
-    kw = dict(nfree=d, nmodel=d, nchains=n, walk="snooker",
-              pmin=_MEAN - 4.0, pmax=_MEAN + 4.0, snooker_frac=0.5,
-              z_thin=2)
-    js = jsamp.EnsembleSampler(loglike_fn=_gauss_jax, **kw)
-    ts = EnsembleSampler(loglike_fn=_gauss_torch, **kw)
-    assert ts.nz == js.nz == 100
-    init = _MEAN + np.random.default_rng(2).normal(0, 1.5, (n, d))
-    sj = js.init_state(jax.random.key(0), init, dtype=jnp.float64)
-    st = _to_torch_state(sj)
-    n_sn = 0
-    for i in range(4):
-        key = jax.random.key(100 + i)
-        v = _jax_variates(key, sj, n, d)
-        n_sn += int((v.u_sn < 0.5).sum())
-        sj = js._step(sj, key)
-        st = ts._step(st, v)
-        for k, a in sj._asdict().items():
-            np.testing.assert_allclose(getattr(st, k).numpy(), np.asarray(a),
-                                       rtol=1e-12, atol=1e-14, err_msg=k)
+    """Four snooker steps fed bart_tpu's draws (archive indices as the
+    uniforms that map back to them): every state field at rtol 1e-12."""
+    from test_torch_samplers import replay_against_bart_tpu
+
+    st, read = replay_against_bart_tpu("snooker", snooker_frac=0.5)
+    n = st.positions.shape[0]
+    n_sn = sum(int((v.u_sn < 0.5).sum()) for v in read)
     assert 0 < n_sn < 4 * n and int(st.naccept.sum()) > 0
 
 
@@ -286,12 +281,6 @@ def test_snooker_recovers_correlated_gaussian():
     assert np.all(np.abs(corr - corr0) < 0.1), corr
     acc = state.naccept.sum().item() / (3000 * n)
     assert 0.05 < acc < 0.9
-
-
-def test_other_walkers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EnsembleSampler(loglike_fn=_gauss_torch, nfree=3, nmodel=3,
-                        nchains=4, walk="demc")
 
 
 # ---------------------------------------------------------------------

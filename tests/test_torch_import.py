@@ -111,13 +111,16 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "ForwardModel", "build_demo_model", "build_opacity_grid", "load_grid",
-    "build_band_matrix", "tile_lines_bucketed"])
+    "build_band_matrix", "tile_lines_bucketed", "load_checkpoint"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without ``device=`` and without a card, every entry point
     that creates tensors raises: none falls back to the CPU."""
     import numpy as np
 
     from bart_tpu_torch.demo import build_demo_model, demo_inputs
+    from bart_tpu_torch.inference.retrieval import (load_checkpoint,
+                                                    save_checkpoint)
+    from bart_tpu_torch.inference.samplers import SamplerState
     from bart_tpu_torch.obs.bands import BandMatrix, build_band_matrix
     from bart_tpu_torch.opacity.extinction import tile_lines_bucketed
     from bart_tpu_torch.opacity.grid import (OpacityGrid, build_opacity_grid,
@@ -129,6 +132,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
                        torch.zeros(1, len(inp.t_grid), 4, 32))
     path = str(tmp_path / "grid.npz")
     save_grid(grid, path)
+    ckpt = str(tmp_path / "ck.npz")
+    save_checkpoint(ckpt, SamplerState(*[torch.zeros(2)] * 9), 0,
+                    torch.Generator())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "ForwardModel": lambda: ForwardModel(
@@ -144,6 +150,71 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             np.linspace(2500.0, 5000.0, 256), inp.filters),
         "tile_lines_bucketed": lambda: tile_lines_bucketed(
             inp.lines, inp.wn, 25.0),
+        "load_checkpoint": lambda: load_checkpoint(ckpt),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
+
+
+def test_graphs_and_run_mcmc_import_and_run_without_jax(tmp_path):
+    """The new entry points (ForwardModel.graphed, StepGraph, the
+    complete run_mcmc) import with jax and bart_tpu blocked, and run_mcmc
+    runs every walk on a CPU likelihood, with checkpoint, resume,
+    savemodel and logfile."""
+    proc = _run(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["bart_tpu"] = None
+        import numpy as np, torch
+        from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+        from bart_tpu_torch.inference.retrieval import run_mcmc
+        from bart_tpu_torch.inference.samplers import StepGraph
+        from bart_tpu_torch.rt.forward import ForwardModel
+        assert callable(ForwardModel.graphed) and StepGraph
+        torch.set_num_threads(2)
+        space = ParamSpace([0.0, 0.0], [-5, -5], [5, 5], [0.1, 0.1])
+        fwd = lambda p: (p, p, torch.ones(p.shape[0], dtype=torch.bool))
+        like = Likelihood(fwd, space, np.array([1.0, -1.0]), np.ones(2))
+        out = {str(tmp_path)!r}
+        for walk in ("snooker", "demc", "mrw", "unif"):
+            kw = dict(nchains=4, burnin=10, walk=walk, block=10,
+                      verbose=False, checkpoint=f"{{out}}/{{walk}}.npz",
+                      savemodel=f"{{out}}/{{walk}}_models.npy",
+                      logfile=f"{{out}}/{{walk}}.log")
+            run_mcmc(like, space, numit=200, **kw)
+            res = run_mcmc(like, space, numit=400, resume=True, **kw)
+            assert res.posterior.shape == (4, 2, 90)
+            assert res.models.shape == (4, 2, 100)
+        print("ok")
+    """)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["graphed", "StepGraph", "run_block"])
+def test_graph_constructors_raise_without_a_card(entry, monkeypatch):
+    """The graphed forward and the step graph raise on a CPU model or
+    state (no eager fallback), without a card."""
+    import numpy as np
+
+    from bart_tpu_torch.demo import build_demo_model, demo_inputs
+    from bart_tpu_torch.inference.samplers import EnsembleSampler, StepGraph
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "graphed":
+        inp = demo_inputs(nlayer=4, nwave=64, nlines=10, t_step=1300.0)
+        fm = build_demo_model(inp, dtype=torch.float64, budget_bytes=1e7,
+                              device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            fm.graphed()
+        return
+    s = EnsembleSampler(
+        loglike_fn=lambda x: (-0.5 * (x * x).sum(1), x), nfree=2, nmodel=2,
+        nchains=4, pmin=np.full(2, -3.0), pmax=np.full(2, 3.0))
+    gen = torch.Generator().manual_seed(0)
+    state = s.init_state(gen)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        if entry == "StepGraph":
+            StepGraph(s, state, 5)
+        else:
+            s.run_block(state, gen, 5, graphed=True)
+    assert s._graphs == {}
