@@ -36,7 +36,8 @@ from bart_tpu_torch.opacity.cia import CiaTable, read_cia
 
 __all__ = ["DemoInputs", "demo_inputs", "build_demo_model", "random_rows",
            "random_transit_rows", "fine_structure", "DEMO_PARAMS", "TRUTH",
-           "DEMO_PARAMS_TRANSIT", "TRUTH_TRANSIT", "TRANSIT_BOUNDS"]
+           "DEMO_PARAMS_TRANSIT", "TRUTH_TRANSIT", "TRANSIT_BOUNDS",
+           "PT_PARAMS", "demo_params"]
 
 _CIA_FILE = (Path(__file__).resolve().parents[1] / "examples" / "demo_inputs"
              / "CIA_H2H2_demo.dat")
@@ -48,6 +49,25 @@ R0_KM = _SYSTEM.r_planet / 1000.0
 DEMO_PARAMS = np.array([-2.0, 0.0, 1.0, 0.0, 0.98, -0.5])
 #: the synthetic-retrieval truth of tests/test_end_to_end.py
 TRUTH = np.array([-1.8, 0.1, 1.0, 0.0, 0.95, -0.7])
+#: PT parameters of every family, in bart_tpu/physics/pt.py's order, whose
+#: profiles on the demo grid stay inside [tmin, tmax] = [400, 3000] K
+PT_PARAMS = {
+    "iso": np.array([1400.0]),
+    "line": DEMO_PARAMS[:5],
+    "madhu_noinv": np.array([0.4, 0.25, 0.005, 2.0, 1500.0]),
+    "madhu_inv": np.array([0.5, 0.2, 0.005, 0.1, 3.0, 1600.0]),
+    "adiabatic": np.array([1500.0, 1.06, -1.0]),
+    "piette": np.array([1300.0, 250.0, 150.0, 100.0, 80.0, 60.0, 40.0,
+                        30.0]),
+}
+
+
+def demo_params(pt_type: str = "line") -> np.ndarray:
+    """The eclipse demo's parameters with the PT family ``pt_type``: its
+    PT_PARAMS, then log CH4."""
+    return np.concatenate([PT_PARAMS[pt_type], DEMO_PARAMS[5:]])
+
+
 #: transit parameters: the radius [km] inserted at index 5, as bench.py
 DEMO_PARAMS_TRANSIT = np.insert(DEMO_PARAMS, 5, R0_KM)
 TRUTH_TRANSIT = np.insert(TRUTH, 5, R0_KM)
@@ -179,7 +199,7 @@ def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cuda",
                      quadrature: str = "raygrid", budget_bytes: float = 2e9,
                      solution: str = "eclipse", cia: bool = False,
                      fold: int = 1, fold_adapt: float | None = 0.02,
-                     fold_bf16: bool = False):
+                     fold_bf16: bool = False, pt_type: str = "line"):
     """This package's ForwardModel for the demo problem, on ``device``
     (the card unless the caller asks for the CPU).  The opacity table is
     built there unless ``grid`` (an OpacityGrid, e.g. another demo
@@ -187,7 +207,8 @@ def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cuda",
     transit demo, whose bands have no stellar division; ``cia`` adds the
     H2-H2 CIA rows.  ``fold`` = K > 1 builds the folded model: the table
     on the K-times-finer folded_fine_grid(inp.wn, K), bands and outputs
-    on ``inp.wn``; ``fold_adapt`` and ``fold_bf16`` as ForwardModel's."""
+    on ``inp.wn``; ``fold_adapt`` and ``fold_bf16`` as ForwardModel's.
+    ``pt_type`` picks the PT family (demo_params gives its parameters)."""
     from bart_tpu_torch.obs.bands import build_band_matrix
     from bart_tpu_torch.opacity.grid import build_opacity_grid
     from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
@@ -208,7 +229,8 @@ def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cuda",
                                   dtype=dtype)
         kwargs = {**inp.config_kwargs, "solution": solution}
     return ForwardModel(
-        ForwardConfig(quadrature=quadrature, **kwargs),
+        ForwardConfig(quadrature=quadrature,
+                      **{**kwargs, "pt_type": pt_type}),
         wn_grid=inp.wn, pressure=inp.pressure, species=inp.species,
         base_abundances=inp.base_q, opacity=grid, system=inp.system,
         bands=bands, cia_tables=[inp.cia] if cia else [], fold_osamp=fold,

@@ -3,7 +3,11 @@ over chains (port of bart_tpu/inference/likelihood.py).
 
 Stepsize semantics (MC3): > 0 free; == 0 fixed at its initial value;
 < 0 shared, copying free parameter (-stepsize - 1).  Rejected samples
-(invalid forward model or out of bounds) get loglike = -inf.
+(invalid forward model or out of bounds) get loglike = -inf.  With
+``wlike`` (MC3's wavelet likelihood) the last three entries of the full
+parameter vector are the noise parameters (gamma, sigma_r, sigma_w), the
+forward model gets the rest, and chi^2 is -2 times the Carter & Winn
+log-likelihood of the residuals.
 """
 
 from __future__ import annotations
@@ -12,6 +16,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from bart_tpu_torch.device import resolve_device
+from bart_tpu_torch.inference.wavelet import wavelet_loglike
 
 __all__ = ["ParamSpace", "Likelihood"]
 
@@ -70,19 +77,23 @@ class ParamSpace:
 
 class Likelihood:
     """log L(free) = -chi2/2 with bounds, validity and optional Gaussian
-    priors (MC3 prior/priorlow/priorup)."""
+    priors (MC3 prior/priorlow/priorup).
+
+    The likelihood lives on the forward model's ``device``; a forward
+    without one (a plain callable) runs on ``device``, the card unless
+    the caller asks for the CPU."""
 
     def __init__(self, forward, space: ParamSpace, data: np.ndarray,
                  uncert: np.ndarray, prior: np.ndarray | None = None,
                  priorlow: np.ndarray | None = None,
-                 priorup: np.ndarray | None = None, wlike: bool = False):
-        if wlike:
-            raise NotImplementedError(
-                "Likelihood: the wavelet likelihood (wlike) is not ported "
-                "yet (ROADMAP queue 1, item 15)")
+                 priorup: np.ndarray | None = None, wlike: bool = False,
+                 device: str | torch.device = "cuda"):
         self.forward = forward
         self.space = space
-        self.device = getattr(forward, "device", torch.device("cpu"))
+        self.wlike = wlike
+        fwd_device = getattr(forward, "device", None)
+        self.device = (fwd_device if fwd_device is not None
+                       else resolve_device(device))
         f64 = torch.float64
         self.data = torch.tensor(np.asarray(data), dtype=f64,
                                  device=self.device)
@@ -104,9 +115,14 @@ class Likelihood:
     def __call__(self, free: torch.Tensor):
         """free [C, nfree] -> (loglike [C], model [C, nfilt])."""
         full = self.space.expand(free)
-        model, _, valid = self.forward(full)
-        resid = (model - self.data) / self.uncert
-        chi2 = torch.sum(resid * resid, dim=-1)
+        if self.wlike:
+            model, _, valid = self.forward(full[..., :-3])
+            chi2 = -2.0 * wavelet_loglike(model - self.data, full[..., -3],
+                                          full[..., -2], full[..., -1])
+        else:
+            model, _, valid = self.forward(full)
+            resid = (model - self.data) / self.uncert
+            chi2 = torch.sum(resid * resid, dim=-1)
 
         inb = torch.all((free >= self._lo.to(free.dtype))
                         & (free <= self._hi.to(free.dtype)), dim=-1)

@@ -20,8 +20,9 @@ Outputs as bart_tpu's:
                   package's: a torch generator's state stands where
                   bart_tpu keeps its JAX key.
 
-Not ported: the least-squares pre-fit (``leastsq``, ROADMAP queue 1,
-item 15).
+With ``leastsq`` the chains start around a least-squares pre-fit
+(``least_squares_prefit``), jittered by 1% of each parameter's range with
+numpy's generator of ``seed``: the same starts as bart_tpu's.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ from bart_tpu_torch.inference.gr import (effective_sample_size, gelman_rubin,
 from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
 from bart_tpu_torch.inference.samplers import EnsembleSampler, SamplerState
 
-__all__ = ["RetrievalResult", "run_mcmc", "save_checkpoint",
-           "load_checkpoint"]
+__all__ = ["RetrievalResult", "run_mcmc", "least_squares_prefit",
+           "save_checkpoint", "load_checkpoint"]
 
 
 class _SampleStore:
@@ -133,6 +134,30 @@ class RetrievalResult:
     ess: np.ndarray | None = None        # bulk effective sample size
 
 
+def least_squares_prefit(like: Likelihood, space: ParamSpace) -> np.ndarray:
+    """The free parameters [nfree] that minimise the chi^2 residuals
+    (model - data) / uncert: scipy's least_squares (trf, bounded by
+    pmin/pmax, its own finite-difference Jacobian) from the initial
+    values, each evaluation a [1, nfree] forward on the likelihood's
+    device.  The residuals carry the forward's precision, so scipy's
+    difference step fits it (float32 residuals, as bart_tpu's are on a
+    float32 forward, get float32's step); non-finite ones become 1e10."""
+    import scipy.optimize as so
+
+    def resid(free):
+        x = torch.as_tensor(free[None], dtype=torch.float64,
+                            device=like.device)
+        _, model = like(x)
+        r = ((model - like.data) / like.uncert)[0].to(model.dtype)
+        r = r.cpu().numpy()
+        return np.where(np.isfinite(r), r, 1e10)
+
+    out = so.least_squares(resid, space.free_init,
+                           bounds=(space.free_min, space.free_max),
+                           method="trf")
+    return out.x
+
+
 def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
              numit: int = 50000, burnin: int = 500, walk: str = "snooker",
              seed: int = 0, block: int = 100, thinning: int = 1,
@@ -149,10 +174,6 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
     """Run a retrieval on the likelihood's device.  ``numit`` is the
     TOTAL number of samples across chains (reference semantics).  The
     sampler state is kept in ``dtype`` whatever the forward model's."""
-    if leastsq:
-        raise NotImplementedError(
-            "run_mcmc: the least-squares pre-fit (leastsq) is not ported "
-            "yet (ROADMAP queue 1, item 15)")
     t_start = time.time()
     log_lines: list[str] = []
 
@@ -170,6 +191,19 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
         scale = np.sqrt(chi0 / max(nmodel - space.nfree, 1))
         like.uncert = like.uncert * scale
         log(f"chisqscale: uncertainties scaled by {scale:.4f}")
+
+    init_free = None
+    if init is not None:
+        init_free = np.asarray(init)
+    elif leastsq:
+        log("least-squares pre-fit...")
+        fit = least_squares_prefit(like, space)
+        log(f"  prefit: {fit}")
+        rng = np.random.default_rng(seed)
+        jitter = 0.01 * (space.free_max - space.free_min)
+        init_free = np.clip(
+            fit[None, :] + rng.normal(0, 1, (nchains, space.nfree)) * jitter,
+            space.free_min, space.free_max)
 
     sampler = EnsembleSampler(
         loglike_fn=like, nfree=space.nfree, nmodel=nmodel, nchains=nchains,
@@ -195,8 +229,7 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
         log(f"resumed from {checkpoint} at iteration {done0} "
             f"(fgamma {fg:.3f})")
     else:
-        state = sampler.init_state(
-            gen, None if init is None else np.asarray(init), dtype=dtype)
+        state = sampler.init_state(gen, init_free, dtype=dtype)
 
     iters_per_chain = max(int(np.ceil(numit / nchains)), block)
     nblocks = int(np.ceil(max(iters_per_chain - done0, 0) / block))

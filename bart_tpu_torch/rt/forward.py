@@ -1,9 +1,14 @@
 """The forward model: parameters -> band fluxes, batched over chains
 (port of bart_tpu/rt/forward.py, gridded opacity, K = 1 and folded
-rtosamp, eclipse, direct and transit geometry, with CIA, Rayleigh and
-gray-cloud rows).
+rtosamp, eclipse, direct and transit geometry, every PT family, with
+CIA, Rayleigh and gray-cloud rows).
 
     bandflux [C, nfilt], spectrum [C, W], valid [C] = fm(params [C, n])
+
+Beside the fused forward, the unfused extinction [C, L, W] of the
+post-processing (``diagnostics``: profiles, radii, extinction, valid)
+and the spectrum of explicit profiles (``spectrum_from_profiles``,
+through the fused kernels).
 
 Parameter layout as the reference (BARTfunc.py:173-179):
 [ PT params (nPT) | radius [km] (transit only) | cloudtop [bar] |
@@ -34,11 +39,14 @@ import torch
 from bart_tpu_torch import constants as const
 from bart_tpu_torch.device import resolve_device
 from bart_tpu_torch.obs.bands import BandMatrix, band_integrate
-from bart_tpu_torch.opacity.cia import LOSCHMIDT, CiaTable, cia_weights
+from bart_tpu_torch.opacity.cia import (LOSCHMIDT, CiaTable, cia_extinction,
+                                        cia_weights)
 from bart_tpu_torch.opacity.cloud import (cloud_deck_extinction,
                                           extended_cloud_extinction)
-from bart_tpu_torch.opacity.grid import OpacityGrid, fine_bin_mask
-from bart_tpu_torch.opacity.rayleigh import h2_rayleigh_cross_section
+from bart_tpu_torch.opacity.grid import (OpacityGrid, fine_bin_mask,
+                                         interp_opacity)
+from bart_tpu_torch.opacity.rayleigh import (h2_rayleigh_cross_section,
+                                             rayleigh_extinction)
 from bart_tpu_torch.physics.hydro import anchor_index, radius_profile
 from bart_tpu_torch.physics.pt import n_pt_params, pt_generator
 from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
@@ -96,11 +104,6 @@ class ForwardConfig:
                 + len(self.molfit))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"ForwardModel: {what} is not ported yet (ROADMAP queue 1, {item})")
-
-
 class ForwardModel:
     """Static tables on ``device`` plus the batched forward function.
 
@@ -132,9 +135,9 @@ class ForwardModel:
         if cfg.solution not in ("eclipse", "direct", "transit"):
             raise ValueError(f"unknown solution {cfg.solution!r}")
         if not isinstance(opacity, OpacityGrid):
-            raise _not_ported("on-the-fly line-tile opacity", "item 11")
-        if cfg.pt_type != "line":
-            raise _not_ported(f"PT model {cfg.pt_type!r}", "item 3")
+            raise NotImplementedError(
+                "ForwardModel: on-the-fly line-tile opacity is not ported "
+                "yet (ROADMAP queue 1, item 11)")
 
         self.config = cfg
         self.system = system
@@ -241,8 +244,10 @@ class ForwardModel:
         self.i0 = anchor_index(pressure, cfg.refpress)
         self.r0_km = system.r_planet / 1000.0
         self.g0_si = system.g_planet_si
-        self.pt_args = [system.r_star, system.t_star, cfg.tint, system.sma,
-                        system.g_planet_cgs, cfg.tint_type]
+        # the fixed PT arguments, of 'line' only
+        self.pt_args = ([system.r_star, system.t_star, cfg.tint, system.sma,
+                         system.g_planet_cgs, cfg.tint_type]
+                        if cfg.pt_type == "line" else None)
 
     @staticmethod
     def _k1_tables(sigma: torch.Tensor, frows: torch.Tensor | None) -> dict:
@@ -388,18 +393,23 @@ class ForwardModel:
                     f"{shape(mine[k])}")
         return out
 
-    def __call__(self, params: torch.Tensor,
-                 tables: dict[str, torch.Tensor] | None = None):
-        """params [C, n_params] -> (bandflux [C, nfilt], spectrum [C, W],
-        valid [C] bool)."""
-        t = self._tables if tables is None else tables
+    def _params(self, params: torch.Tensor) -> torch.Tensor:
+        """params [C, n_params] on the model's device and dtype."""
         cfg = self.config
         if params.dim() != 2 or params.shape[-1] != cfg.n_params:
             raise ValueError(
                 f"params has shape {tuple(params.shape)}; config "
                 f"{cfg.solution}/{cfg.pt_type} with molfit={cfg.molfit} "
                 f"expects [C, {cfg.n_params}]")
-        params = params.to(device=self.device, dtype=self.dtype)
+        return params.to(device=self.device, dtype=self.dtype)
+
+    def __call__(self, params: torch.Tensor,
+                 tables: dict[str, torch.Tensor] | None = None):
+        """params [C, n_params] -> (bandflux [C, nfilt], spectrum [C, W],
+        valid [C] bool)."""
+        t = self._tables if tables is None else tables
+        cfg = self.config
+        params = self._params(params)
         T_safe, q, rad_cm, valid = self._profiles(params, t)
         spectrum = self._spectrum(params, t, T_safe, q, rad_cm)
 
@@ -419,6 +429,42 @@ class ForwardModel:
     def batched(self):
         """The forward over a chain batch as a plain callable."""
         return lambda batch: self(batch)
+
+    def diagnostics(self, params: torch.Tensor):
+        """The atmosphere of the post-processing (contribution functions,
+        transmittance, PT envelopes): params [C, n_params] -> (T [C, L] K,
+        q [C, L, S], radius [C, L] cm, extinction [C, L, W] cm-1, valid
+        [C]).  The extinction is the unfused one; a folded model's comes
+        from its bin-mean table on the output grid."""
+        return self._atmosphere(self._params(params), self._tables)
+
+    def diagnostics_batch(self):
+        """``diagnostics`` over a parameter batch as a plain callable (the
+        counterpart of ``batched()``)."""
+        return lambda batch: self.diagnostics(batch)
+
+    def spectrum_from_profiles(self, T, q, rad_cm=None) -> torch.Tensor:
+        """The spectrum [C, W] of explicit profiles, past the PT and
+        abundance parameters (a standalone spectrum of an atmosphere
+        file): T [C, L] K, q [C, L, S] mole fractions and optionally the
+        radii rad_cm [C, L] (re-derived hydrostatically from T and q when
+        None).  T is clipped to [tmin, tmax]; the parameters the spectrum
+        reads (cloud top, Rayleigh factor) are zero.  Through the fused
+        kernels, as a forward."""
+        t = self._tables
+        cfg = self.config
+        dd = dict(device=self.device, dtype=self.dtype)
+        T_safe = torch.clamp(torch.as_tensor(T, **dd), cfg.tmin, cfg.tmax)
+        q = torch.as_tensor(q, **dd)
+        if rad_cm is None:
+            mmm = torch.matmul(q, t["masses"])
+            rad_cm = radius_profile(
+                t["pressure"], T_safe, mmm, cfg.refpress, self.r0_km,
+                self.g0_si, i0=self.i0) * const.KM_TO_CM
+        else:
+            rad_cm = torch.as_tensor(rad_cm, **dd)
+        params = torch.zeros(T_safe.shape[0], cfg.n_params, **dd)
+        return self._spectrum(params, t, T_safe, q, rad_cm)
 
     def graphed(self):
         """The forward over a chain batch as a CUDA graph replay, the
@@ -476,6 +522,55 @@ class ForwardModel:
         rad_km = radius_profile(pressure, T_safe, mmm, cfg.refpress,
                                 r0, self.g0_si, i0=self.i0)
         return T_safe, q, rad_km * const.KM_TO_CM, valid
+
+    def _atmosphere(self, params: torch.Tensor, t: dict):
+        """params [C, n] -> (T, q, radius [cm], extinction, valid)."""
+        T_safe, q, rad_cm, valid = self._profiles(params, t)
+        ext = self._extinction(params, t, T_safe, q, rad_cm)
+        return T_safe, q, rad_cm, ext, valid
+
+    def _extinction(self, params: torch.Tensor, t: dict, T_safe, q,
+                    rad_cm) -> torch.Tensor:
+        """The unfused extinction [C, L, W] in cm-1: the line table
+        interpolated in T and weighted by the molecules' densities, then
+        CIA, Rayleigh (mode 1: 10^param; 'polar', mode 2: unscaled), the
+        cloud deck and the extended cloud, term by term as the fused
+        rows."""
+        cfg = self.config
+        nPT = cfg.n_pt
+        wn = t["wn"]
+        n_tot = t["p_barye"] / (const.K_BOLTZ * T_safe)            # [C, L]
+        sigma = interp_opacity(t["sigma"], self.t_min, self.t_step,
+                               self.n_t, T_safe)                # [C, M, L, W]
+        n_mol = q[:, :, self.i_opac] * n_tot[..., None]         # [C, L, M]
+        ext = torch.einsum("cmlw,clm->clw", sigma, n_mol)
+
+        for k, (i1, i2) in enumerate(self.cia_idx):
+            ext = ext + cia_extinction(
+                t[f"cia{k}_temps"], t[f"cia{k}_wn"], t[f"cia{k}_abs"], wn,
+                T_safe, q[:, :, i1] * n_tot / LOSCHMIDT,
+                q[:, :, i2] * n_tot / LOSCHMIDT)
+
+        if cfg.scattering is not None:
+            n_h2 = q[:, :, self.i_h2] * n_tot
+            if cfg.scattering == "polar":
+                ext = ext + rayleigh_extinction(wn, n_h2, 0.0, mode=2)
+            else:
+                ext = ext + rayleigh_extinction(
+                    wn, n_h2, params[:, nPT + cfg.n_radfit + cfg.n_cloud],
+                    mode=1)
+
+        if cfg.cloudtop:
+            ctop = params[:, nPT + cfg.n_radfit]          # top pressure [bar]
+            ext = ext + cloud_deck_extinction(
+                t["pressure"], torch.log10(torch.clamp(ctop, min=1e-30)),
+                wn.shape[0])
+
+        if cfg.cloudrad is not None and cfg.cloudext:
+            ext = ext + extended_cloud_extinction(
+                rad_cm / const.KM_TO_CM, cfg.cloudrad[0], cfg.cloudrad[1],
+                cfg.cloudext)[..., None]
+        return ext
 
     def _fused_rows(self, params: torch.Tensor, t: dict, T_safe, q, rad_cm):
         """(parts, wrows [C, L, R]): the extinction as one rows

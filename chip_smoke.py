@@ -40,16 +40,26 @@ smooth bins.  Phases:
      graphed block are timed; eclipse only (4c): a graphed 512-chain
      retrieval from uniform starts that must recover the demo truth
      (tests/test_end_to_end.py:71-87's four criteria)
-  5. serialized times per path: kernel, plain version, whole forward,
-     forward less the kernels
-  6. with ``--trace`` only: a torch.profiler trace of a few forwards per
-     path, eager and ``graphed()``: the device-busy share of the wall
-     time, the five device operations that took most time and the five
-     stages of the forward during which the device idled longest (a
-     graph replay runs no stage)
+  5. serialized times per path: kernel, plain version, whole forward;
+     and from phase 4b's one trace of graphed() forwards, the kernels'
+     device time and the rest of the forward's
+  7. the rest of the model and inference surface on phase 3's table: a
+     512-chain forward per PT family (iso, line, madhu_noinv, madhu_inv,
+     adiabatic, piette), eager and ``graphed()`` bit for bit; the unfused
+     extinction of ``diagnostics`` through the unfused radiative transfer
+     against the fused forward, eclipse and transit; a graphed madhu_inv
+     retrieval under the wavelet likelihood (wlike) from the
+     least-squares pre-fit (leastsq), with phase 4b on its step; then
+     ``diagnostics_batch`` and the band-averaged contribution functions
+     of 300 posterior samples
+  6. with ``--trace`` only (after phase 7): a torch.profiler trace of a
+     few forwards per path, eager and ``graphed()``: the device-busy
+     share of the wall time, the five device operations that took most
+     time and the five stages of the forward during which the device
+     idled longest (a graph replay runs no stage)
 
-Each path's launch counts are zeroed just before its phase 3 and read
-just after its phase 4: the wrappers count in Python, so they see the
+Each path's launch counts are zeroed just before its phase 3 (phase 7:
+just before it) and read just after its phase 4 (phase 7: at its end): the wrappers count in Python, so they see the
 eager launches and each graph capture, never a replay.  The kernels'
 ``launches`` are counted on the device instead: each path's kernels in
 the trace of its replayed block (phase 4b).  Any failed check raises and
@@ -132,6 +142,17 @@ TRACE_KERNEL = {"fused_eclipse": r"fused_eclipse_kernel",
 #: directions' autocorrelation time is ~800 steps, so the split halves
 #: need ~2,500 steps each
 TRUTH_STEPS, TRUTH_BURNIN, TRUTH_BLOCK = 10000, 5000, 250
+#: phase 7: the madhu_inv + wlike + leastsq retrieval.  Bounds, steps and
+#: the starting point of the PT and CH4 parameters (a1, a2, p1, p2, p3
+#: [bar], T3 [K], log CH4); the truth is demo_params("madhu_inv").  The
+#: three wavelet noise parameters follow (gamma fixed at 1, sigma_r and
+#: sigma_w free), scaled to the white noise that phase 7 adds.
+MADHU_PMIN = [0.2, 0.05, 1e-4, 0.02, 1.0, 1000.0, -3.0]
+MADHU_PMAX = [1.0, 0.5, 0.02, 0.5, 10.0, 2500.0, 1.0]
+MADHU_STEP = [0.01, 0.01, 1e-4, 0.01, 0.1, 10.0, 0.1]
+MADHU_START = [0.45, 0.22, 0.006, 0.12, 2.5, 1550.0, -0.3]
+#: steps of phase 7's retrieval and posterior samples of its diagnostics
+WLIKE_STEPS, CF_SAMPLES = 30, 300
 
 
 def bound(fmas: float, exps: float, nbytes: float) -> tuple[float, str, str]:
@@ -375,34 +396,15 @@ def transit_path(fused, fm, inp, nchain: int, f32: dict) -> dict:
 
 def transit_times(fused, path: dict):
     """Phase 5, transit: (kernel ms, transit_plain ms, forward ms and its
-    rounds, forward less the kernel ms and its rounds)."""
-    import torch
-
-    from bart_tpu_torch.obs.bands import band_integrate
-    from bart_tpu_torch.rt.transit_geom import slant_geometry
-
-    fmt, rows = path["fm"], path["rows"]
-    t = fmt.tables
+    rounds)."""
+    rows = path["rows"]
     # as the forward launches it: the prepared table and slant matrix
     Gp = fused.prepare_slant(rows[2])
     k_ms = cuda_ms(lambda: fused.fused_transit(path["rtab"], rows[1], Gp,
                                                rows[3]), 20)
     p_ms = cuda_ms(lambda: fused.transit_plain(*rows), 5)
     fwd = serialized_ms(lambda p: path["forward"](p)[0], path["params"], 20)
-    zero_spec = torch.zeros(rows[1].shape[0], rows[0].shape[2],
-                            dtype=rows[0].dtype, device=rows[0].device)
-
-    def no_kernel(p):
-        # the forward's own work around the kernel: profiles, rows, the
-        # slant geometry and the band integration
-        Ts, qq, rr, _ = fmt._profiles(p, t)
-        _, wr = fmt._fused_rows(p, t, Ts, qq, rr)
-        G, wgt = slant_geometry(rr)
-        return band_integrate(t["band_w"], zero_spec + 0.0 * (
-            wr.sum() + G.sum() + wgt.sum()))
-
-    rest = serialized_ms(no_kernel, path["params"], 20)
-    return k_ms, p_ms, fwd, rest
+    return k_ms, p_ms, fwd
 
 
 def folded_kernels_vs_plain(fused, filters, f32: dict, quads: dict) -> dict:
@@ -714,16 +716,10 @@ def folded_path(fused, inp, solution: str, grid, fm_k1, nchain: int,
 
 def folded_times(fused, path: dict) -> dict:
     """Phase 5 of one folded path: ms of the folded kernel, its plain
-    version, the K = 1 kernel on the smooth bins, the whole forward and
-    the forward less the kernels (with their rounds)."""
-    import torch
-
-    from bart_tpu_torch.obs.bands import band_integrate
-    from bart_tpu_torch.rt.transit_geom import slant_geometry
-
-    fm, parts, rows = path["fm"], path["parts"], path["rows"]
-    t = fm.tables
-    (tabk, _, _, idx_f), (tabs, _, _, idx_s) = parts
+    version, the K = 1 kernel on the smooth bins and the whole forward
+    (with its rounds)."""
+    parts, rows = path["parts"], path["rows"]
+    (tabk, _, _, _), (tabs, _, _, _) = parts
     kernels, plains = path["kernels"], path["plains"]
     counts = [k.launches for k in kernels]
     krows = rows
@@ -738,24 +734,6 @@ def folded_times(fused, path: dict) -> dict:
         k1_ms=cuda_ms(lambda: kernels[1](tabs, *krows[False]), 10))
     out["fwd"] = serialized_ms(lambda p: path["forward"](p)[0],
                                path["params"], 5)
-    C, n_wn = path["params"].shape[0], t["wn"].shape[0]
-    zeros = [(torch.zeros(C, len(i), dtype=torch.float32, device=i.device), i)
-             for i in (idx_f, idx_s)]
-
-    def no_kernel(p):
-        # the forward's own work around the kernels: profiles, rows, the
-        # geometry, putting the pieces together and the band integration
-        Ts, qq, rr, _ = fm._profiles(p, t)
-        _, wr = fm._fused_rows(p, t, Ts, qq, rr)
-        if path["solution"] == "transit":
-            extra = sum(x.sum() for x in slant_geometry(rr))
-        else:
-            d = rr[:, :-1] - rr[:, 1:]
-            extra = torch.cat([torch.zeros_like(d[:, :1]), d], dim=1).sum()
-        spec = fm._assemble(zeros, n_wn)
-        return band_integrate(t["band_w"], spec + 0.0 * (wr.sum() + extra))
-
-    out["rest"] = serialized_ms(no_kernel, path["params"], 10)
     for k, n in zip(kernels, counts):
         k.launches = n
     return out
@@ -882,12 +860,19 @@ def step_phase(label: str, like, space, fm, params, kernels) -> dict:
           f"{label}: graphed forward differs from the eager forward")
     out["gfwd"] = serialized_ms(lambda p: gfwd(p)[0], params, 10)
     # the same number of graphed forwards, traced: the step's device work
-    # less the forward's is the sampler's, the likelihood's and the draws'
-    fwd_busy_us = trace_device(
-        lambda: [gfwd(params) for _ in range(BLOCK)])[1]
+    # less the forward's is the sampler's, the likelihood's and the draws';
+    # the kernels' device time and the rest of the forward's come from
+    # this one trace (one stream: the two add up to the busy time)
+    fdev, fwd_busy_us, _ = trace_device(
+        lambda: [gfwd(params) for _ in range(BLOCK)])
+    kernel_us = sum(e.time_range.end - e.time_range.start for e in fdev
+                    if any(re.search(TRACE_KERNEL[k.__name__], e.name)
+                           for k in kernels))
     out.update(counts=counts, busy_window=busy_us / window_us,
                busy_step=busy_us / 1e3 / BLOCK,
-               busy_fwd=fwd_busy_us / 1e3 / BLOCK)
+               busy_fwd=fwd_busy_us / 1e3 / BLOCK,
+               kernel_fwd=kernel_us / 1e3 / BLOCK,
+               rest_fwd=(fwd_busy_us - kernel_us) / 1e3 / BLOCK)
     return out
 
 
@@ -922,7 +907,188 @@ def print_steps(label: str, st: dict, smi: str) -> None:
           f"untraced time ({st['busy_window']:.3f} of the traced window), "
           f"{st['busy_fwd']:.3f} ms a graphed() forward: the sampler, the "
           f"likelihood and the draws {st['busy_step'] - st['busy_fwd']:.3f} "
-          f"ms of device work a step")
+          f"ms of device work a step; one trace of {BLOCK} graphed() "
+          f"forwards: the kernels {st['kernel_fwd']:.3f} ms and the rest "
+          f"{st['rest_fwd']:.3f} ms of device work a forward")
+
+
+def model_surface_phase(fused, fm, fmt, inp, nchain: int, f32: dict,
+                        smi: str) -> dict:
+    """Phase 7: the rest of the model and inference surface on phase 3's
+    table.  (a) One ``nchain`` forward per PT family, eager and
+    ``graphed()``, bit for bit.  (b) The unfused extinction of
+    ``diagnostics`` through the unfused radiative transfer against the
+    fused forward, eclipse (``fm``) and transit (``fmt``).  (c) A graphed
+    madhu_inv retrieval under the wavelet likelihood from a least-squares
+    pre-fit, on synthetic data from the madhu_inv truth: the pre-fit's
+    chi^2 at or below that of the starting point, a finite best loglike,
+    acceptance > 0, then phase 4b on its step (fused_eclipse once a step
+    in the trace of a replayed block).  (d) ``diagnostics_batch`` and the
+    band-averaged contribution functions of CF_SAMPLES posterior samples.
+    Returns the step's figures and the launches counted in Python."""
+    import torch
+
+    from bart_tpu_torch.demo import (DEMO_PARAMS, DEMO_PARAMS_TRANSIT,
+                                     PT_PARAMS, build_demo_model,
+                                     demo_params)
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+    from bart_tpu_torch.inference.retrieval import (least_squares_prefit,
+                                                    run_mcmc)
+    from bart_tpu_torch.obs.bands import band_integrate
+    from bart_tpu_torch.post import cf
+    from bart_tpu_torch.rt.eclipse import eclipse_flux
+    from bart_tpu_torch.rt.tau import tau_vertical
+    from bart_tpu_torch.rt.transit_geom import transit_depth
+
+    dev = f32["device"]
+    kernels = (fused.fused_eclipse, fused.fused_transit)
+    for k in kernels:
+        k.launches = 0                            # phase 7 starts here
+
+    # (a) every PT family, eager and graphed()
+    rng = np.random.default_rng(3)
+    fams = {}
+    for family in PT_PARAMS:
+        fmf = build_demo_model(inp, device=dev, dtype=torch.float32,
+                               grid=fm.opacity, pt_type=family)
+        base = demo_params(family)
+        params = torch.tensor(base * (1.0 + rng.normal(
+            0, 0.002, (nchain, len(base)))), **f32)
+        t0 = time.perf_counter()
+        eager = fmf(params)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        graphed = fmf.graphed()(params)
+        torch.cuda.synchronize()
+        differ = [name for name, a, b in zip(("bands", "spectrum", "valid"),
+                                             graphed, eager)
+                  if not torch.equal(a, b)]
+        T = fmf._profiles(params, fmf.tables)[0]
+        print(f"# phase 7: {family}: {nchain}-chain forward ({len(base)} "
+              f"parameters; T {float(T.min()):.1f}..{float(T.max()):.1f} K, "
+              f"{int(eager[2].sum())} valid; eager {eager_s:.3f} s with its "
+              f"first-call set-up): graphed() vs eager "
+              + (f"differ in {differ}" if differ else "equal bit for bit"))
+        check(not differ, f"{family}: graphed() differs in {differ}")
+        check(bool(eager[2].all()), f"{family}: invalid samples")
+        check(bool(torch.isfinite(eager[0]).all()
+                   & torch.isfinite(eager[1]).all()),
+              f"{family}: non-finite forward output")
+        fams[family] = (fmf, params)
+
+    # (b) the unfused extinction and radiative transfer vs the fused forward
+    for model, base, spread in ((fm, DEMO_PARAMS, 0.005),
+                                (fmt, DEMO_PARAMS_TRANSIT,
+                                 np.where(np.arange(7) == 5, 10.0, 0.005))):
+        params = torch.tensor(np.tile(base, (nchain, 1)) + rng.normal(
+            0, 1, (nchain, len(base))) * spread, **f32)
+        t0 = time.perf_counter()
+        T, q, rad, ext, valid = model.diagnostics(params)
+        torch.cuda.synchronize()
+        diag_s = time.perf_counter() - t0
+        band, spec, _ = model(params)
+        if model.config.solution == "transit":
+            rs2 = (model.system.r_star * 100.0) ** 2
+            unfused = transit_depth(ext, rad, model.system.r_star * 100.0)
+            e_out = rel_err(unfused * rs2 - rad[:, -1:] ** 2,
+                            spec * rs2 - rad[:, -1:] ** 2)
+            extra = f", absorbed area {e_out:.3e}"
+            rtol = OUT_RTOL
+        else:
+            unfused = eclipse_flux(tau_vertical(ext, rad), T, model.wn,
+                                   model.mu, model.mu_w)
+            extra, rtol = "", SPEC_RTOL[model._powers]
+        e_spec = rel_err(unfused, spec)
+        e_band = rel_err(band_integrate(model.tables["band_w"], unfused),
+                         band)
+        print(f"# phase 7: {model.config.solution}: unfused diagnostics "
+              f"({nchain} chains, extinction {tuple(ext.shape)} in "
+              f"{diag_s:.3f} s) through the unfused radiative transfer vs "
+              f"the fused forward: spectrum max rel err {e_spec:.3e} "
+              f"(tolerance {rtol:g}), band {e_band:.3e} (tolerance "
+              f"{BAND_RTOL:g}){extra}")
+        check(bool(valid.all()), "invalid diagnostics samples")
+        check(e_spec < rtol, f"unfused vs fused spectrum rel err {e_spec}")
+        check(e_band < BAND_RTOL, f"unfused vs fused band rel err {e_band}")
+        del T, q, rad, ext, unfused
+
+    # (c) madhu_inv + wlike + leastsq, graphed
+    fmr, params = fams["madhu_inv"]
+    truth = demo_params("madhu_inv")
+    clean = fmr(torch.tensor(truth[None], **f32))[0][0].double().cpu().numpy()
+    sw = 0.03 * float(np.mean(clean))
+    data = clean + np.random.default_rng(42).normal(0, sw, clean.shape)
+    space = ParamSpace(pinit=MADHU_START + [1.0, 0.1 * sw, 2.0 * sw],
+                       pmin=MADHU_PMIN + [0.0, 0.0, 0.1 * sw],
+                       pmax=MADHU_PMAX + [3.0, 10.0 * sw, 10.0 * sw],
+                       stepsize=MADHU_STEP + [0.0, 0.1 * sw, 0.1 * sw])
+    like = Likelihood(fmr, space, data, np.full(len(data), sw), wlike=True)
+
+    def chi2(free):
+        """The pre-fit's objective, sum ((model - data) / uncert)^2."""
+        _, m = like(torch.as_tensor(free[None], dtype=torch.float64,
+                                    device=dev))
+        return float((((m - like.data) / like.uncert) ** 2).sum())
+
+    t0 = time.perf_counter()
+    fit = least_squares_prefit(like, space)
+    prefit_s = time.perf_counter() - t0
+    c_fit, c_init = chi2(fit), chi2(space.free_init)
+    print(f"# phase 7: madhu_inv + wlike: least-squares pre-fit in "
+          f"{prefit_s:.2f} s: chi2 {c_init:.3f} at the start, {c_fit:.3f} at "
+          f"the fit {np.array2string(fit[:7], precision=4)} (truth "
+          f"{np.array2string(truth, precision=4)})")
+    check(c_fit <= c_init, f"pre-fit chi2 {c_fit} above the start's {c_init}")
+    t0 = time.perf_counter()
+    res = run_mcmc(like, space, nchains=nchain, numit=nchain * WLIKE_STEPS,
+                   burnin=10, block=10, seed=7, verbose=False, leastsq=True)
+    torch.cuda.synchronize()
+    mcmc_s = time.perf_counter() - t0
+    print(f"# phase 7: madhu_inv + wlike + leastsq: snooker {nchain} chains "
+          f"x {res.niter_total // nchain} graphed steps in {mcmc_s:.2f} s "
+          f"(pre-fit and capture included): best -2 log L "
+          f"{-2 * res.best_loglike:.3f}, accept {res.accept_rate:.3f}")
+    check(np.isfinite(res.best_loglike), "non-finite wlike best loglike")
+    check(res.accept_rate > 0.0, "no accepted wlike proposal")
+    step = step_phase("madhu_inv + wlike", like, space, fmr, params,
+                      [fused.fused_eclipse])
+    print_steps("madhu_inv + wlike", step, smi)
+
+    # (d) diagnostics_batch and contribution functions of the posterior
+    free = torch.as_tensor(res.posterior[:CF_SAMPLES, :, -1],
+                           dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T, q, rad, ext, valid = fmr.diagnostics_batch()(
+        space.expand(free)[:, :-3])
+    torch.cuda.synchronize()
+    diag_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cfs = cf.contribution_functions(ext, rad, T, fmr.pressure, fmr.wn,
+                                    device=dev)
+    cfb = cf.band_average(cfs, inp.wn, inp.filters, device=dev)
+    cf_ms = 1e3 * (time.perf_counter() - t0)
+    peak = inp.pressure[np.argmax(cfb.mean(0), axis=0)]
+    print(f"# phase 7 ({smi}): diagnostics_batch of {free.shape[0]} "
+          f"posterior samples {diag_ms:.1f} ms (extinction "
+          f"{tuple(ext.shape)}, {int(valid.sum())} valid), contribution "
+          f"functions and band average {cf_ms:.1f} ms (host copies "
+          f"included): cf {cfs.shape}, band-averaged {cfb.shape}, the mean "
+          f"contribution peaks at {np.array2string(peak, precision=3)} bar "
+          f"per filter")
+    check(bool(np.isfinite(cfs).all() & np.isfinite(cfb).all()),
+          "non-finite contribution functions")
+    check(bool((cfs >= 0).all()), "negative contribution functions")
+    check(cfb.shape == (free.shape[0], len(inp.pressure), 10),
+          f"band-averaged cf shape {cfb.shape}")
+    del T, q, rad, ext, cfs
+
+    launches = {k.__name__: k.launches for k in kernels}  # phase 7 ends here
+    print(f"# phase 7: launches counted in Python (eager calls, warm-ups, "
+          f"captures): {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"phase 7 did not launch both kernels: {launches}")
+    return dict(step=step, launches=launches)
 
 
 def truth_phase(like, space, nchain: int) -> None:
@@ -1066,6 +1232,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from bart_tpu_torch.demo import (DEMO_PARAMS, TRUTH, build_demo_model,
                                      demo_inputs, random_rows)
@@ -1235,33 +1402,15 @@ def main() -> int:
     p_ms = cuda_ms(lambda: fused.eclipse_plain(
         tab, t["wn"], mu, muw, wrows, T_safe, drp, fm._powers), 5)
     fwd_ms, fwd_rounds = serialized_ms(lambda p: forward(p)[0], params, 20)
-    zero_spec = torch.zeros_like(spec)
-
-    def no_kernel(p):
-        # the forward's own work around the kernel: profiles, rows, the
-        # layer steps and the band integration
-        Ts, qq, rr, _ = fm._profiles(p, t)
-        _, wr = fm._fused_rows(p, t, Ts, qq, rr)
-        d = rr[:, :-1] - rr[:, 1:]
-        d = torch.cat([torch.zeros_like(d[:, :1]), d], dim=1)
-        return band_integrate(t["band_w"],
-                              zero_spec + 0.0 * (wr.sum() + d.sum()))
-
-    rest_ms, rest_rounds = serialized_ms(no_kernel, params, 20)
     print(f"# phase 5 ({smi.strip()}): per {nchain}-chain batch: kernel "
           f"{k_ms:.3f} ms, eclipse_plain {p_ms:.3f} ms, forward "
-          f"{fwd_ms:.3f} ms (rounds {', '.join(f'{x:.2f}' for x in fwd_rounds)}),"
-          f" forward less the kernel {rest_ms:.3f} ms (rounds "
-          f"{', '.join(f'{x:.2f}' for x in rest_rounds)})")
+          f"{fwd_ms:.3f} ms (rounds {', '.join(f'{x:.2f}' for x in fwd_rounds)})")
     print_steps("eclipse", estep, smi.strip())
-    tk_ms, tp_ms, (tf_ms, tf_rounds), (tr_ms, tr_rounds) = transit_times(
-        fused, tpath)
+    tk_ms, tp_ms, (tf_ms, tf_rounds) = transit_times(fused, tpath)
     print(f"# phase 5 ({smi.strip()}): per {nchain}-chain batch: transit "
           f"kernel {tk_ms:.3f} ms, transit_plain {tp_ms:.3f} ms, transit "
           f"forward {tf_ms:.3f} ms (rounds "
-          f"{', '.join(f'{x:.2f}' for x in tf_rounds)}), forward less the "
-          f"kernel {tr_ms:.3f} ms (rounds "
-          f"{', '.join(f'{x:.2f}' for x in tr_rounds)})")
+          f"{', '.join(f'{x:.2f}' for x in tf_rounds)})")
     print_steps("transit", tpath["step"], smi.strip())
 
     ft_ = {name: folded_times(fused, path)
@@ -1273,10 +1422,12 @@ def main() -> int:
               f"{tabk.K}, its plain version {x['p_ms']:.3f} ms, the K = 1 "
               f"kernel on the smooth bins {x['k1_ms']:.3f} ms, forward "
               f"{x['fwd'][0]:.3f} ms (rounds "
-              f"{', '.join(f'{v:.2f}' for v in x['fwd'][1])}), forward less "
-              f"the kernels {x['rest'][0]:.3f} ms (rounds "
-              f"{', '.join(f'{v:.2f}' for v in x['rest'][1])})")
+              f"{', '.join(f'{v:.2f}' for v in x['fwd'][1])})")
         print_steps(f"folded {name}", path["step"], smi.strip())
+
+    # --- phase 7: every PT family, diagnostics, wlike, leastsq, cf ----
+    surface = model_surface_phase(fused, fm, tpath["fm"], inp_full, nchain,
+                                  f32, smi.strip())
 
     # --- phase 6 (--trace): where the forwards' wall time goes ---------
     if "--trace" in sys.argv[1:]:
@@ -1350,11 +1501,16 @@ def main() -> int:
 
     steps = {"eclipse": estep, "transit": tpath["step"],
              "folded_eclipse": fpath["step"],
-             "folded_transit": ftpath["step"]}
-    python = {"fused_eclipse": launches + fpath["launches"][1],
-              "fused_transit": tpath["launches"] + ftpath["launches"][1],
+             "folded_transit": ftpath["step"],
+             "madhu_inv_wlike": surface["step"]}
+    python = {"fused_eclipse": launches + fpath["launches"][1]
+              + surface["launches"]["fused_eclipse"],
+              "fused_transit": tpath["launches"] + ftpath["launches"][1]
+              + surface["launches"]["fused_transit"],
               "fused_eclipse_folded": fpath["launches"][0],
               "fused_transit_folded": ftpath["launches"][0]}
+    print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+          "start to the records")
     print(json.dumps({"kernels": [
         record("fused_eclipse", KERNEL_REPLACES, max_abs, k_ms, p_ms,
                e_bound, e_tensor),

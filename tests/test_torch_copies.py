@@ -19,6 +19,7 @@ import bart_tpu.io.tep as jtep
 import bart_tpu.linelist.hitran as jhitran
 import bart_tpu.linelist.molecules as jmol
 import bart_tpu.linelist.tli as jtli
+import bart_tpu.post.bestfit as jbestfit
 import bart_tpu.utils.grids as jgrids
 
 import bart_tpu_torch.constants as const
@@ -29,6 +30,7 @@ import bart_tpu_torch.io.tep as tep
 import bart_tpu_torch.linelist.hitran as hitran
 import bart_tpu_torch.linelist.molecules as mol
 import bart_tpu_torch.linelist.tli as tli
+import bart_tpu_torch.post.bestfit as bestfit
 import bart_tpu_torch.utils.grids as grids
 
 PORT = Path(const.__file__).resolve().parent
@@ -144,6 +146,37 @@ def _sample_stores(tmp_path):
                 (tmp_path / "store1.dat").read_bytes()
 
 
+def _read_mcmc_log():
+    """Both readers on the port's own MCMC.log: its best fit, to the
+    printed precision (8 significant digits)."""
+    import torch
+
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+
+    space = ParamSpace([0.0, 0.0, 2.0], [-5, -5, 0], [5, 5, 4],
+                       [0.1, 0.1, 0.0], pnames=["a", "b", "c"])
+
+    def fwd(p):
+        return p, p, torch.ones(p.shape[0], dtype=torch.bool)
+
+    like = Likelihood(fwd, space, np.array([1.0, -1.0, 2.0]),
+                      np.full(3, 0.3), device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        log = str(Path(tmp) / "MCMC.log")
+        res = retrieval.run_mcmc(like, space, nchains=4, numit=400,
+                                 burnin=20, block=20, seed=2, verbose=False,
+                                 logfile=log)
+        got, ref = bestfit.read_mcmc_log(log), jbestfit.read_mcmc_log(log)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+        assert got[0].shape == (2,)
+        np.testing.assert_allclose(got[0], res.bestp, rtol=1e-7)
+        assert np.all(got[1] > 0)
+        Path(log).write_text("no block\n")
+        with pytest.raises(ValueError, match="Best-fit"):
+            bestfit.read_mcmc_log(log)
+
+
 COPIES = {
     "constants": _constants,
     "molecules": _molecules,
@@ -154,6 +187,7 @@ COPIES = {
     "planet_system": _planet_system,
     "convergence_diagnostics": _convergence_diagnostics,
     "sample_store": _sample_store,
+    "read_mcmc_log": _read_mcmc_log,
 }
 
 

@@ -143,9 +143,6 @@ def test_forward_views_match_bart_tpu(demo, name):
 
 
 @pytest.mark.parametrize("cfg,kw", [
-    ({"pt_type": "iso"}, {}),
-    ({"pt_type": "madhu_noinv"}, {}),
-    ({"pt_type": "madhu_inv"}, {}),
     ({}, {"opacity": {}}),               # on-the-fly line tiles
     ({"solution": "transit"}, {"opacity": {}}),
 ])
@@ -212,12 +209,6 @@ def test_likelihood_chisq_matches_bart_tpu(demo):
     ref = [float(lj.chisq(jnp.asarray(f))) for f in free]
     assert got.shape == (3,)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9)
-
-
-def test_likelihood_wlike_raises(demo):
-    sp_t, _ = _spaces()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Likelihood(None, sp_t, np.ones(3), np.ones(3), wlike=True)
 
 
 # ---------------------------------------------------------------------

@@ -111,15 +111,19 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "ForwardModel", "build_demo_model", "build_opacity_grid", "load_grid",
-    "build_band_matrix", "tile_lines_bucketed", "load_checkpoint"])
+    "build_band_matrix", "tile_lines_bucketed", "load_checkpoint",
+    "Likelihood", "contribution_functions", "transmittance",
+    "band_average"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without ``device=`` and without a card, every entry point
     that creates tensors raises: none falls back to the CPU."""
     import numpy as np
 
     from bart_tpu_torch.demo import build_demo_model, demo_inputs
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
     from bart_tpu_torch.inference.retrieval import (load_checkpoint,
                                                     save_checkpoint)
+    from bart_tpu_torch.post import cf
     from bart_tpu_torch.inference.samplers import SamplerState
     from bart_tpu_torch.obs.bands import BandMatrix, build_band_matrix
     from bart_tpu_torch.opacity.extinction import tile_lines_bucketed
@@ -151,6 +155,17 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "tile_lines_bucketed": lambda: tile_lines_bucketed(
             inp.lines, inp.wn, 25.0),
         "load_checkpoint": lambda: load_checkpoint(ckpt),
+        # a plain callable forward has no device of its own
+        "Likelihood": lambda: Likelihood(
+            lambda p: (p, p, p[:, 0] > 0), ParamSpace([0.0], [-1], [1], [1]),
+            np.zeros(1), np.ones(1)),
+        "contribution_functions": lambda: cf.contribution_functions(
+            np.ones((4, 32)), np.linspace(2e9, 1e9, 4), np.full(4, 1e3),
+            inp.pressure, inp.wn),
+        "transmittance": lambda: cf.transmittance(
+            np.ones((4, 32)), np.linspace(2e9, 1e9, 4)),
+        "band_average": lambda: cf.band_average(
+            np.ones((4, 32)), np.linspace(2500.0, 5000.0, 32), inp.filters),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
@@ -174,7 +189,8 @@ def test_graphs_and_run_mcmc_import_and_run_without_jax(tmp_path):
         torch.set_num_threads(2)
         space = ParamSpace([0.0, 0.0], [-5, -5], [5, 5], [0.1, 0.1])
         fwd = lambda p: (p, p, torch.ones(p.shape[0], dtype=torch.bool))
-        like = Likelihood(fwd, space, np.array([1.0, -1.0]), np.ones(2))
+        like = Likelihood(fwd, space, np.array([1.0, -1.0]), np.ones(2),
+                          device="cpu")
         out = {str(tmp_path)!r}
         for walk in ("snooker", "demc", "mrw", "unif"):
             kw = dict(nchains=4, burnin=10, walk=walk, block=10,
@@ -185,6 +201,63 @@ def test_graphs_and_run_mcmc_import_and_run_without_jax(tmp_path):
             res = run_mcmc(like, space, numit=400, resume=True, **kw)
             assert res.posterior.shape == (4, 2, 90)
             assert res.models.shape == (4, 2, 100)
+        print("ok")
+    """)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_model_and_inference_surface_runs_without_jax(tmp_path):
+    """Every PT family, diagnostics, spectrum_from_profiles, the
+    contribution functions, the wavelet likelihood, the least-squares
+    pre-fit and read_mcmc_log, with jax and bart_tpu blocked, at a tiny
+    size on the CPU."""
+    proc = _run(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["bart_tpu"] = None
+        import numpy as np, torch
+        from bart_tpu_torch.demo import (PT_PARAMS, build_demo_model,
+                                         demo_inputs, demo_params)
+        from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+        from bart_tpu_torch.inference.retrieval import run_mcmc
+        from bart_tpu_torch.post import cf
+        from bart_tpu_torch.post.bestfit import read_mcmc_log
+        torch.set_num_threads(2)
+        inp = demo_inputs(nlayer=6, nwave=64, nlines=40, t_step=1300.0)
+        grid = build_demo_model(inp, dtype=torch.float64, budget_bytes=1e7,
+                                device="cpu").opacity
+        for family in PT_PARAMS:
+            fm = build_demo_model(inp, dtype=torch.float64, grid=grid,
+                                  pt_type=family, device="cpu")
+            band, spec, valid = fm(torch.tensor(demo_params(family)[None]))
+            assert bool(valid.all()) and bool(torch.isfinite(band).all())
+        T, q, rad, ext, valid = fm.diagnostics_batch()(
+            torch.tensor(demo_params("piette")[None]))
+        assert ext.shape == (1, 6, 64) and bool(valid.all())
+        spec2 = fm.spectrum_from_profiles(T, q, rad)
+        assert torch.allclose(spec2, spec, rtol=1e-10)
+        c = cf.contribution_functions(ext, rad, T, inp.pressure, inp.wn,
+                                      device="cpu")
+        assert isinstance(c, np.ndarray) and np.all(c >= 0)
+        assert cf.band_average(c, inp.wn, inp.filters,
+                               device="cpu").shape == (1, 6, 10)
+        assert cf.transmittance(ext, rad, device="cpu").shape == (1, 6, 64)
+        pinit = np.concatenate([demo_params("iso"), [1.0, 1e-5, 2e-5]])
+        space = ParamSpace(pinit, [400, -9, 0, 0, 1e-7],
+                           [3000, 1.5, 3, 1e-3, 1e-3],
+                           [10.0, 0.1, 0.0, 1e-6, 1e-6])
+        fm = build_demo_model(inp, dtype=torch.float64, grid=grid,
+                              pt_type="iso", device="cpu")
+        data = fm(torch.tensor(demo_params("iso")[None]))[0][0].numpy()
+        like = Likelihood(fm, space, data, np.full(10, 2e-5), wlike=True)
+        log = {str(tmp_path)!r} + "/MCMC.log"
+        res = run_mcmc(like, space, nchains=6, numit=120, burnin=0,
+                       block=10, verbose=False, leastsq=True, logfile=log)
+        assert np.isfinite(res.best_loglike)
+        np.testing.assert_allclose(read_mcmc_log(log)[0], res.bestp,
+                                   rtol=1e-7)
+        assert not any(k == "jax" or k.startswith("jax.")
+                       for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

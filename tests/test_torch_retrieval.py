@@ -39,7 +39,8 @@ def _problem(npar=2, uncert=0.3, **space):
               stepsize=[0.1] * npar, **space)
     data = np.array([1.0, -1.0])[:npar]
     unc = np.full(npar, uncert)
-    return (Likelihood(_identity, ParamSpace(**kw), data, unc),
+    return (Likelihood(_identity, ParamSpace(**kw), data, unc,
+                       device="cpu"),
             ParamSpace(**kw))
 
 
@@ -165,7 +166,8 @@ def test_chisqscale_matches_bart_tpu():
         m = p[0] + p[1] * jnp.asarray(x)
         return m, m, jnp.asarray(True)
 
-    like = Likelihood(fwd, ParamSpace(**kw), y, np.full(7, 0.01))
+    like = Likelihood(fwd, ParamSpace(**kw), y, np.full(7, 0.01),
+                      device="cpu")
     jl = jlike.Likelihood(jfwd, jlike.ParamSpace(**kw), y, np.full(7, 0.01))
     run = dict(nchains=4, numit=400, burnin=0, block=100, verbose=False,
                grtest=False, chisqscale=True)
@@ -195,7 +197,8 @@ def test_gamma_adaptation_gated_as_bart_tpu(walk):
     data, unc = np.zeros(2), np.ones(2)
     run = dict(nchains=8, numit=3200, burnin=400, walk=walk, seed=3,
                block=50, verbose=False, grtest=False)
-    got = run_mcmc(Likelihood(_flat, ParamSpace(**kw), data, unc),
+    got = run_mcmc(Likelihood(_flat, ParamSpace(**kw), data, unc,
+                              device="cpu"),
                    ParamSpace(**kw), **run)
     ref = jret.run_mcmc(jlike.Likelihood(_jflat, jlike.ParamSpace(**kw),
                                          data, unc),
@@ -226,7 +229,8 @@ def test_stepsize_handed_to_the_sampler_as_bart_tpu(monkeypatch):
                verbose=False, grtest=False)
     fwd = lambda p: (p, p, torch.ones(p.shape[0], dtype=torch.bool))
     jfwd = lambda p: (p, p, jnp.asarray(True))
-    run_mcmc(Likelihood(fwd, ParamSpace(**kw), np.zeros(3), np.ones(3)),
+    run_mcmc(Likelihood(fwd, ParamSpace(**kw), np.zeros(3), np.ones(3),
+                        device="cpu"),
              ParamSpace(**kw), **run)
     jret.run_mcmc(jlike.Likelihood(jfwd, jlike.ParamSpace(**kw), np.zeros(3),
                                    np.ones(3)), jlike.ParamSpace(**kw), **run)
@@ -235,11 +239,97 @@ def test_stepsize_handed_to_the_sampler_as_bart_tpu(monkeypatch):
     np.testing.assert_array_equal(seen["port"]["stepsize"], [0.2, 0.05])
 
 
-def test_leastsq_raises():
-    like, space = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_mcmc(like, space, numit=400, nchains=4, leastsq=True,
-                 verbose=False)
+# ---------------------------------------------------------------------
+# the least-squares pre-fit
+
+X = np.linspace(0.0, 1.0, 25)
+#: an absorption line: continuum, depth, centre, width
+LINE_TRUTH = np.array([1.0, 0.4, 0.55, 0.12])
+LINE_SPACE = dict(pinit=[0.9, 0.2, 0.45, 0.2], pmin=[0.0, 0.0, 0.0, 0.01],
+                  pmax=[2.0, 1.0, 1.0, 0.5], stepsize=[0.01] * 4)
+
+
+def _absorption(p):
+    m = p[:, :1] - p[:, 1:2] * torch.exp(
+        -((torch.tensor(X, dtype=p.dtype) - p[:, 2:3]) / p[:, 3:4]) ** 2)
+    return m, m, torch.ones(p.shape[0], dtype=torch.bool)
+
+
+def _jabsorption(p):
+    m = p[0] - p[1] * jnp.exp(-((jnp.asarray(X) - p[2]) / p[3]) ** 2)
+    return m, m, jnp.asarray(True)
+
+
+def _line_problem(space=LINE_SPACE):
+    y = _absorption(torch.tensor(LINE_TRUTH[None]))[0][0].numpy()
+    y = y + np.random.default_rng(5).normal(0, 0.01, len(X))
+    unc = np.full(len(X), 0.01)
+    return (Likelihood(_absorption, ParamSpace(**space), y, unc,
+                       device="cpu"),
+            jlike.Likelihood(_jabsorption, jlike.ParamSpace(**space), y, unc))
+
+
+def test_least_squares_prefit_matches_bart_tpu():
+    like, jl = _line_problem()
+    fit = ret.least_squares_prefit(like, like.space)
+    ref = jret.least_squares_prefit(jl, jl.space)
+    np.testing.assert_allclose(fit, ref, rtol=1e-6)
+    np.testing.assert_allclose(fit, LINE_TRUTH, atol=0.05)
+    chi2 = like.chisq(torch.tensor(np.stack([fit, like.space.free_init])))
+    assert chi2[0] < 0.2 * chi2[1]
+
+
+def test_least_squares_prefit_keeps_fixed_and_float32_precision():
+    """Fixed parameters stay out of the fit; a float32 forward hands
+    scipy float32 residuals, so its difference step is float32's (the
+    fit converges where float64's step would only see rounding)."""
+    space = dict(LINE_SPACE, stepsize=[0.01, 0.01, 0.0, 0.01])
+    like, jl = _line_problem(space)
+    fit = ret.least_squares_prefit(like, like.space)
+    assert fit.shape == (3,)
+    np.testing.assert_allclose(fit, jret.least_squares_prefit(jl, jl.space),
+                               rtol=1e-6)
+
+    def f32(p):
+        return tuple(x.float() if x.is_floating_point() else x
+                     for x in _absorption(p))
+
+    like32 = Likelihood(f32, like.space, like.data.numpy(),
+                        like.uncert.numpy(), device="cpu")
+    np.testing.assert_allclose(ret.least_squares_prefit(like32, like.space),
+                               fit, rtol=1e-3)
+
+
+@pytest.mark.parametrize("walk", ["snooker", "demc"])
+def test_leastsq_starts_equal_bart_tpu(monkeypatch, walk):
+    """run_mcmc(leastsq=True) starts its chains around the pre-fit with
+    bart_tpu's jitter (numpy's generator of the seed): the same starting
+    chains as bart_tpu's."""
+    starts = {}
+
+    def spy(module, key):
+        real = module.EnsembleSampler
+
+        class Spy(real):
+            def init_state(self, gen, init_positions=None, **kw):
+                starts[key] = np.asarray(init_positions)
+                return super().init_state(gen, init_positions, **kw)
+
+        monkeypatch.setattr(module, "EnsembleSampler", Spy)
+
+    spy(ret, "port")
+    spy(jret, "jax")
+    like, jl = _line_problem()
+    run = dict(nchains=6, numit=600, burnin=0, walk=walk, seed=9, block=50,
+               verbose=False, grtest=False, leastsq=True)
+    res = run_mcmc(like, like.space, **run)
+    jret.run_mcmc(jl, jl.space, **run)
+    assert starts["port"].shape == (6, 4)
+    np.testing.assert_allclose(starts["port"], starts["jax"], rtol=1e-6)
+    assert np.all(starts["port"] >= like.space.free_min)
+    assert np.all(starts["port"] <= like.space.free_max)
+    assert np.isfinite(res.best_loglike)
+    np.testing.assert_allclose(res.bestp, LINE_TRUTH, atol=0.05)
 
 
 @pytest.mark.slow

@@ -149,11 +149,6 @@ def test_pt_exp1_matches_scipy():
                                rtol=1e-12)
 
 
-def test_pt_other_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_generator(t64(np.ones(3)), t64(np.ones((2, 1))), "iso")
-
-
 @pytest.mark.parametrize("p0", [0.1, 3e-5, 1e-6, 200.0])
 def test_radius_profile_matches_vmap(p0):
     """Four chains against a jax.vmap of bart_tpu's radius_profile; p0
