@@ -37,13 +37,14 @@ from bart_tpu_torch.opacity.cia import CiaTable, read_cia
 __all__ = ["DemoInputs", "demo_inputs", "build_demo_model", "random_rows",
            "random_transit_rows", "fine_structure", "DEMO_PARAMS", "TRUTH",
            "DEMO_PARAMS_TRANSIT", "TRUTH_TRANSIT", "TRANSIT_BOUNDS",
-           "PT_PARAMS", "demo_params"]
+           "PT_PARAMS", "demo_params", "SYSTEM", "demo_filters"]
 
 _CIA_FILE = (Path(__file__).resolve().parents[1] / "examples" / "demo_inputs"
              / "CIA_H2H2_demo.dat")
-_SYSTEM = PlanetSystem(6075.0, 7.97e8, 4.37, 7.05e9, 9.44e7, 1.32e27)
+#: the demo's synthetic planet system (SI; examples/torch_demo/system.tep)
+SYSTEM = PlanetSystem(6075.0, 7.97e8, 4.37, 7.05e9, 9.44e7, 1.32e27)
 #: the demo planet's radius [km], the transit radius parameter's value
-R0_KM = _SYSTEM.r_planet / 1000.0
+R0_KM = SYSTEM.r_planet / 1000.0
 
 #: demo cfg parameters [log kappa, log g1, log g2, alpha, beta, log CH4]
 DEMO_PARAMS = np.array([-2.0, 0.0, 1.0, 0.0, 0.98, -0.5])
@@ -101,14 +102,19 @@ class DemoInputs:
         return dict(solution="transit", pt_type="line", molfit=("CH4",))
 
 
+def demo_filters() -> list[tuple[np.ndarray, np.ndarray]]:
+    """The ten top-hat filters, 120 cm-1 wide, centred from 2600 to 4900
+    cm-1: (wn [cm-1], response) pairs (examples/torch_demo/filters)."""
+    centers = np.linspace(2600.0, 4900.0, 10)
+    return [(np.linspace(c - 60, c + 60, 50), np.ones(50)) for c in centers]
+
+
 def demo_inputs(nlayer: int = 100, nwave: int = 2501, nlines: int = 30000,
                 t_step: float = 100.0) -> DemoInputs:
     """The demo problem's inputs at a given size (defaults: full width).
     ``t_step`` coarsens the T grid for small test problems."""
-    system = _SYSTEM
-    centers = np.linspace(2600.0, 4900.0, 10)
-    filters = [(np.linspace(c - 60, c + 60, 50), np.ones(50))
-               for c in centers]
+    system = SYSTEM
+    filters = demo_filters()
     wn = np.linspace(2500.0, 5000.0, nwave)
     starfl, _ = blackbody_star(wn, system.t_star)
     return DemoInputs(

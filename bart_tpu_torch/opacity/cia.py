@@ -3,9 +3,10 @@
 Bilinear interpolation of tabulated CIA opacity in (T, wavenumber),
 scaled by the number densities of the two colliding species, in amagat.
 
-The reader is host numpy, copied rather than imported: bart_tpu's module
-imports jax at top level.  File format, the Borysow/transit-style grid
-table:
+The readers are host numpy, copied rather than imported: bart_tpu's
+module imports jax at top level.  ``read_cia`` reads the
+Borysow/transit-style grid table (``read_cia_hitran`` the HITRAN-format
+per-temperature blocks):
 
     # comment lines
     i <species1> <species2>
@@ -25,8 +26,8 @@ import torch
 
 from bart_tpu_torch.utils.interp import interp
 
-__all__ = ["CiaTable", "read_cia", "cia_extinction", "cia_weights",
-           "LOSCHMIDT"]
+__all__ = ["CiaTable", "read_cia", "read_cia_hitran", "cia_extinction",
+           "cia_weights", "LOSCHMIDT"]
 
 # Loschmidt number: molecules cm-3 at 1 amagat
 LOSCHMIDT = 2.6867811e19
@@ -61,6 +62,38 @@ def read_cia(path: str) -> CiaTable:
         raise ValueError(f"{path}: not a CIA grid table")
     data = np.asarray(rows)
     return CiaTable(species, temps, data[:, 0], data[:, 1:].T.copy())
+
+
+def read_cia_hitran(path: str) -> CiaTable:
+    """Read a HITRAN-format CIA file (repeated per-temperature blocks:
+    header line with species pair, range, npts, T; then wn/alpha rows in
+    cm^5 molecule-2 — converted to cm-1 amagat-2)."""
+    blocks = []
+    with open(path) as f:
+        lines = f.readlines()
+    i = 0
+    species = ("H2", "H2")
+    while i < len(lines):
+        s = lines[i].strip()
+        if not s:
+            i += 1
+            continue
+        head = s.split()
+        pair = head[0]
+        if "-" in pair:
+            species = tuple(pair.split("-")[:2])
+        npts = int(head[3])
+        temp = float(head[4])
+        rows = np.array(
+            [[float(x) for x in lines[i + 1 + k].split()[:2]] for k in range(npts)]
+        )
+        blocks.append((temp, rows[:, 0], rows[:, 1]))
+        i += 1 + npts
+    temps = np.array([b[0] for b in blocks])
+    order = np.argsort(temps)
+    wn = blocks[0][1]
+    absorption = np.stack([blocks[k][2] for k in order]) * LOSCHMIDT**2
+    return CiaTable(species, temps[order], wn, absorption)
 
 
 def _bracket(temps: torch.Tensor, T: torch.Tensor):

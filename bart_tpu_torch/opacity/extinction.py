@@ -76,6 +76,22 @@ class BroadeningSpec:
                     * (TREF / T)[:, None, None] ** lines.n_air[None])
         raise ValueError(f"unknown broadening mode {self.mode!r}")
 
+    @classmethod
+    def from_abundances(cls, species, abundances, mode: str = "collision"
+                        ) -> "BroadeningSpec":
+        """Collision-broadening bath from the baseline atmosphere's own
+        H2/He mixing ratios (the reference reads these columns from the
+        atm file: code/BARTfunc.py:189-201).  Mean over layers; falls back
+        to the 0.85/0.15 defaults when either collider is absent."""
+        sp = list(species)
+        q = np.asarray(abundances, np.float64)
+        if "H2" in sp and "He" in sp:
+            qh2 = float(np.mean(q[:, sp.index("H2")]))
+            qhe = float(np.mean(q[:, sp.index("He")]))
+            if qh2 > 0.0 or qhe > 0.0:
+                return cls(mode=mode, q_h2=qh2, q_he=qhe)
+        return cls(mode=mode)
+
 
 @dataclasses.dataclass
 class LineTiles:

@@ -95,6 +95,7 @@ def build_opacity_grid(
     tile_size: int = 256,
     q_tables: dict | None = None,
     budget_bytes: float = 2e9,
+    osamp: int = 1,
     *,
     device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
@@ -107,7 +108,8 @@ def build_opacity_grid(
     bucket too deep for even one condition is split along the line
     axis and the partial sigmas summed (cross-sections add over lines).
     ``dtype`` is the compute dtype; the table is accumulated and
-    stored in float32.
+    stored in float32.  Only ``osamp`` = 1 is ported: any other value
+    raises cross_section_tiles' NotImplementedError.
     """
     spec = spec or BroadeningSpec()
     device = resolve_device(device)
@@ -158,7 +160,8 @@ def build_opacity_grid(
                 for c0 in range(0, ncond, cb):
                     sig = cross_section_tiles(
                         seg, conds_T[c0:c0 + cb], conds_p[c0:c0 + cb], spec,
-                        nwidth=nwidth, q_table=q_table, wndelt=wndelt,
+                        nwidth=nwidth, q_table=q_table, osamp=osamp,
+                        wndelt=wndelt,
                     ).to(torch.float32)                     # [cb, nt_b, W]
                     out[c0:c0 + cb, cols] += sig.reshape(sig.shape[0], -1)
         sigma[im] = out[:, :nW]

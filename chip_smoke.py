@@ -52,14 +52,24 @@ smooth bins.  Phases:
      least-squares pre-fit (leastsq), with phase 4b on its step; then
      ``diagnostics_batch`` and the band-averaged contribution functions
      of 300 posterior samples
-  6. with ``--trace`` only (after phase 7): a torch.profiler trace of a
+  8. the port's CLI (``python3 -m bart_tpu_torch -c cfg``) on the cfgs of
+     examples/torch_demo at full width: ``--validate`` on each and
+     ``--justTEA`` (equilibrium chemistry) in subprocesses; then
+     ``driver.cli.main`` in this process on eclipse.cfg, a graphed
+     512-chain retrieval (25,000 steps) that must recover the cfg's
+     truth (phase 4c's criteria) with fused_eclipse launched,
+     ``--justSpectrum`` on its directory (no second build; against the
+     forward at the cfg's parameters), and a short 512-chain transit.cfg
+     retrieval with fused_transit launched; each run's stage seconds
+  6. with ``--trace`` only (after phase 8): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
      time and the five stages of the forward during which the device
      idled longest (a graph replay runs no stage)
 
-Each path's launch counts are zeroed just before its phase 3 (phase 7:
-just before it) and read just after its phase 4 (phase 7: at its end): the wrappers count in Python, so they see the
+Each path's launch counts are zeroed just before its phase 3 (phases 7
+and each CLI run of 8: just before it) and read just after its phase 4
+(phases 7 and 8: at its end): the wrappers count in Python, so they see the
 eager launches and each graph capture, never a replay.  The kernels'
 ``launches`` are counted on the device instead: each path's kernels in
 the trace of its replayed block (phase 4b).  Any failed check raises and
@@ -70,6 +80,7 @@ and the result JSON.
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # phases 0-2, then the kernels' times
     python3 chip_smoke.py --trace     # all phases, then phase 6
+    python3 chip_smoke.py --cli       # phases 0-1, then phase 8
 """
 
 from __future__ import annotations
@@ -153,6 +164,23 @@ MADHU_STEP = [0.01, 0.01, 1e-4, 0.01, 0.1, 10.0, 0.1]
 MADHU_START = [0.45, 0.22, 0.006, 0.12, 2.5, 1550.0, -0.3]
 #: steps of phase 7's retrieval and posterior samples of its diagnostics
 WLIKE_STEPS, CF_SAMPLES = 30, 300
+#: phase 8: the CLI demo's cfgs, the chains of its retrievals and the
+#: steps a chain of the transit one (one block of run_mcmc's 100)
+CLI_CFGS = ("eclipse", "transit", "eclipse_tea", "eclipse_fold")
+CLI_CHAINS, CLI_TRANSIT_STEPS = 512, 100
+#: phase 8's eclipse retrieval: steps a chain and burn-in.  Phase 4c's
+#: 10,000 and 5,000 held three criteria on this cfg's data (another line
+#: list than demo.py's) but left split-R-hat at 1.63 (float32 or float64
+#: sampler state, block 100 or 250, seed 0 or 7 alike: acceptance 3.5%,
+#: two plateau directions; examples/torch_demo/mixing_check.py); 25,000
+#: and 10,000 gave 1.10-1.25 (H100).
+#: The cfg's grtest ranks the whole kept posterior on the host every 10
+#: blocks (~60 s of such a run): off here, split-R-hat is computed once.
+CLI_STEPS, CLI_BURNIN = 25000, 10000
+#: --justSpectrum against the forward at the cfg's parameters with the
+#: molfit factor at 0 (tests/test_pipeline.py:226-227): the atm file's
+#: radii and T carry 3 and 2 decimals
+CLI_SPEC_RTOL = 5e-3
 
 
 def bound(fmas: float, exps: float, nbytes: float) -> tuple[float, str, str]:
@@ -1226,6 +1254,218 @@ def trace_forwards(paths: dict, smi: str, nfwd: int = 5) -> None:
         fwd_mod.ForwardModel._fused_rows = saved_rows
 
 
+def cli_run(argv: list[str], kernels) -> dict:
+    """driver.cli.main(argv) in this process with the kernels' Python
+    counts zeroed just before and read just after; exit code 0 or
+    raise.  Returns the counts and the stages' seconds from the run's
+    stage_timing.jsonl."""
+    import torch
+
+    from bart_tpu_torch.driver import cli
+
+    loc = argv[argv.index("--loc_dir") + 1]
+    tlog = os.path.join(loc, "stage_timing.jsonl")
+    if os.path.isfile(tlog):
+        os.remove(tlog)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    check(rc == 0, f"cli.main({argv}) returned {rc}")
+    with open(tlog) as f:
+        stages = [json.loads(line) for line in f]
+    return dict(counts=counts, seconds=took,
+                stages={r["stage"]: r["wall_s"] for r in stages})
+
+
+def cli_phase(fused, smi: str) -> dict:
+    """Phase 8: the port's CLI, ``python3 -m bart_tpu_torch -c cfg``, on
+    the cfgs of examples/torch_demo at full width (100 layers x 2501 wn x
+    30,000 lines x 27 T-nodes, + 14 CIA T-nodes in transit).
+
+    (a) subprocesses: ``--validate`` on each cfg exits 0; ``--justTEA`` on
+    eclipse_tea.cfg exits 0 and writes an atm whose q sums to 1 per layer
+    to the file's 5 digits with H2 above 0.5; the same stage in this
+    process sums to 1 at 1e-8 and matches the file.
+    (b) ``driver.cli.main`` on eclipse.cfg: 512 chains x CLI_STEPS graphed
+    steps (burn-in CLI_BURNIN), no plots, no running convergence test;
+    fused_eclipse launched; the posterior recovers the cfg's truth by
+    tests/test_end_to_end.py:71-87's four criteria.  Then
+    ``--justSpectrum`` on the same directory reuses the atm and opacity
+    files (no second build) and its spectrum matches the forward at the
+    cfg's parameters with the molfit factor at 0.
+    (c) ``driver.cli.main`` on transit.cfg: 512 chains x 100 steps;
+    fused_transit launched, output.npy finite, MCMC.log written."""
+    import shutil
+
+    import torch
+
+    from bart_tpu_torch.demo import TRUTH
+    from bart_tpu_torch.driver.config import load_config, load_data_array
+    from bart_tpu_torch.driver.pipeline import Pipeline
+    from bart_tpu_torch.inference.gr import split_rhat_rank
+    from bart_tpu_torch.inference.likelihood import ParamSpace
+    from bart_tpu_torch.io.atm import read_atm
+    from bart_tpu_torch.io.spectrum import read_spectrum
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    demo = os.path.join(root, "examples", "torch_demo")
+    work = os.path.join(root, "build", "phase8")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    kernels = (fused.fused_eclipse, fused.fused_transit)
+    out = {}
+
+    # (a) subprocesses
+    env = {**os.environ, "PYTHONPATH": root}
+    for name in CLI_CFGS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bart_tpu_torch", "-c",
+             os.path.join(demo, f"{name}.cfg"), "--validate"],
+            cwd=work, env=env, capture_output=True, text=True, timeout=300)
+        print(f"# phase 8: --validate {name}.cfg: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.2f} s (a process); "
+              + proc.stdout.strip().splitlines()[-1])
+        check(proc.returncode == 0, f"--validate {name}.cfg: {proc.stdout}"
+              f"{proc.stderr}")
+    tea_cfg = os.path.join(demo, "eclipse_tea.cfg")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bart_tpu_torch", "-c", tea_cfg, "--justTEA",
+         "--loc_dir", os.path.join(work, "tea")],
+        cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    tea_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"--justTEA: {proc.stdout}{proc.stderr}")
+    atm_file = read_atm(os.path.join(work, "tea", "atmosphere.atm"))
+    cfg = load_config(tea_cfg, {"loc_dir": os.path.join(work, "tea_in"),
+                                "quiet": "True"})
+    atm = Pipeline(cfg, just_tea=True, device=dev).run()
+    q, qf = atm.abundances, atm_file.abundances
+    ih2 = atm.species.index("H2")
+    e_sum = float(np.abs(q.sum(axis=1) - 1.0).max())
+    e_file = float(np.abs(qf.sum(axis=1) - 1.0).max())
+    e_q = float(np.max(np.abs(qf - q) / np.maximum(q, 1e-300)))
+    print(f"# phase 8: --justTEA eclipse_tea.cfg: exit 0 in {tea_s:.2f} s "
+          f"(a process); {q.shape[0]} layers x {len(atm.species)} species, "
+          f"|sum q - 1| {e_sum:.3e} in process, {e_file:.3e} in the file; "
+          f"file vs process q {e_q:.3e}; H2 {q[:, ih2].min():.4f}.."
+          f"{q[:, ih2].max():.4f}, T {atm.temperature.min():.1f}.."
+          f"{atm.temperature.max():.1f} K")
+    check(e_sum < 1e-8, f"equilibrium q sums to 1 within {e_sum}")
+    check(e_file < 1e-4, f"the atm file's q sums to 1 within {e_file}")
+    check(e_q < 1e-4, f"the atm file's q differs by {e_q}")
+    check(bool(np.all(q[:, ih2] > 0.5) and np.all(qf[:, ih2] > 0.5)),
+          "H2 not above 0.5 in every layer")
+
+    # (b) eclipse.cfg: the retrieval, then --justSpectrum
+    ecfg = os.path.join(demo, "eclipse.cfg")
+    eloc = os.path.join(work, "eclipse")
+    run = cli_run(["-c", ecfg, "--loc_dir", eloc, "--nchains",
+                   str(CLI_CHAINS), "--numit", str(CLI_CHAINS * CLI_STEPS),
+                   "--burnin", str(CLI_BURNIN), "--plots", "False",
+                   "--grtest", "False"],
+                  kernels)
+    post = np.load(os.path.join(eloc, "output.npy"))
+    with open(os.path.join(eloc, "MCMC.log")) as f:
+        log = f.read()
+    chi2 = float(re.findall(r"best chi2 = ([-+0-9.eE]+)", log)[-1])
+    cfg = load_config(ecfg, {"loc_dir": eloc, "quiet": "True"})
+    space = ParamSpace(cfg.params, cfg.pmin, cfg.pmax, cfg.stepsize)
+    nfree = space.nfree
+    flat = post.transpose(1, 0, 2).reshape(nfree, -1)
+    mean, std = flat.mean(1), flat.std(1)
+    truth = TRUTH[space.ifree]
+    constrained = std < 0.5 * (space.free_max - space.free_min) / np.sqrt(12)
+    pulls = np.abs(mean - truth) / np.maximum(std, 1e-12)
+    qq = np.percentile(flat, [0.5, 99.5], axis=1)
+    covered = (truth > qq[0]) & (truth < qq[1])
+    rhat = split_rhat_rank(post.transpose(0, 2, 1))
+    chi2_dof = chi2 / len(load_data_array(cfg.data))
+    print(f"# phase 8: cli eclipse.cfg: {CLI_CHAINS} chains x "
+          f"{post.shape[2]} kept steps in {run['seconds']:.2f} s; stages "
+          + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
+          + f"; launches counted in Python {run['counts']}")
+    print(f"# phase 8: cli eclipse.cfg: mean "
+          f"{np.array2string(mean, precision=4)}, std "
+          f"{np.array2string(std, precision=4)}, truth "
+          f"{np.array2string(truth, precision=4)}; constrained "
+          f"{constrained.tolist()}, pulls "
+          f"{np.array2string(pulls, precision=3)}; 99% interval covers "
+          f"{covered.tolist()}; chi2/dof {chi2_dof:.3f}; split-Rhat "
+          f"{np.array2string(rhat, precision=4)}")
+    check(run["counts"]["fused_eclipse"] > 0,
+          "the CLI eclipse run did not launch fused_eclipse")
+    check(bool(np.all(np.isfinite(post))), "non-finite posterior")
+    check(bool(np.all(pulls[constrained] < 3.5)),
+          f"cli truth recovery: pulls {pulls} on {constrained}")
+    check(bool(np.all(covered)), "cli truth recovery: the 99% interval "
+          f"misses the truth ({qq}, {truth})")
+    check(chi2_dof < 3.0, f"cli truth recovery: chi2/dof {chi2_dof}")
+    check(bool(np.all(rhat < 1.35)), f"cli truth recovery: split-Rhat {rhat}")
+    out["eclipse"] = run
+
+    files = [os.path.join(eloc, n) for n in ("atmosphere.atm",
+                                             "opacity_CH4.npz")]
+    mtimes = [os.stat(f).st_mtime_ns for f in files]
+    spec_run = cli_run(["-c", ecfg, "--loc_dir", eloc, "--justSpectrum"],
+                       kernels)
+    check([os.stat(f).st_mtime_ns for f in files] == mtimes,
+          "--justSpectrum rewrote the atm or the opacity file")
+    wn_s, spec_s = read_spectrum(os.path.join(eloc, cfg.outspec), wn=True)
+    pipe = Pipeline(cfg, device=dev)
+    atm = pipe.stage_atmosphere(pipe.stage_pressure(),
+                                pipe.stage_abundances())
+    wn = cfg.wavenumber_grid()
+    fm, _, _ = pipe.stage_forward(
+        atm, wn, pipe.stage_opacity(pipe.stage_linelist(wn), wn,
+                                    atm.pressure, atm))
+    p = np.array(cfg.params, np.float64)
+    p[-1] = 0.0   # the atm file carries unscaled abundances
+    _, spec_p, valid = fm(torch.tensor(p[None], dtype=torch.float32,
+                                       device=dev))
+    spec_p = spec_p[0].double().cpu().numpy()
+    e_spec = float(np.max(np.abs(spec_s - spec_p) / np.abs(spec_p)))
+    print(f"# phase 8: cli eclipse.cfg --justSpectrum: {len(spec_s)} wn "
+          f"in {spec_run['seconds']:.2f} s, stages "
+          + ", ".join(f"{k} {v} s" for k, v in spec_run["stages"].items())
+          + f"; launches {spec_run['counts']}; vs the forward at the cfg's "
+          f"parameters: max rel err {e_spec:.3e}")
+    check(bool(valid[0]), "the cfg's parameters are invalid")
+    check(np.allclose(np.sort(wn_s), wn, rtol=1e-6), "outspec wn grid")
+    check(e_spec < CLI_SPEC_RTOL, f"--justSpectrum rel err {e_spec}")
+    check(spec_run["counts"]["fused_eclipse"] > 0,
+          "--justSpectrum did not launch fused_eclipse")
+    out["spectrum"] = spec_run
+
+    # (c) transit.cfg: a short retrieval
+    tloc = os.path.join(work, "transit")
+    run = cli_run(["-c", os.path.join(demo, "transit.cfg"), "--loc_dir",
+                   tloc, "--nchains", str(CLI_CHAINS), "--numit",
+                   str(CLI_CHAINS * CLI_TRANSIT_STEPS), "--burnin", "50",
+                   "--plots", "False"], kernels)
+    post = np.load(os.path.join(tloc, "output.npy"))
+    print(f"# phase 8: cli transit.cfg: {CLI_CHAINS} chains x "
+          f"{CLI_TRANSIT_STEPS} steps in {run['seconds']:.2f} s; stages "
+          + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
+          + f"; launches counted in Python {run['counts']}; posterior "
+          f"{post.shape}")
+    check(run["counts"]["fused_transit"] > 0,
+          "the CLI transit run did not launch fused_transit")
+    check(post.shape[0] == CLI_CHAINS and post.shape[2] > 0
+          and bool(np.all(np.isfinite(post))), "transit posterior")
+    check(os.path.isfile(os.path.join(tloc, "MCMC.log")), "no MCMC.log")
+    out["transit"] = run
+    print(f"# phase 8 ({smi}): {time.perf_counter() - t_phase:.1f} s "
+          "for the phase")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1309,6 +1549,9 @@ def main() -> int:
     f_max_abs = folded_kernels_vs_plain(fused, inp_full.filters, f32, quads)
     if "--kernels" in sys.argv[1:]:
         kernel_times(fused, f32, quads)
+        return 0
+    if "--cli" in sys.argv[1:]:
+        cli_phase(fused, smi.strip())
         return 0
     fused.fused_eclipse.launches = 0   # comparisons do not count
 
@@ -1429,6 +1672,10 @@ def main() -> int:
     surface = model_surface_phase(fused, fm, tpath["fm"], inp_full, nchain,
                                   f32, smi.strip())
 
+    # --- phase 8: the CLI on examples/torch_demo, at full width -------
+    torch.cuda.empty_cache()
+    cli = cli_phase(fused, smi.strip())
+
     # --- phase 6 (--trace): where the forwards' wall time goes ---------
     if "--trace" in sys.argv[1:]:
         trace_forwards({
@@ -1490,6 +1737,10 @@ def main() -> int:
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "python_launches": python[name],
+                # phase 8: the wrapper's count in each CLI run
+                "cli_launches": {r: run["counts"][name]
+                                 for r, run in cli.items()
+                                 if name in run["counts"]},
                 "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "bound_term": bnd[2],
                 # share of the bound's FMAs on tensor cores, in which
@@ -1509,8 +1760,8 @@ def main() -> int:
               + surface["launches"]["fused_transit"],
               "fused_eclipse_folded": fpath["launches"][0],
               "fused_transit_folded": ftpath["launches"][0]}
-    print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
-          "start to the records")
+    print(f"# chip_smoke ({smi.strip()}): {time.perf_counter() - t_start:.1f}"
+          " s from the start to the records")
     print(json.dumps({"kernels": [
         record("fused_eclipse", KERNEL_REPLACES, max_abs, k_ms, p_ms,
                e_bound, e_tensor),

@@ -113,13 +113,18 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
     "ForwardModel", "build_demo_model", "build_opacity_grid", "load_grid",
     "build_band_matrix", "tile_lines_bucketed", "load_checkpoint",
     "Likelihood", "contribution_functions", "transmittance",
-    "band_average"])
+    "band_average", "Pipeline", "cli.main"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without ``device=`` and without a card, every entry point
     that creates tensors raises: none falls back to the CPU."""
     import numpy as np
 
+    import warnings
+
     from bart_tpu_torch.demo import build_demo_model, demo_inputs
+    from bart_tpu_torch.driver import cli
+    from bart_tpu_torch.driver.config import load_config
+    from bart_tpu_torch.driver.pipeline import Pipeline
     from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
     from bart_tpu_torch.inference.retrieval import (load_checkpoint,
                                                     save_checkpoint)
@@ -139,6 +144,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     ckpt = str(tmp_path / "ck.npz")
     save_checkpoint(ckpt, SamplerState(*[torch.zeros(2)] * 9), 0,
                     torch.Generator())
+    demo_cfg = str(REPO / "examples" / "torch_demo" / "eclipse.cfg")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the cfg sets wnosamp
+        cfg = load_config(demo_cfg, {"loc_dir": str(tmp_path / "out")})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "ForwardModel": lambda: ForwardModel(
@@ -166,6 +175,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             np.ones((4, 32)), np.linspace(2e9, 1e9, 4)),
         "band_average": lambda: cf.band_average(
             np.ones((4, 32)), np.linspace(2500.0, 5000.0, 32), inp.filters),
+        # the driver: without --device, even --validate asks for the card
+        "Pipeline": lambda: Pipeline(cfg),
+        "cli.main": lambda: cli.main(["-c", demo_cfg, "--validate"]),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
@@ -291,3 +303,22 @@ def test_graph_constructors_raise_without_a_card(entry, monkeypatch):
         else:
             s.run_block(state, gen, 5, graphed=True)
     assert s._graphs == {}
+
+
+def test_driver_imports_neither_matplotlib_nor_jax():
+    """The pipeline, the CLI and the best-fit module import without
+    matplotlib (the card's machine has none: post/plots.py is imported by
+    the post stage only) and without jax."""
+    proc = _run("""
+        import sys
+        import bart_tpu_torch.driver.pipeline
+        import bart_tpu_torch.driver.cli
+        import bart_tpu_torch.driver.validate
+        import bart_tpu_torch.post.bestfit
+        import bart_tpu_torch.chem.tea
+        bad = sorted(k for k in sys.modules if k.split(".")[0] in
+                     ("matplotlib", "jax", "bart_tpu"))
+        print("ok" if not bad else bad)
+    """)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
+        proc.stdout + proc.stderr
