@@ -277,7 +277,7 @@ class Pipeline:
     def stage_opacity(self, tli, wn: np.ndarray, pressure: np.ndarray,
                       atm=None):
         """Opacity grid build/reuse (BART.py:560-569), built on the
-        device.  ``osamp`` > 1 raises (not ported)."""
+        device; ``osamp`` > 1 stores bin-averaged cross-sections."""
         from bart_tpu_torch.opacity.grid import (build_opacity_grid,
                                                  load_grid, save_grid)
 

@@ -1,17 +1,19 @@
 """HITRAN/HITEMP ``.par`` line-list parser and the packed line data in
 the HITRAN S(296 K) convention (this package's own host copy of
 bart_tpu/linelist/hitran.py: ``LineList``, ``ParseReport``,
-``parse_par_bytes`` and the pure-Python path of ``read_par``; the native
-scanner of bart_tpu/native is not ported).
+``parse_par_bytes`` and ``read_par``, which tries the native scanner of
+bart_tpu_torch/native first).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 
 import numpy as np
 
 from bart_tpu_torch.linelist.molecules import HITRAN_IDS
+from bart_tpu_torch.native import hitran_native
 
 __all__ = ["LineList", "TREF", "read_par", "parse_par_bytes", "ParseReport"]
 
@@ -287,7 +289,12 @@ def parse_par_bytes(data: bytes, species: str | None = None,
 
 
 def read_par(path: str, species: str | None = None) -> dict[str, LineList]:
-    """Read a HITRAN .par file (the numpy parser; bart_tpu tries its
-    native scanner first and falls back to the same parser)."""
-    with open(path, "rb") as f:
-        return parse_par_bytes(f.read(), species)
+    """Read a HITRAN .par file: the native C++ scanner first
+    (bart_tpu_torch.native, built with g++ at first use), the numpy
+    parser when it cannot be built or loaded or finds a malformed
+    record."""
+    try:
+        return hitran_native.read_par(path, species)
+    except (OSError, ValueError, subprocess.SubprocessError):
+        with open(path, "rb") as f:
+            return parse_par_bytes(f.read(), species)

@@ -2,11 +2,15 @@
 bart_tpu/opacity/extinction.py).
 
 Lines are bucketed onto tiles of the output grid on the host, once
-(``tile_lines_bucketed``); the Voigt profile is then evaluated directly
-for every (condition, line, gridpoint) triple as plain torch ops
-(``cross_section_tiles``).  Eager torch materialises each
-[cond, tile, line, point] temporary, so the caller bounds the batch by
-bytes (opacity.grid.build_opacity_grid).
+(``tile_lines``: uniform tiles; ``tile_lines_bucketed``: tiles grouped
+by depth); the Voigt profile is then evaluated directly for every
+(condition, line, gridpoint) triple as plain torch ops
+(``cross_section_tiles``, and ``cross_section_grid`` on the output
+grid), point-sampled at the gridpoints or, with ``osamp`` > 1,
+averaged over each gridpoint's bin.  Eager torch materialises each
+[cond, tile, line, point(, sub-sample)] temporary, so the caller bounds
+the batch by bytes (``cond_bytes``; opacity.grid.build_opacity_grid,
+the on-the-fly mode of rt.forward.ForwardModel).
 
 Line strength follows the HITRAN convention
 
@@ -32,12 +36,18 @@ from bart_tpu_torch.physics.voigt import (
     doppler_hwhm, faddeeva_real, lorentz_hwhm_collision,
 )
 
-__all__ = ["LineTiles", "BroadeningSpec", "tile_lines_bucketed",
-           "cross_section_tiles", "wing_cutoff"]
+__all__ = ["LineTiles", "BroadeningSpec", "tile_lines", "tile_lines_bucketed",
+           "cross_section_tiles", "cross_section_grid", "wing_cutoff",
+           "cond_bytes"]
 
 _SQRT_2LN2 = float(np.sqrt(2.0 * np.log(2.0)))
 _INV_SQRT_PI = float(1.0 / np.sqrt(np.pi))
 _ATM_BARYE = 1.01325e6  # 1 atm in barye
+# Live [cond, tile, line, point(, sub-sample)] temporaries of one
+# cross_section_tiles call in eager torch: x, the Faddeeva
+# real/imaginary Horner pair and their products, the profile, the mask
+# and the contribution.
+_LIVE_TEMPS = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +107,12 @@ class BroadeningSpec:
 class LineTiles:
     """Lines bucketed per output-grid tile: [n_tiles, lines_per_tile]
     tensors, ``weight`` 0 on padding slots; ``wn_tiles`` the grid
-    reshaped to [n_tiles, tile_size] (padded with its last value)."""
+    reshaped to [n_tiles, tile_size] (padded with its last value),
+    ``grid_mask`` False on that padding."""
 
     species: str
     wn_tiles: torch.Tensor    # [nt, W]
+    grid_mask: torch.Tensor   # [nt, W] bool
     wn0: torch.Tensor         # [nt, L]
     s296: torch.Tensor
     elower: torch.Tensor
@@ -109,6 +121,18 @@ class LineTiles:
     weight: torch.Tensor      # [nt, L] 1/0 padding mask
     cutoff: float             # wing reach used for bucketing [cm-1]
     n_grid: int               # original grid length
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """(n_tiles, lines_per_tile, tile_size)."""
+        return (self.wn0.shape[0], self.wn0.shape[1], self.wn_tiles.shape[1])
+
+
+def cond_bytes(tiles: LineTiles, osamp: int, itemsize: int) -> int:
+    """Bytes of one condition's live temporaries in cross_section_tiles
+    (the sub-sample axis counts with ``osamp`` > 1)."""
+    nt, L, W = tiles.shape
+    return _LIVE_TEMPS * nt * L * W * max(int(osamp), 1) * itemsize
 
 
 def wing_cutoff(nwidth: float, wn_max: float, t_min: float,
@@ -131,6 +155,75 @@ def wing_cutoff(nwidth: float, wn_max: float, t_min: float,
     return float(min(nwidth * max(gl, gd), cutoff_max))
 
 
+def _grid_tiles(wn_grid: np.ndarray, tile_size: int):
+    """(wn_tiles [nt, tile_size], grid_mask, n): the grid padded with its
+    last value to whole tiles, and False on that padding."""
+    wn_grid = np.asarray(wn_grid, np.float64)
+    n = len(wn_grid)
+    nt = -(-n // tile_size)
+    npad = nt * tile_size - n
+    wn_padded = np.concatenate([wn_grid, np.full(npad, wn_grid[-1])])
+    grid_mask = np.concatenate([np.ones(n, bool), np.zeros(npad, bool)])
+    return (wn_padded.reshape(nt, tile_size),
+            grid_mask.reshape(nt, tile_size), n)
+
+
+def _make_tiles(lines: LineList, wn_tiles, grid_mask, lo, hi, max_l: int,
+                cutoff: float, n: int, device, dtype) -> LineTiles:
+    """The LineTiles of tiles whose lines are lines[lo:hi], each padded
+    to ``max_l`` slots (weight 0 on padding), as tensors."""
+    idx = lo[:, None] + np.arange(max_l)[None, :]
+    weight = (idx < hi[:, None]).astype(np.float64)
+    idx = np.clip(idx, 0, max(lines.nlines - 1, 0))
+    if lines.nlines == 0:
+        z = np.zeros((len(lo), max_l))
+        cols = dict(wn0=z, s296=z, elower=z, gamma_air=z, n_air=z)
+    else:
+        cols = dict(wn0=lines.wn0[idx], s296=lines.s296[idx],
+                    elower=lines.elower[idx],
+                    gamma_air=lines.gamma_air[idx], n_air=lines.n_air[idx])
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return LineTiles(
+        species=lines.species,
+        wn_tiles=t(wn_tiles),
+        grid_mask=torch.as_tensor(grid_mask, device=device),
+        weight=t(weight),
+        cutoff=cutoff,
+        n_grid=n,
+        **{k: t(v) for k, v in cols.items()},
+    )
+
+
+def tile_lines(lines: LineList, wn_grid: np.ndarray, cutoff: float,
+               tile_size: int = 256, pad_lines_to: int = 128,
+               ethresh: float = 0.0, *,
+               device: str | torch.device = "cuda",
+               dtype: torch.dtype = torch.float64) -> LineTiles:
+    """Uniform tiling on the host (numpy), returned as tensors on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    Each tile of ``tile_size`` grid points receives every line whose
+    center lies within ``cutoff`` of its span; every tile is padded to
+    the deepest tile's line count, rounded up to ``pad_lines_to``.
+    ``ethresh`` > 0 first culls lines below ethresh x max(S296) (the
+    reference's extinction.c strength cutoff, applied before bucketing).
+    """
+    device = resolve_device(device)
+    if ethresh > 0 and lines.nlines:
+        lines = lines.cull(ethresh)
+    wn_tiles, grid_mask, n = _grid_tiles(wn_grid, tile_size)
+    nt = wn_tiles.shape[0]
+    lo = np.searchsorted(lines.wn0, wn_tiles[:, 0] - cutoff)
+    hi = np.searchsorted(lines.wn0, wn_tiles[:, -1] + cutoff)
+    max_l = int((hi - lo).max()) if nt else 0
+    max_l = max(pad_lines_to, -(-max_l // pad_lines_to) * pad_lines_to)
+    return _make_tiles(lines, wn_tiles, grid_mask, lo, hi, max_l, cutoff, n,
+                       device, dtype)
+
+
 def tile_lines_bucketed(lines: LineList, wn_grid: np.ndarray, cutoff: float,
                         tile_size: int = 256, pad_lines_to: int = 128,
                         ethresh: float = 0.0, *,
@@ -139,28 +232,17 @@ def tile_lines_bucketed(lines: LineList, wn_grid: np.ndarray, cutoff: float,
                         ) -> list[tuple[np.ndarray, LineTiles]]:
     """Variable-depth tiling on the host (numpy), returned as tensors.
 
-    Each tile receives every line whose center lies within ``cutoff`` of
-    its span; tiles are grouped into geometric depth classes, each
-    padded to its own maximum line count (rounded up to
+    As ``tile_lines``, but the tiles are grouped into geometric depth
+    classes, each padded to its own maximum line count (rounded up to
     ``pad_lines_to``).  Returns [(tile_indices, LineTiles), ...].
-    ``ethresh`` > 0 first culls lines below ethresh x max(S296).
     """
     device = resolve_device(device)
     if ethresh > 0 and lines.nlines:
         lines = lines.cull(ethresh)
-    wn_grid = np.asarray(wn_grid, np.float64)
-    n = len(wn_grid)
-    nt = -(-n // tile_size)
-    npad = nt * tile_size - n
-    wn_padded = np.concatenate([wn_grid, np.full(npad, wn_grid[-1])])
-    wn_tiles = wn_padded.reshape(nt, tile_size)
-
+    wn_tiles, grid_mask, n = _grid_tiles(wn_grid, tile_size)
     lo = np.searchsorted(lines.wn0, wn_tiles[:, 0] - cutoff)
     hi = np.searchsorted(lines.wn0, wn_tiles[:, -1] + cutoff)
     counts = hi - lo
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     class_of = np.ceil(
         np.log2(np.maximum(counts, 1) / pad_lines_to)
@@ -170,25 +252,9 @@ def tile_lines_bucketed(lines: LineList, wn_grid: np.ndarray, cutoff: float,
         sel = np.where(class_of == cls)[0]
         max_l = int(max(counts[sel].max(), 1))
         max_l = -(-max_l // pad_lines_to) * pad_lines_to
-        idx = lo[sel][:, None] + np.arange(max_l)[None, :]
-        weight = (idx < hi[sel][:, None]).astype(np.float64)
-        idx = np.clip(idx, 0, max(lines.nlines - 1, 0))
-        if lines.nlines == 0:
-            z = np.zeros((len(sel), max_l))
-            cols = dict(wn0=z, s296=z, elower=z, gamma_air=z, n_air=z)
-        else:
-            cols = dict(wn0=lines.wn0[idx], s296=lines.s296[idx],
-                        elower=lines.elower[idx],
-                        gamma_air=lines.gamma_air[idx],
-                        n_air=lines.n_air[idx])
-        out.append((sel, LineTiles(
-            species=lines.species,
-            wn_tiles=t(wn_tiles[sel]),
-            weight=t(weight),
-            cutoff=cutoff,
-            n_grid=n,
-            **{k: t(v) for k, v in cols.items()},
-        )))
+        out.append((sel, _make_tiles(lines, wn_tiles[sel], grid_mask[sel],
+                                     lo[sel], hi[sel], max_l, cutoff, n,
+                                     device, dtype)))
     return out
 
 
@@ -197,7 +263,8 @@ def _line_strength(tiles: LineTiles, T: torch.Tensor,
     """S(T) per line [cond, nt, L] for conditions T [cond]."""
     c2 = const.C2
     Tb = T[:, None, None]
-    qr = (q_fn(torch.tensor(TREF, dtype=T.dtype, device=T.device))
+    # a fill, not a host copy: a CUDA graph may capture this
+    qr = (q_fn(torch.full((), TREF, dtype=T.dtype, device=T.device))
           / q_fn(T))[:, None, None]
     boltz = torch.exp(-c2 * tiles.elower * (1.0 / Tb - 1.0 / TREF))
     # padding slots have wn0 = 0 -> 0/0 in the stimulated-emission
@@ -214,15 +281,20 @@ def cross_section_tiles(tiles: LineTiles, T: torch.Tensor,
                         nwidth: float = 0.0, q_table=None, osamp: int = 1,
                         wndelt: float = 1.0) -> torch.Tensor:
     """Per-tile cross-sections sigma[cond, nt, W] in cm^2/molecule for
-    conditions T, p_barye [cond]: exact point sampling of the Voigt
-    profile at the output wavenumbers.  ``nwidth`` > 0 truncates each
-    profile at nwidth x max(Doppler, Lorentz) HWHM.  Only ``osamp`` = 1
-    is ported (bin averaging comes with the on-the-fly line mode).
+    conditions T, p_barye [cond].  ``nwidth`` > 0 truncates each profile
+    at nwidth x max(Doppler, Lorentz) HWHM.
+
+    ``osamp`` = 1 samples the Voigt profile exactly at the output
+    wavenumbers.  ``osamp`` > 1 returns the bin-averaged cross-section:
+    for every (line, bin) pair the profile is integrated over the
+    ``wndelt``-wide bin around each gridpoint by an ``osamp``-point
+    midpoint rule in the coordinate theta of x = HWHM_V tan(theta), with
+    the Olivero-Longbothum Voigt HWHM as the scale (exact for a
+    Lorentzian; resolves a Doppler core of any width).  A bin-averaged
+    sigma fed through exp(-tau) is curve-of-growth biased for saturated
+    lines (docs/LINE_SAMPLING.md).
     """
-    if int(osamp) != 1:
-        raise NotImplementedError(
-            "cross_section_tiles: osamp > 1 (bin-averaged profiles) is "
-            "not ported yet (ROADMAP queue 1, item 11)")
+    osamp = int(osamp)
     mol = get_molecule(tiles.species)
     mass_g = mol.mass * const.AMU
     diam_cm = mol.diameter * 1e-8
@@ -240,6 +312,30 @@ def cross_section_tiles(tiles: LineTiles, T: torch.Tensor,
 
     inv = 1.0 / (sigma_g * math.sqrt(2.0))
     y = gl * inv                                                # [c, nt, L]
+    sw = s * tiles.weight
+
+    if osamp > 1:
+        dxa = (tiles.wn_tiles[:, None, :] - 0.5 * wndelt
+               - tiles.wn0[:, :, None])                         # [nt, L, W]
+        wv = torch.clamp(0.5346 * gl + torch.sqrt(0.2166 * gl * gl + gd * gd),
+                         min=1e-12)[..., None]                  # [c, nt, L, 1]
+        ta = torch.atan(dxa / wv)                               # [c, nt, L, W]
+        dt = (torch.atan((dxa + wndelt) / wv) - ta) / osamp
+        k = torch.arange(osamp, dtype=dxa.dtype, device=dxa.device) + 0.5
+        tan_t = torch.tan(ta[..., None] + dt[..., None] * k)    # [c,nt,L,W,K]
+        del ta
+        x_off = wv[..., None] * tan_t                           # wn offsets
+        prof = (faddeeva_real(x_off * inv[..., None, None],
+                              y[..., None, None])
+                * (inv * _INV_SQRT_PI)[..., None, None])
+        if nwidth > 0:
+            reach = nwidth * torch.maximum(gd, gl)
+            prof = prof * (torch.abs(x_off) <= reach[..., None, None])
+        del x_off
+        # the bin integral is sum prof wv (1 + tan^2) dtheta; its average
+        avg = (torch.sum(prof * (1.0 + tan_t * tan_t), dim=-1)
+               * wv * dt / wndelt)                              # [c, nt, L, W]
+        return torch.sum(sw[..., None] * avg, dim=2)            # [c, nt, W]
 
     dx = tiles.wn_tiles[:, None, :] - tiles.wn0[:, :, None]     # [nt, L, W]
     x = dx * inv[..., None]                                     # [c, nt, L, W]
@@ -248,5 +344,16 @@ def cross_section_tiles(tiles: LineTiles, T: torch.Tensor,
     if nwidth > 0:
         reach = nwidth * torch.maximum(gd, gl)
         prof = prof * (torch.abs(dx) <= reach[..., None])
-    contrib = (s * tiles.weight)[..., None] * prof
+    contrib = sw[..., None] * prof
     return torch.sum(contrib, dim=2)                            # [c, nt, W]
+
+
+def cross_section_grid(tiles: LineTiles, T: torch.Tensor,
+                       p_barye: torch.Tensor, spec: BroadeningSpec,
+                       nwidth: float = 0.0, q_table=None, osamp: int = 1,
+                       wndelt: float = 1.0) -> torch.Tensor:
+    """Cross-sections sigma[cond, n_grid] in cm^2/molecule: the output-grid
+    view of ``cross_section_tiles`` (its arguments)."""
+    sig = cross_section_tiles(tiles, T, p_barye, spec, nwidth=nwidth,
+                              q_table=q_table, osamp=osamp, wndelt=wndelt)
+    return sig.reshape(T.shape[0], -1)[:, :tiles.n_grid]

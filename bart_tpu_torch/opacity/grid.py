@@ -19,16 +19,12 @@ from bart_tpu_torch.device import resolve_device
 from bart_tpu_torch.linelist.hitran import LineList
 from bart_tpu_torch.linelist.molecules import get_molecule
 from bart_tpu_torch.opacity.extinction import (
-    BroadeningSpec, cross_section_tiles, tile_lines_bucketed, wing_cutoff,
+    BroadeningSpec, cond_bytes, cross_section_tiles, tile_lines_bucketed,
+    wing_cutoff,
 )
 
 __all__ = ["OpacityGrid", "build_opacity_grid", "interp_opacity",
            "save_grid", "load_grid", "fine_bin_mask"]
-
-# Live [cond, tile, line, point] temporaries of one cross_section_tiles
-# call in eager torch: x, the Faddeeva real/imaginary Horner pair and
-# their products, the profile, the mask and the contribution.
-_LIVE_TEMPS = 10
 
 
 def fine_bin_mask(sigma_fine: torch.Tensor, K: int, delta: float = 0.02,
@@ -104,12 +100,13 @@ def build_opacity_grid(
     (the card unless the caller asks for the CPU).
 
     Conditions (T x layer, T-major) are evaluated in batches whose
-    [cond, tile, line, point] temporaries fit ``budget_bytes``; a tile
-    bucket too deep for even one condition is split along the line
-    axis and the partial sigmas summed (cross-sections add over lines).
-    ``dtype`` is the compute dtype; the table is accumulated and
-    stored in float32.  Only ``osamp`` = 1 is ported: any other value
-    raises cross_section_tiles' NotImplementedError.
+    [cond, tile, line, point] temporaries (times ``osamp`` sub-samples)
+    fit ``budget_bytes``; a tile bucket too deep for even one condition
+    is split along the line axis and the partial sigmas summed
+    (cross-sections add over lines).  The budget sets the chunking only,
+    never the numbers.  ``osamp`` > 1 stores bin-averaged cross-sections
+    (extinction.cross_section_tiles).  ``dtype`` is the compute dtype;
+    the table is accumulated and stored in float32.
     """
     spec = spec or BroadeningSpec()
     device = resolve_device(device)
@@ -143,9 +140,9 @@ def build_opacity_grid(
         q_table = (q_tables or {}).get(name)
         out = torch.zeros((ncond, nWp), dtype=torch.float32, device=device)
         for tile_idx, tiles in buckets:
-            nt_b, L_b = tiles.wn0.shape
-            L_cap = max(int(budget_bytes
-                            // (_LIVE_TEMPS * nt_b * tile_size * itemsize)), 1)
+            L_b = tiles.wn0.shape[1]
+            per_line = cond_bytes(tiles, osamp, itemsize) // L_b
+            L_cap = max(int(budget_bytes // per_line), 1)
             cols = (torch.as_tensor(tile_idx, device=device)[:, None]
                     * tile_size
                     + torch.arange(tile_size, device=device)).reshape(-1)
@@ -154,8 +151,7 @@ def build_opacity_grid(
                     tiles, **{f: getattr(tiles, f)[:, l0:l0 + L_cap]
                               for f in ("wn0", "s296", "elower", "gamma_air",
                                         "n_air", "weight")})
-                L_s = seg.wn0.shape[1]
-                per_cond = _LIVE_TEMPS * nt_b * L_s * tile_size * itemsize
+                per_cond = cond_bytes(seg, osamp, itemsize)
                 cb = max(1, min(ncond, int(budget_bytes // per_cond)))
                 for c0 in range(0, ncond, cb):
                     sig = cross_section_tiles(

@@ -14,7 +14,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["faddeeva_real", "doppler_hwhm", "lorentz_hwhm_collision"]
+__all__ = ["faddeeva_real", "voigt_profile", "doppler_hwhm",
+           "lorentz_hwhm_collision"]
 
 _INV_SQRT_PI = float(1.0 / np.sqrt(np.pi))
 _C_LIGHT = 2.99792458e10
@@ -75,6 +76,16 @@ def faddeeva_real(x: torch.Tensor, y: torch.Tensor,
     sq_r = inv_r * inv_r - inv_i * inv_i
     sq_i = 2.0 * inv_r * inv_i
     return 2.0 * (pr * sq_r - pi * sq_i) + _INV_SQRT_PI * inv_r
+
+
+def voigt_profile(dx: torch.Tensor, sigma: torch.Tensor,
+                  gamma: torch.Tensor) -> torch.Tensor:
+    """Normalised Voigt profile V(dx; sigma, gamma) [1/units of dx]: the
+    offset from line center ``dx``, the Gaussian standard deviation
+    ``sigma`` and the Lorentzian HWHM ``gamma`` broadcast together
+    (scipy.special.voigt_profile's convention)."""
+    inv = 1.0 / (sigma * np.sqrt(2.0))
+    return faddeeva_real(dx * inv, gamma * inv) * inv * _INV_SQRT_PI
 
 
 def doppler_hwhm(wn0, temperature, mass_g):

@@ -1,14 +1,14 @@
 """The forward model: parameters -> band fluxes, batched over chains
-(port of bart_tpu/rt/forward.py, gridded opacity, K = 1 and folded
-rtosamp, eclipse, direct and transit geometry, every PT family, with
-CIA, Rayleigh and gray-cloud rows).
+(port of bart_tpu/rt/forward.py: gridded opacity at K = 1 and folded
+rtosamp, or on-the-fly line tiles; eclipse, direct and transit geometry,
+every PT family, with CIA, Rayleigh and gray-cloud rows).
 
     bandflux [C, nfilt], spectrum [C, W], valid [C] = fm(params [C, n])
 
 Beside the fused forward, the unfused extinction [C, L, W] of the
 post-processing (``diagnostics``: profiles, radii, extinction, valid)
-and the spectrum of explicit profiles (``spectrum_from_profiles``,
-through the fused kernels).
+and the spectrum of explicit profiles (``spectrum_from_profiles``, as a
+forward computes it).
 
 Parameter layout as the reference (BARTfunc.py:173-179):
 [ PT params (nPT) | radius [km] (transit only) | cloudtop [bar] |
@@ -16,6 +16,15 @@ Parameter layout as the reference (BARTfunc.py:173-179):
 Invalid samples (T outside [tmin, tmax], scaled metals summing above 1,
 the optional energy-balance veto) are computed on clipped profiles and
 flagged: nothing is skipped by value, so every call has the same shapes.
+
+On-the-fly mode (``opacity`` a {species: LineTiles} dict from
+opacity.extinction.tile_lines; the reference's non-gridded extinction):
+no table, the Voigt cross-sections of every layer's (T, p) are computed
+in each forward (``osamp`` > 1: bin-averaged), as plain torch ops, in
+chunks of conditions whose temporaries fit ``budget_bytes``.  The
+extinction and the radiative transfer are then the unfused ones
+(rt.tau.tau_vertical and rt.eclipse.eclipse_flux, or
+rt.transit_geom.transit_depth); no fused kernel runs.
 
 Folded rtosamp (``fold_osamp`` = K > 1, docs/LINE_SAMPLING.md): the
 opacity table is tabulated on utils.grids.folded_fine_grid(wn_grid, K)
@@ -43,22 +52,31 @@ from bart_tpu_torch.opacity.cia import (LOSCHMIDT, CiaTable, cia_extinction,
                                         cia_weights)
 from bart_tpu_torch.opacity.cloud import (cloud_deck_extinction,
                                           extended_cloud_extinction)
+from bart_tpu_torch.opacity.extinction import (BroadeningSpec, LineTiles,
+                                               cond_bytes,
+                                               cross_section_grid)
 from bart_tpu_torch.opacity.grid import (OpacityGrid, fine_bin_mask,
                                          interp_opacity)
 from bart_tpu_torch.opacity.rayleigh import (h2_rayleigh_cross_section,
                                              rayleigh_extinction)
 from bart_tpu_torch.physics.hydro import anchor_index, radius_profile
 from bart_tpu_torch.physics.pt import n_pt_params, pt_generator
-from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
+from bart_tpu_torch.rt.eclipse import (eclipse_flux, expsum_weights,
+                                       raygrid_weights)
 from bart_tpu_torch.rt.fused import (FoldedTable, RowsTable, folded_table,
                                      fused_eclipse, fused_eclipse_folded,
                                      fused_transit, fused_transit_folded,
                                      interp_weights, prepare_slant,
                                      rows_table, unfold_table)
-from bart_tpu_torch.rt.transit_geom import slant_geometry
+from bart_tpu_torch.rt.tau import tau_vertical
+from bart_tpu_torch.rt.transit_geom import slant_geometry, transit_depth
 from bart_tpu_torch.utils.grids import folded_fine_grid
 
 __all__ = ["ForwardModel", "ForwardConfig"]
+
+# the tensors of a LineTiles, held in the tables as lt{k}_<field>
+_LT_FIELDS = ("wn_tiles", "grid_mask", "wn0", "s296", "elower", "gamma_air",
+              "n_air", "weight")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,38 +135,55 @@ class ForwardModel:
     dispatch part: ``tabk`` (a FoldedTable: line and continuum rows of the
     folded bins, bfloat16 with ``fold_bf16``) and, with an adaptive split,
     ``tabs`` (a RowsTable: the bin-mean rows of the smooth bins);
-    ``sigma`` is then the bin-mean table.
+    ``sigma`` is then the bin-mean table.  An on-the-fly model holds
+    each species' LineTiles as ``lt{k}_wn_tiles``, ``lt{k}_wn0`` and the
+    rest (bart_tpu's keys), and no opacity table.
     """
 
     def __init__(self, config: ForwardConfig, *, wn_grid: np.ndarray,
                  pressure: np.ndarray, species: list[str],
-                 base_abundances: np.ndarray, opacity: OpacityGrid,
+                 base_abundances: np.ndarray,
+                 opacity: OpacityGrid | dict[str, LineTiles],
                  system, bands: BandMatrix,
                  cia_tables: list[CiaTable] = (),
                  species_masses: np.ndarray | None = None,
+                 broadening: BroadeningSpec | None = None,
+                 nwidth: float = 20.0,
+                 osamp: int = 1,
                  fold_osamp: int = 1,
                  fold_adapt: float | None = 0.02,
                  fold_bf16: bool = False,
+                 budget_bytes: float = 2e9,
                  device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32):
         cfg = config
         if cfg.solution not in ("eclipse", "direct", "transit"):
             raise ValueError(f"unknown solution {cfg.solution!r}")
-        if not isinstance(opacity, OpacityGrid):
-            raise NotImplementedError(
-                "ForwardModel: on-the-fly line-tile opacity is not ported "
-                "yet (ROADMAP queue 1, item 11)")
+        # folded rtosamp: ``wn_grid`` is the output grid, ``opacity`` is
+        # tabulated on the K-times-finer folded_fine_grid
+        self.fold = max(int(fold_osamp), 1)
+        on_the_fly = isinstance(opacity, dict)
+        if self.fold > 1 and on_the_fly:
+            raise ValueError(
+                "folded rtosamp requires a precomputed opacity grid "
+                "(the on-the-fly mode evaluates lines at arbitrary "
+                "resolution already — use osamp there)")
 
         self.config = cfg
         self.system = system
         self.bands = bands
-        self.opacity = opacity
+        self.opacity = None if on_the_fly else opacity
+        self.line_tiles = opacity if on_the_fly else None
         self.device = resolve_device(device)
         self.dtype = dtype
         dev = self.device
-        # folded rtosamp: ``wn_grid`` is the output grid, ``opacity`` is
-        # tabulated on the K-times-finer folded_fine_grid
-        self.fold = max(int(fold_osamp), 1)
+        # on-the-fly mode: the line-profile settings and the bin width of
+        # osamp > 1
+        self.broadening = broadening
+        self.nwidth = nwidth
+        self.osamp = int(osamp)
+        self.wndelt = (float(wn_grid[1] - wn_grid[0]) if len(wn_grid) > 1
+                       else 1.0)
         self.fold_bf16 = bool(fold_bf16) and self.fold > 1
         # static adaptive split (set by _fold_setup): output-bin indices,
         # as numpy arrays and as tensors on the device
@@ -169,8 +204,9 @@ class ForwardModel:
         self.i_metals = torch.as_tensor(np.where(
             (sp != "He") & (sp != "H2") & (sp != "H-") & (sp != "e-"))[0],
             device=dev)
+        opac_species = list(opacity) if on_the_fly else opacity.species
         self.i_opac = torch.as_tensor(
-            [int(np.where(sp == m)[0][0]) for m in opacity.species],
+            [int(np.where(sp == m)[0][0]) for m in opac_species],
             device=dev)
         self._graphs = {}   # chain count -> _ForwardGraph (graphed())
         if species_masses is None:
@@ -180,9 +216,6 @@ class ForwardModel:
                                        for s in species])
 
         base_abundances = np.asarray(base_abundances, np.float64)
-        self.t_min = float(opacity.t_grid[0])
-        self.t_step = float(opacity.t_grid[1] - opacity.t_grid[0])
-        self.n_t = len(opacity.t_grid)
         if cfg.quadrature == "expsum":
             mu, w = expsum_weights(cfg.nquad)
             self._powers = True
@@ -214,6 +247,46 @@ class ForwardModel:
             self._tables[f"cia{k}_temps"] = t_(tab.temps)
             self._tables[f"cia{k}_wn"] = t_(tab.wn)
             self._tables[f"cia{k}_abs"] = t_(tab.absorption)
+        self.i0 = anchor_index(pressure, cfg.refpress)
+        self.r0_km = system.r_planet / 1000.0
+        self.g0_si = system.g_planet_si
+        # the fixed PT arguments, of 'line' only
+        self.pt_args = ([system.r_star, system.t_star, cfg.tint, system.sma,
+                         system.g_planet_cgs, cfg.tint_type]
+                        if cfg.pt_type == "line" else None)
+
+        if on_the_fly:
+            self._line_tile_setup(opacity, budget_bytes)
+        else:
+            self._grid_setup(opacity, wn_grid, len(pressure), cia_tables,
+                             fold_adapt)
+
+    def _line_tile_setup(self, line_tiles: dict[str, LineTiles],
+                         budget_bytes: float) -> None:
+        """The on-the-fly model's tables: each species' tiles under
+        bart_tpu's keys (lt{k}_<field>) on the model's device and dtype,
+        and the conditions one cross-section call takes, from the deepest
+        species' bytes a condition."""
+        self._lt_meta = {}        # species -> (k, cutoff)
+        itemsize = torch.tensor([], dtype=self.dtype).element_size()
+        per_cond = 1
+        for k, (name, tiles) in enumerate(line_tiles.items()):
+            self._lt_meta[name] = (k, float(tiles.cutoff))
+            for f in _LT_FIELDS:
+                self._tables[f"lt{k}_{f}"] = getattr(tiles, f).to(
+                    device=self.device,
+                    dtype=torch.bool if f == "grid_mask" else self.dtype)
+            per_cond = max(per_cond, cond_bytes(tiles, self.osamp, itemsize))
+        self._cond_chunk = max(1, int(budget_bytes // per_cond))
+
+    def _grid_setup(self, opacity: OpacityGrid, wn_grid: np.ndarray,
+                    n_layers: int, cia_tables, fold_adapt) -> None:
+        """The gridded model's tables: the continuum rows and the opacity
+        table in the fused kernels' layouts (K = 1 or folded)."""
+        cfg, dev, dtype = self.config, self.device, self.dtype
+        self.t_min = float(opacity.t_grid[0])
+        self.t_step = float(opacity.t_grid[1] - opacity.t_grid[0])
+        self.n_t = len(opacity.t_grid)
 
         # Continuum rows of the rows contraction, on the host in float64
         # (on the fine grid when folded): each CIA table's T-nodes
@@ -234,20 +307,14 @@ class ForwardModel:
             rows.append(np.ones_like(wn64))
         frows = None
         if rows:
-            frows = t_(np.stack(rows))[:, None, :].expand(
-                len(rows), len(pressure), len(wn64))
+            frows = torch.as_tensor(np.stack(rows), dtype=dtype, device=dev
+                                    )[:, None, :].expand(
+                len(rows), n_layers, len(wn64))
         if self.fold > 1:
             self._fold_setup(opacity.sigma, frows, len(wn_grid), fold_adapt)
         else:
             self._tables.update(self._k1_tables(
                 opacity.sigma.to(device=dev, dtype=dtype), frows))
-        self.i0 = anchor_index(pressure, cfg.refpress)
-        self.r0_km = system.r_planet / 1000.0
-        self.g0_si = system.g_planet_si
-        # the fixed PT arguments, of 'line' only
-        self.pt_args = ([system.r_star, system.t_star, cfg.tint, system.sma,
-                         system.g_planet_cgs, cfg.tint_type]
-                        if cfg.pt_type == "line" else None)
 
     @staticmethod
     def _k1_tables(sigma: torch.Tensor, frows: torch.Tensor | None) -> dict:
@@ -343,8 +410,9 @@ class ForwardModel:
         ``sigma`` and ``frows`` become ``tab`` (and views of it).  Of a
         folded model, ``sigmak`` [K, M*nT, L, W_f] and ``frowsk`` become
         this model's ``tabk`` and ``sigmas`` and ``frowss`` its ``tabs``;
-        bfloat16 tables (numpy's ml_dtypes.bfloat16) stay bfloat16.
-        Raises if the keys or shapes differ from this model's."""
+        bfloat16 tables (numpy's ml_dtypes.bfloat16) stay bfloat16.  Of an
+        on-the-fly model, the line tiles (``lt{k}_*``; ``grid_mask`` stays
+        bool).  Raises if the keys or shapes differ from this model's."""
         mine = self._tables
         given = dict(numpy_tables)
         parts = {}
@@ -353,7 +421,8 @@ class ForwardModel:
             have = [given.pop(k) for k in keys if k in given]
             if have:
                 parts[part] = have
-        have = set(given) | set(parts) | ({"tab"} if self.fold == 1 else set())
+        k1 = self.fold == 1 and self.line_tiles is None
+        have = set(given) | set(parts) | ({"tab"} if k1 else set())
         if have != set(mine):
             raise ValueError(
                 f"table keys differ: missing {sorted(set(mine) - have)}, "
@@ -364,10 +433,12 @@ class ForwardModel:
             if a.dtype.name == "bfloat16":     # through float32: exact
                 return torch.tensor(a.astype(np.float32), device=self.device
                                     ).to(torch.bfloat16)
+            if a.dtype == bool:
+                return torch.tensor(a, device=self.device)
             return torch.tensor(a, dtype=self.dtype, device=self.device)
 
         out = {k: carry(v) for k, v in given.items()}
-        if self.fold == 1:
+        if k1:
             out.update(self._k1_tables(out["sigma"], out.get("frows")))
         if "tabk" in parts:
             # rows along axis 1 of bart_tpu's sub-sample-major layout
@@ -449,8 +520,9 @@ class ForwardModel:
         file): T [C, L] K, q [C, L, S] mole fractions and optionally the
         radii rad_cm [C, L] (re-derived hydrostatically from T and q when
         None).  T is clipped to [tmin, tmax]; the parameters the spectrum
-        reads (cloud top, Rayleigh factor) are zero.  Through the fused
-        kernels, as a forward."""
+        reads (cloud top, Rayleigh factor) are zero.  Computed as a
+        forward computes it: through the fused kernels on a table, through
+        the unfused extinction and radiative transfer on the fly."""
         t = self._tables
         cfg = self.config
         dd = dict(device=self.device, dtype=self.dtype)
@@ -529,19 +601,46 @@ class ForwardModel:
         ext = self._extinction(params, t, T_safe, q, rad_cm)
         return T_safe, q, rad_cm, ext, valid
 
+    def _line_cross_sections(self, t: dict, T_safe: torch.Tensor
+                             ) -> torch.Tensor:
+        """sigma [C, M, L, W] of the on-the-fly mode: each species'
+        cross-sections at every layer's (T, p), in chunks of conditions
+        of a size fixed at set-up (each condition is computed alone, so
+        the chunks change no number)."""
+        C, L = T_safe.shape
+        T_c = T_safe.reshape(-1)
+        p_c = t["p_barye"].expand(C, L).reshape(-1)
+        spec = self.broadening or BroadeningSpec()
+        n_grid = t["wn"].shape[0]
+        sigs = []
+        for name, (k, cutoff) in self._lt_meta.items():
+            tiles = LineTiles(species=name, cutoff=cutoff, n_grid=n_grid,
+                              **{f: t[f"lt{k}_{f}"] for f in _LT_FIELDS})
+            sigs.append(torch.cat([
+                cross_section_grid(tiles, T_c[i:i + self._cond_chunk],
+                                   p_c[i:i + self._cond_chunk], spec,
+                                   nwidth=self.nwidth, osamp=self.osamp,
+                                   wndelt=self.wndelt).to(self.dtype)
+                for i in range(0, C * L, self._cond_chunk)]).reshape(
+                    C, L, n_grid))
+        return torch.stack(sigs, dim=1)
+
     def _extinction(self, params: torch.Tensor, t: dict, T_safe, q,
                     rad_cm) -> torch.Tensor:
         """The unfused extinction [C, L, W] in cm-1: the line table
-        interpolated in T and weighted by the molecules' densities, then
-        CIA, Rayleigh (mode 1: 10^param; 'polar', mode 2: unscaled), the
-        cloud deck and the extended cloud, term by term as the fused
-        rows."""
+        interpolated in T (or, on the fly, the lines' cross-sections) and
+        weighted by the molecules' densities, then CIA, Rayleigh (mode 1:
+        10^param; 'polar', mode 2: unscaled), the cloud deck and the
+        extended cloud, term by term as the fused rows."""
         cfg = self.config
         nPT = cfg.n_pt
         wn = t["wn"]
         n_tot = t["p_barye"] / (const.K_BOLTZ * T_safe)            # [C, L]
-        sigma = interp_opacity(t["sigma"], self.t_min, self.t_step,
-                               self.n_t, T_safe)                # [C, M, L, W]
+        if self.line_tiles is not None:
+            sigma = self._line_cross_sections(t, T_safe)        # [C, M, L, W]
+        else:
+            sigma = interp_opacity(t["sigma"], self.t_min, self.t_step,
+                                   self.n_t, T_safe)            # [C, M, L, W]
         n_mol = q[:, :, self.i_opac] * n_tot[..., None]         # [C, L, M]
         ext = torch.einsum("cmlw,clm->clw", sigma, n_mol)
 
@@ -629,7 +728,16 @@ class ForwardModel:
 
     def _spectrum(self, params, t, T_safe, q, rad_cm):
         """Extinction rows -> geometry -> spectrum [C, W] through the
-        fused eclipse or transit kernels, one launch per dispatch part."""
+        fused eclipse or transit kernels, one launch per dispatch part;
+        on the fly, the unfused extinction through the unfused radiative
+        transfer."""
+        if self.line_tiles is not None:
+            ext = self._extinction(params, t, T_safe, q, rad_cm)
+            if self.config.solution == "transit":
+                return transit_depth(ext, rad_cm,
+                                     self.system.r_star * 100.0)
+            return eclipse_flux(tau_vertical(ext, rad_cm), T_safe, t["wn"],
+                                t["mu"], t["mu_w"])
         parts, wrows = self._fused_rows(params, t, T_safe, q, rad_cm)
         n_wn = t["wn"].shape[0]
         if self.config.solution == "transit":

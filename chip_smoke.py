@@ -61,15 +61,30 @@ smooth bins.  Phases:
      ``--justSpectrum`` on its directory (no second build; against the
      forward at the cfg's parameters), and a short 512-chain transit.cfg
      retrieval with fused_transit launched; each run's stage seconds
-  6. with ``--trace`` only (after phase 8): a torch.profiler trace of a
+  9. the last single-device surface: (a) the on-the-fly (table-free)
+     forward at full width on 4 chains, eclipse and transit: the Voigt
+     profiles of all 30,000 lines at every layer in each forward, the
+     unfused radiative transfer (no fused kernel), graphed = eager bit
+     for bit, held against the gridded forward (fused kernels) on
+     isothermal profiles at table nodes, eager and graphed times with
+     their peak memory; (b) ``--osamp 16`` through the CLI on
+     eclipse.cfg (--justOpacity, then --justSpectrum), the T grid cut
+     to the nodes that bracket the truth: the top layer's line mass
+     against sum S(T), two conditions against a float64 CPU build; (c)
+     the host entry points: the native HITRAN scanner called directly
+     on the demo list written as a .par (against the numpy parser, bit
+     for bit), the lineread CLI on it plus an ExoMol triplet, the widths
+     tool
+  6. with ``--trace`` only (after phase 9): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
      time and the five stages of the forward during which the device
      idled longest (a graph replay runs no stage)
 
 Each path's launch counts are zeroed just before its phase 3 (phases 7
-and each CLI run of 8: just before it) and read just after its phase 4
-(phases 7 and 8: at its end): the wrappers count in Python, so they see the
+and each CLI run of 8, and 9: just before it) and read just after its
+phase 4 (phases 7, 8 and 9: at its end): the wrappers count in Python, so
+they see the
 eager launches and each graph capture, never a replay.  The kernels'
 ``launches`` are counted on the device instead: each path's kernels in
 the trace of its replayed block (phase 4b).  Any failed check raises and
@@ -81,6 +96,7 @@ and the result JSON.
     python3 chip_smoke.py --kernels   # phases 0-2, then the kernels' times
     python3 chip_smoke.py --trace     # all phases, then phase 6
     python3 chip_smoke.py --cli       # phases 0-1, then phase 8
+    python3 chip_smoke.py --phase9    # phases 0-1, phase 3's table, phase 9
 """
 
 from __future__ import annotations
@@ -181,6 +197,35 @@ CLI_STEPS, CLI_BURNIN = 25000, 10000
 #: molfit factor at 0 (tests/test_pipeline.py:226-227): the atm file's
 #: radii and T carry 3 and 2 decimals
 CLI_SPEC_RTOL = 5e-3
+#: phase 9a: chains of the on-the-fly forwards (512 in the other paths:
+#: a forward computes the Voigt profiles of all 30,000 lines, 2.6e7
+#: (line, point) pairs a layer on uniform tiles, at each of the chains'
+#: 100 layers: ~2.4 s a chain at phase 3's build rate), the byte budget
+#: of their cross-section chunks, and the isothermal profiles [K], nodes
+#: of phase 3's 27-node table, at which the on-the-fly spectrum is held
+#: against the gridded one: there T-interpolation is exact, so the two
+#: differ by summation order only (the tiles' padding, the unfused
+#: against the fused radiative transfer), as phase 7's unfused-vs-fused
+#: check; the kernels' tolerances apply
+OTF_CHAINS, OTF_BUDGET = 4, 12e9
+OTF_NODES = (1500.0, 2200.0)
+#: phase 9b: the CLI's osamp, the line mass of the top layer (1e-5 bar:
+#: Doppler cores, whose wings beyond nwidth = 20 HWHM hold < 1e-4 of the
+#: line) against sum S(T) over the lines inside the grid, as
+#: tests/test_opacity.py:357-361; the float64 CPU reference of two
+#: conditions on one 256-point tile of the build (the third, 3012-3267
+#: cm-1, the densest band: the same tile span buckets the same lines,
+#: whose profiles reach past the 25 cm-1 cutoff at high pressure), held
+#: relative to each row's maximum: the card's table is float32, whose
+#: wavenumbers (ulp 4.9e-4 cm-1 at 5000 cm-1) move a Doppler core (~1e-2
+#: cm-1) that straddles a bin edge by up to ~5% of its mass between two
+#: bins
+CLI_OSAMP, MASS_RTOL, OSAMP_ROW_RTOL = 16, 1e-3, 5e-2
+OSAMP_TILE = 2
+#: phase 9c: an ExoMol triplet beside the demo list's .par
+EXOMOL_STATES = "1 0.0 4 0\n2 1500.0 8 1\n3 3100.0 12 2\n4 3500.5 16 3\n"
+EXOMOL_TRANS = "3 1 2.5e-2\n4 1 1.0e-3\n4 2 3.0e-2\n"
+EXOMOL_PF = "100 50.0\n296 107.1\n1000 300.0\n"
 
 
 def bound(fmas: float, exps: float, nbytes: float) -> tuple[float, str, str]:
@@ -1466,6 +1511,381 @@ def cli_phase(fused, smi: str) -> dict:
     return out
 
 
+
+def onthefly_phase(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
+    """Phase 9a: the on-the-fly (table-free) forward at full width: the
+    30,000 demo lines on uniform 256-point tiles (tile_lines, with the
+    wing cutoff and ethresh of phase 3's build), Voigt profiles of every
+    layer's (T, p) in each forward, the unfused radiative transfer; no
+    fused kernel runs.  Per geometry (eclipse raygrid as ``fm``; transit
+    with CIA as ``fmt``) on OTF_CHAINS chains: a forward, finite and
+    valid, and ``spectrum_from_profiles`` on isothermal profiles at table
+    nodes against the gridded model's (fused kernels) at the kernel
+    tolerances.  Eclipse also: graphed = eager bit for bit, eager and
+    graphed serialized times, and each one's peak memory."""
+    import torch
+
+    from bart_tpu_torch import constants as const
+    from bart_tpu_torch.demo import DEMO_PARAMS, DEMO_PARAMS_TRANSIT
+    from bart_tpu_torch.linelist.molecules import get_molecule
+    from bart_tpu_torch.obs.bands import band_integrate
+    from bart_tpu_torch.opacity.extinction import (BroadeningSpec,
+                                                   tile_lines, wing_cutoff)
+    from bart_tpu_torch.rt.forward import ForwardModel
+
+    t_phase = time.perf_counter()
+    dev = f32["device"]
+    spec = BroadeningSpec()          # build_demo_model's bath
+    mol = get_molecule("CH4")
+    cutoff = wing_cutoff(20.0, float(inp.wn[-1]), float(inp.t_grid[0]),
+                         float(inp.pressure[-1]) * const.BAR_TO_BARYE,
+                         mol.mass * const.AMU, mol.diameter * 1e-8, spec)
+    tiles = tile_lines(inp.lines, inp.wn, cutoff, tile_size=256,
+                       device=dev, dtype=torch.float32)
+    out = {"tiles": tiles.shape}
+    L, S = inp.base_q.shape
+    T_nodes = torch.tensor(OTF_NODES, **f32)[:, None].expand(-1, L)
+    q_nodes = torch.tensor(inp.base_q, **f32).expand(len(OTF_NODES), L, S)
+    rng = np.random.default_rng(9)
+    for name, grid_fm, base in (("eclipse", fm, DEMO_PARAMS),
+                                ("transit", fmt, DEMO_PARAMS_TRANSIT)):
+        fmo = ForwardModel(
+            grid_fm.config, wn_grid=inp.wn, pressure=inp.pressure,
+            species=inp.species, base_abundances=inp.base_q,
+            opacity={"CH4": tiles}, system=inp.system, bands=grid_fm.bands,
+            cia_tables=[inp.cia] if name == "transit" else [],
+            broadening=spec, nwidth=20.0, budget_bytes=OTF_BUDGET,
+            device=dev, dtype=torch.float32)
+        spread = np.where(np.arange(len(base)) == 5, 10.0, 0.005) \
+            if name == "transit" else 0.005
+        params = torch.tensor(np.tile(base, (OTF_CHAINS, 1)) + rng.normal(
+            0, 1, (OTF_CHAINS, len(base))) * spread, **f32)
+        n0 = (fused.fused_eclipse.launches, fused.fused_transit.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        band, spectrum, valid = fmo(params)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        eager_gib = torch.cuda.max_memory_allocated() / 2**30
+        check((fused.fused_eclipse.launches, fused.fused_transit.launches)
+              == n0, "the on-the-fly forward launched a fused kernel")
+        check(tuple(spectrum.shape) == (OTF_CHAINS, len(inp.wn)),
+              f"on-the-fly spectrum shape {spectrum.shape}")
+        check(bool(valid.all()), "invalid on-the-fly samples")
+        check(bool(torch.isfinite(band).all()
+                   & torch.isfinite(spectrum).all()),
+              "non-finite on-the-fly forward")
+        res = dict(first_s=first_s, eager_gib=eager_gib)
+        timed = ""
+        if name == "eclipse":
+            # graphed = eager, and both timed (one round each: a forward
+            # is seconds)
+            torch.cuda.reset_peak_memory_stats()
+            g = fmo.graphed()
+            gout = g(params)
+            torch.cuda.synchronize()
+            res["graph_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            check(all(torch.equal(a, b) for a, b in
+                      zip(gout, (band, spectrum, valid))),
+                  f"{name}: graphed() on the fly differs from eager")
+            res["eager"] = serialized_ms(lambda p: fmo(p)[0], params, 1, 1)
+            res["graphed"] = serialized_ms(lambda p: g(p)[0], params, 1, 1)
+            timed = (f"; {res['graph_gib']:.2f} GiB with the capture; "
+                     f"graphed = eager bit for bit; serialized eager "
+                     f"{res['eager'][0]:.1f} ms, graphed "
+                     f"{res['graphed'][0]:.1f} ms")
+            del g, gout
+        # held against the gridded model at table nodes
+        s_otf = fmo.spectrum_from_profiles(T_nodes, q_nodes)
+        s_grid = grid_fm.spectrum_from_profiles(T_nodes, q_nodes)
+        bw = grid_fm.tables["band_w"]
+        res["e_spec"] = e_spec = rel_err(s_otf, s_grid)
+        res["e_band"] = e_band = rel_err(band_integrate(bw, s_otf),
+                                         band_integrate(bw, s_grid))
+        print(f"# phase 9a ({smi}): on-the-fly {name}, {OTF_CHAINS} chains, "
+              f"tiles {tuple(tiles.shape)} (cutoff {cutoff:.2f} cm-1), "
+              f"chunks of {fmo._cond_chunk} conditions: first forward "
+              f"{first_s:.2f} s, peak {eager_gib:.2f} GiB eager{timed}; "
+              f"vs the gridded forward at {OTF_NODES} K: spectrum max rel "
+              f"err {e_spec:.3e}, band {e_band:.3e}")
+        check(e_spec < (OUT_RTOL if name == "transit" else SPEC_RTOL[False]),
+              f"{name}: on the fly vs gridded spectrum rel err {e_spec}")
+        check(e_band < BAND_RTOL,
+              f"{name}: on the fly vs gridded band rel err {e_band}")
+        out[name] = res
+        del fmo
+        torch.cuda.empty_cache()
+    print(f"# phase 9a ({smi}): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def osamp_cli_phase(fused, smi: str) -> dict:
+    """Phase 9b: ``python -m bart_tpu_torch -c eclipse.cfg --osamp 16``
+    (driver.cli.main in this process) at full wn width and 100 layers,
+    the T grid cut to the cfg's nodes that bracket its truth's profile:
+    --justOpacity builds the bin-averaged table on the card, then
+    --justSpectrum reads it (fused_eclipse).  The top layer's line mass
+    against sum S(T) at every T node (MASS_RTOL), two conditions on the
+    build's tile OSAMP_TILE against the port's float64 cross-sections on
+    the CPU (OSAMP_ROW_RTOL of each row's maximum), the stage seconds and
+    the build's peak memory."""
+    import shutil
+
+    import torch
+
+    from bart_tpu_torch import constants as const
+    from bart_tpu_torch.demo import SYSTEM, TRUTH
+    from bart_tpu_torch.driver.config import load_config
+    from bart_tpu_torch.driver.pipeline import Pipeline
+    from bart_tpu_torch.io.spectrum import read_spectrum
+    from bart_tpu_torch.linelist.hitran import TREF
+    from bart_tpu_torch.linelist.molecules import get_molecule
+    from bart_tpu_torch.linelist.tips import partition_function
+    from bart_tpu_torch.opacity.extinction import (cross_section_grid,
+                                                   tile_lines, wing_cutoff)
+    from bart_tpu_torch.opacity.grid import load_grid
+    from bart_tpu_torch.physics.pt import pt_generator
+    from bart_tpu_torch.utils.grids import pressure_grid
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ecfg = os.path.join(root, "examples", "torch_demo", "eclipse.cfg")
+    work = os.path.join(root, "build", "phase9")
+    shutil.rmtree(work, ignore_errors=True)
+    loc = os.path.join(work, "osamp")
+    cfg = load_config(ecfg, {"loc_dir": loc, "quiet": "True"})
+    # the nodes that bracket the truth's profile
+    # (examples/torch_demo/make_inputs.py:truth_tgrid)
+    p = torch.tensor(pressure_grid(cfg.n_layers, cfg.p_top, cfg.p_bottom,
+                                   cfg.log), dtype=torch.float64)
+    s = SYSTEM
+    T_truth, _ = pt_generator(
+        p, torch.tensor(TRUTH[:5])[None], cfg.PTtype,
+        [s.r_star, s.t_star, cfg.tint, s.sma, s.g_planet_cgs,
+         cfg.tint_type])
+    lo = cfg.tlow + cfg.tempdelt * np.floor(
+        (float(T_truth.min()) - cfg.tlow) / cfg.tempdelt)
+    hi = max(cfg.tlow + cfg.tempdelt * np.ceil(
+        (float(T_truth.max()) - cfg.tlow) / cfg.tempdelt), lo + cfg.tempdelt)
+    argv = ["-c", ecfg, "--loc_dir", loc, "--osamp", str(CLI_OSAMP),
+            "--tlow", str(lo), "--thigh", str(hi)]
+    kernels = (fused.fused_eclipse,)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = cli_run(argv + ["--justOpacity"], kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spec_run = cli_run(argv + ["--justSpectrum"], kernels)
+    check(spec_run["counts"]["fused_eclipse"] > 0,
+          "--justSpectrum on the osamp table did not launch fused_eclipse")
+    wn_s, spec_s = read_spectrum(os.path.join(loc, cfg.outspec), wn=True)
+    check(bool(np.all(np.isfinite(spec_s)) and np.all(spec_s > 0)),
+          "--justSpectrum on the osamp table: spectrum")
+
+    cfg = load_config(ecfg, {"loc_dir": loc, "quiet": "True",
+                             "osamp": str(CLI_OSAMP), "tlow": str(lo),
+                             "thigh": str(hi)})
+    grid = load_grid(os.path.join(loc, cfg.opacityfile), device="cpu")
+    wn = cfg.wavenumber_grid()
+    nT = len(grid.t_grid)
+    check(tuple(grid.sigma.shape) == (1, nT, cfg.n_layers, len(wn)),
+          f"osamp table shape {tuple(grid.sigma.shape)}")
+    check(bool(torch.isfinite(grid.sigma).all()), "non-finite osamp table")
+
+    # the line mass of the top layer at every T node
+    pipe = Pipeline(cfg, device="cpu")
+    tli = pipe.stage_linelist(wn)
+    lines = tli.lines["CH4"].cull(cfg.ethresh)
+    q_fn = partition_function("CH4", (tli.partition or {}).get("CH4"))
+    wndelt = float(wn[1] - wn[0])
+    inside = (lines.wn0 > wn[0] - 0.5 * wndelt) & \
+        (lines.wn0 < wn[-1] + 0.5 * wndelt)
+    c2 = const.C2
+    e_mass = []
+    for it, T in enumerate(grid.t_grid):
+        qr = float(q_fn(torch.tensor(TREF, dtype=torch.float64))
+                   / q_fn(torch.tensor(T, dtype=torch.float64)))
+        s_T = (lines.s296 * qr
+               * np.exp(-c2 * lines.elower * (1.0 / T - 1.0 / TREF))
+               * (1.0 - np.exp(-c2 * lines.wn0 / T))
+               / (1.0 - np.exp(-c2 * lines.wn0 / TREF)))
+        mass = float(grid.sigma[0, it, 0].double().sum()) * wndelt
+        e_mass.append(abs(mass / float(s_T[inside].sum()) - 1.0))
+
+    # two conditions on one tile against the float64 CPU build
+    atm = pipe.stage_atmosphere(pipe.stage_pressure(),
+                                pipe.stage_abundances())
+    bspec = pipe._broadening(atm)
+    mol = get_molecule("CH4")
+    cutoff = wing_cutoff(cfg.nwidth, float(wn[-1]), float(grid.t_grid[0]),
+                         float(atm.pressure[-1]) * const.BAR_TO_BARYE,
+                         mol.mass * const.AMU, mol.diameter * 1e-8, bspec)
+    cols = np.arange(256 * OSAMP_TILE, 256 * (OSAMP_TILE + 1))
+    tiles = tile_lines(lines, wn[cols], cutoff, tile_size=256,
+                       device="cpu", dtype=torch.float64)
+    conds = ((0, 0), (nT - 1, cfg.n_layers - 1))
+    t0 = time.perf_counter()
+    ref = cross_section_grid(
+        tiles, torch.tensor([grid.t_grid[i] for i, _ in conds],
+                            dtype=torch.float64),
+        torch.tensor([atm.pressure[j] for _, j in conds],
+                     dtype=torch.float64) * const.BAR_TO_BARYE,
+        bspec, nwidth=cfg.nwidth, q_table=(tli.partition or {}).get("CH4"),
+        osamp=CLI_OSAMP, wndelt=wndelt).numpy()
+    cpu_s = time.perf_counter() - t0
+    got = np.stack([grid.sigma[0, i, j, cols].double().numpy()
+                    for i, j in conds])
+    e_rows = np.abs(got - ref).max(axis=1) / ref.max(axis=1)
+    print(f"# phase 9b ({smi}): cli eclipse.cfg --osamp {CLI_OSAMP} "
+          f"--tlow {lo} --thigh {hi}: table {tuple(grid.sigma.shape)}; "
+          f"--justOpacity {run['seconds']:.2f} s (stages "
+          + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
+          + f"), build peak {peak:.2f} GiB; --justSpectrum "
+          f"{spec_run['seconds']:.2f} s (stages "
+          + ", ".join(f"{k} {v} s" for k, v in spec_run["stages"].items())
+          + f"), launches {spec_run['counts']}")
+    print(f"# phase 9b: top-layer line mass vs sum S(T) of "
+          f"{int(inside.sum())} lines at {grid.t_grid.tolist()} K: rel err "
+          + ", ".join(f"{e:.3e}" for e in e_mass)
+          + f"; float32 card vs float64 CPU ({cpu_s:.1f} s) on "
+          f"{len(cols)} wn, {wn[cols[0]]:.0f}-{wn[cols[-1]]:.0f} cm-1, at "
+          f"(T, layer) {conds}: "
+          "max abs err / row max " + ", ".join(f"{e:.3e}" for e in e_rows))
+    check(max(e_mass) < MASS_RTOL, f"osamp line mass rel err {e_mass}")
+    check(float(e_rows.max()) < OSAMP_ROW_RTOL,
+          f"osamp table vs float64: {e_rows}")
+    print(f"# phase 9b: {time.perf_counter() - t_phase:.1f} s")
+    return dict(run=run, spectrum=spec_run, peak_gib=peak, e_mass=e_mass,
+                e_rows=e_rows)
+
+
+def write_par(lines, path: str, mol_id: int) -> None:
+    """A HITRAN-2004 .par file (160-character records) of a LineList:
+    the fields the parsers read, in their widths, the rest blank."""
+    def frac(x, width):       # ".0633": HITRAN drops the leading zero
+        return f"{x:{width + 1}.{width - 1}f}"[1:]
+
+    with open(path, "w") as f:
+        for k in range(lines.nlines):
+            f.write(f"{mol_id:2d}{int(lines.iso[k]):1d}"
+                    f"{lines.wn0[k]:12.6f}{lines.s296[k]:10.3E}"
+                    f"{0.0:10.3E}{frac(lines.gamma_air[k], 5)}"
+                    f"{lines.gamma_self[k]:5.3f}{lines.elower[k]:10.4f}"
+                    f"{lines.n_air[k]:4.2f}{0.0:8.6f}" + " " * 93 + "\n")
+
+
+def host_entry_points_phase(inp, work: str) -> dict:
+    """Phase 9c: the host entry points, no card.  The demo list written
+    as a .par and scanned by the native scanner called directly (a failed
+    g++ build fails here), bit for bit against the numpy parser; the
+    lineread CLI on that .par plus a synthetic ExoMol triplet, whose TLI
+    loads and equals the parsed lines (and the source lines to the .par's
+    digits); the widths tool on eclipse.cfg."""
+    from bart_tpu_torch.linelist import lineread
+    from bart_tpu_torch.linelist.exomol import read_exomol
+    from bart_tpu_torch.linelist.hitran import parse_par_bytes
+    from bart_tpu_torch.linelist.molecules import get_molecule
+    from bart_tpu_torch.linelist.tli import load_tli
+    from bart_tpu_torch.native import hitran_native
+    from bart_tpu_torch.tools import widths
+
+    t_phase = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    par = os.path.join(work, "ch4_demo.par")
+    write_par(inp.lines, par, get_molecule("CH4").hitran_id)
+    t0 = time.perf_counter()
+    native = hitran_native.read_par(par)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(par, "rb") as f:
+        numpy_ = parse_par_bytes(f.read())
+    numpy_s = time.perf_counter() - t0
+    fields = ("wn0", "s296", "elower", "gamma_air", "gamma_self", "n_air",
+              "iso")
+    check(list(native) == list(numpy_) == ["CH4"], f"species {list(native)}")
+    check(all(np.array_equal(getattr(native["CH4"], f),
+                             getattr(numpy_["CH4"], f)) for f in fields),
+          "the native scanner differs from the numpy parser")
+    src, got = inp.lines, native["CH4"]
+    check(got.nlines == src.nlines, "the .par lost lines")
+    # the .par's digits: wn0 to 1e-6 and E'' to 1e-4 cm-1, S296 to three
+    # significant digits (half a digit, and the doubles' rounding)
+    e_src = {f: float(np.max(np.abs(getattr(got, f) - getattr(src, f))))
+             for f in ("wn0", "elower")}
+    e_src["s296 rel"] = float(np.max(np.abs(got.s296 / src.s296 - 1.0)))
+    check(e_src["wn0"] < 6e-7 and e_src["elower"] < 6e-5
+          and e_src["s296 rel"] < 6e-4, f"the .par vs its lines: {e_src}")
+
+    for name, text in (("m.states", EXOMOL_STATES), ("m.trans", EXOMOL_TRANS),
+                       ("m.pf", EXOMOL_PF)):
+        with open(os.path.join(work, name), "w") as f:
+            f.write(text)
+    triplet = ":".join(os.path.join(work, n) for n in
+                       ("m.states", "m.trans", "m.pf"))
+    out = os.path.join(work, "demo.tli")
+    pyline = os.path.join(work, "pyline.cfg")
+    with open(pyline, "w") as f:
+        f.write(f"[Parameters]\ndb_list = {par} {triplet}\n"
+                "dbtype = hit exomol\npart_list = implicit implicit\n"
+                f"species = CH4 H2O\noutput = {out}\niwav = 1.0\n"
+                "fwav = 10.0\n")
+    t0 = time.perf_counter()
+    check(lineread.main(["-c", pyline]) == 0, "lineread failed")
+    lineread_s = time.perf_counter() - t0
+    check(lineread.main(["-c", pyline, "--validate"]) == 0,
+          "lineread --validate found issues")
+    tli = load_tli(out + ".npz")
+    exo = read_exomol(*triplet.split(":")[:2], "H2O", triplet.split(":")[2],
+                      1e4 / 10.0, 1e4 / 1.0)
+    check(tli.species == ["CH4", "H2O"], f"TLI species {tli.species}")
+    check(all(np.array_equal(getattr(tli.lines["CH4"], f),
+                             getattr(got, f)) for f in fields)
+          and all(np.array_equal(getattr(tli.lines["H2O"], f),
+                                 getattr(exo, f)) for f in fields),
+          "the TLI differs from the lines it was built from")
+    ecfg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch_demo", "eclipse.cfg")
+    check(widths.main(["-c", ecfg]) == 0, "widths failed")
+    from bart_tpu_torch.driver.config import load_config
+    w = widths.get_widths(load_config(ecfg, {"quiet": "True"}))
+    check(all(np.isfinite(v) and v > 0 for v in w.values()), f"widths {w}")
+    print(f"# phase 9c: {src.nlines} demo lines as a .par "
+          f"({os.path.getsize(par) / 2**20:.1f} MiB): native scanner "
+          f"{native_s:.3f} s, numpy parser {numpy_s:.3f} s, equal bit for "
+          f"bit; vs the source lines: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in e_src.items())
+          + f"; lineread (.par + ExoMol triplet) {lineread_s:.2f} s -> "
+          f"{tli.total_lines()} lines {tli.species}, equal to the parsed "
+          f"lines; widths {w}; {time.perf_counter() - t_phase:.1f} s")
+    return dict(native_s=native_s, numpy_s=numpy_s, lineread_s=lineread_s)
+
+
+def phase9(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
+    """Phase 9: the on-the-fly forward (9a), the osamp table through the
+    CLI (9b) and the host entry points (9c).  The fused kernels' counts
+    are zeroed at its start and summed over its runs: the on-the-fly
+    forwards launch none, the gridded comparisons of 9a launch
+    fused_eclipse and fused_transit, 9b's --justSpectrum fused_eclipse."""
+    t0 = time.perf_counter()
+    kernels = (fused.fused_eclipse, fused.fused_transit)
+    for k in kernels:
+        k.launches = 0                            # phase 9 starts here
+    otf = onthefly_phase(fused, fm, fmt, inp, f32, smi)
+    counts = {k.__name__: k.launches for k in kernels}
+    osamp = osamp_cli_phase(fused, smi)
+    for run in (osamp["run"], osamp["spectrum"]):
+        counts["fused_eclipse"] += run["counts"]["fused_eclipse"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    host = host_entry_points_phase(
+        inp, os.path.join(root, "build", "phase9", "host"))
+    took = time.perf_counter() - t0
+    print(f"# phase 9 ({smi}): {took:.1f} s for the phase; launches counted "
+          f"in Python {counts}")
+    check(counts["fused_eclipse"] > 0 and counts["fused_transit"] > 0,
+          f"phase 9 did not launch both K = 1 kernels: {counts}")
+    return dict(otf=otf, osamp=osamp, host=host, counts=counts,
+                seconds=took)
+
 def main() -> int:
     import torch
 
@@ -1552,6 +1972,14 @@ def main() -> int:
         return 0
     if "--cli" in sys.argv[1:]:
         cli_phase(fused, smi.strip())
+        return 0
+    if "--phase9" in sys.argv[1:]:
+        fm = build_demo_model(inp_full, device=dev, dtype=torch.float32,
+                              budget_bytes=8e9)
+        fmt = build_demo_model(inp_full, device=dev, dtype=torch.float32,
+                               grid=fm.opacity, solution="transit",
+                               cia=True)
+        phase9(fused, fm, fmt, inp_full, f32, smi.strip())
         return 0
     fused.fused_eclipse.launches = 0   # comparisons do not count
 
@@ -1676,6 +2104,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli = cli_phase(fused, smi.strip())
 
+    # --- phase 9: on the fly, osamp through the CLI, host entry points -
+    torch.cuda.empty_cache()
+    p9 = phase9(fused, fm, tpath["fm"], inp_full, f32, smi.strip())
+
     # --- phase 6 (--trace): where the forwards' wall time goes ---------
     if "--trace" in sys.argv[1:]:
         trace_forwards({
@@ -1741,6 +2173,8 @@ def main() -> int:
                 "cli_launches": {r: run["counts"][name]
                                  for r, run in cli.items()
                                  if name in run["counts"]},
+                # phase 9: the wrapper's count over its runs
+                "phase9_launches": p9["counts"].get(name, 0),
                 "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "bound_term": bnd[2],
                 # share of the bound's FMAs on tensor cores, in which

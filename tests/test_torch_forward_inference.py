@@ -143,13 +143,16 @@ def test_forward_views_match_bart_tpu(demo, name):
 
 
 @pytest.mark.parametrize("cfg,kw", [
-    ({}, {"opacity": {}}),               # on-the-fly line tiles
-    ({"solution": "transit"}, {"opacity": {}}),
+    ({}, {"opacity": {}, "fold_osamp": 4}),   # folded on line tiles
+    ({"solution": "transit"}, {"opacity": {}, "fold_osamp": 4}),
 ])
 def test_forward_unported_options_raise(demo, cfg, kw):
+    """The on-the-fly line tiles are ported; folded rtosamp on them is
+    refused with bart_tpu's ValueError (rt/forward.py:192-196), in both
+    geometries."""
     inp, grid = demo
     kw = {"opacity": _torch_grid(grid), **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="folded rtosamp requires"):
         ForwardModel(ForwardConfig(**{**inp.config_kwargs, **cfg}),
                      wn_grid=inp.wn, pressure=inp.pressure,
                      species=inp.species, base_abundances=inp.base_q,

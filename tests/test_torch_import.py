@@ -111,7 +111,8 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "ForwardModel", "build_demo_model", "build_opacity_grid", "load_grid",
-    "build_band_matrix", "tile_lines_bucketed", "load_checkpoint",
+    "build_band_matrix", "tile_lines_bucketed", "tile_lines",
+    "load_checkpoint",
     "Likelihood", "contribution_functions", "transmittance",
     "band_average", "Pipeline", "cli.main"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
@@ -131,7 +132,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from bart_tpu_torch.post import cf
     from bart_tpu_torch.inference.samplers import SamplerState
     from bart_tpu_torch.obs.bands import BandMatrix, build_band_matrix
-    from bart_tpu_torch.opacity.extinction import tile_lines_bucketed
+    from bart_tpu_torch.opacity.extinction import (tile_lines,
+                                                   tile_lines_bucketed)
     from bart_tpu_torch.opacity.grid import (OpacityGrid, build_opacity_grid,
                                              load_grid, save_grid)
     from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
@@ -163,6 +165,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             np.linspace(2500.0, 5000.0, 256), inp.filters),
         "tile_lines_bucketed": lambda: tile_lines_bucketed(
             inp.lines, inp.wn, 25.0),
+        "tile_lines": lambda: tile_lines(inp.lines, inp.wn, 25.0),
         "load_checkpoint": lambda: load_checkpoint(ckpt),
         # a plain callable forward has no device of its own
         "Likelihood": lambda: Likelihood(
@@ -321,4 +324,80 @@ def test_driver_imports_neither_matplotlib_nor_jax():
         print("ok" if not bad else bad)
     """)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
+        proc.stdout + proc.stderr
+
+
+def test_onthefly_and_line_list_entry_points_run_without_jax(tmp_path):
+    """The on-the-fly forward (osamp 2, eclipse and transit), the osamp
+    table build, the native HITRAN scanner, the ExoMol, PS-binary and
+    Plez readers, the lineread CLI and the widths tool, with jax and
+    bart_tpu blocked, at a tiny size on the CPU."""
+    proc = _run(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["bart_tpu"] = None
+        import numpy as np, torch
+        from bart_tpu_torch import constants as const
+        from bart_tpu_torch.demo import (DEMO_PARAMS, DEMO_PARAMS_TRANSIT,
+                                         demo_inputs)
+        from bart_tpu_torch.linelist import exomol, kurucz_mol, lineread
+        from bart_tpu_torch.linelist.hitran import read_par
+        from bart_tpu_torch.linelist.tli import load_tli
+        from bart_tpu_torch.native import hitran_native
+        from bart_tpu_torch.obs.bands import build_band_matrix
+        from bart_tpu_torch.opacity.extinction import (BroadeningSpec,
+                                                       tile_lines)
+        from bart_tpu_torch.opacity.grid import build_opacity_grid
+        from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
+        from bart_tpu_torch.tools import widths
+        torch.set_num_threads(2)
+        inp = demo_inputs(nlayer=6, nwave=64, nlines=40, t_step=1300.0)
+        tiles = tile_lines(inp.lines, inp.wn, 25.0, device="cpu")
+        for sol, p in (("eclipse", DEMO_PARAMS),
+                       ("transit", DEMO_PARAMS_TRANSIT)):
+            kw = (dict(star_flux=inp.star_flux, rprs=inp.system.rprs)
+                  if sol == "eclipse" else {{}})
+            fm = ForwardModel(
+                ForwardConfig(solution=sol, molfit=("CH4",)),
+                wn_grid=inp.wn, pressure=inp.pressure, species=inp.species,
+                base_abundances=inp.base_q, opacity={{"CH4": tiles}},
+                system=inp.system, bands=build_band_matrix(
+                    inp.wn, inp.filters, device="cpu", dtype=torch.float64,
+                    **kw),
+                broadening=BroadeningSpec(), osamp=2, dtype=torch.float64,
+                device="cpu")
+            band, spec, valid = fm(torch.tensor(p[None]))
+            assert bool(valid.all()) and bool(torch.isfinite(band).all())
+        g = build_opacity_grid({{"CH4": inp.lines}}, inp.wn, inp.t_grid,
+                               inp.pressure, osamp=4, budget_bytes=1e6,
+                               device="cpu")
+        assert float(g.sigma.max()) > 0
+        rec = (" 61" + " 3028.752190" + " 1.216E-19" + " 7.845E+00"
+               + ".0633" + ".0791" + " 1293.1413" + "0.73" + "-.007280"
+               + " " * 93)
+        d = {str(tmp_path)!r}
+        open(d + "/ch4.par", "w").write(rec + "\\n")
+        assert hitran_native.read_par(d + "/ch4.par")["CH4"].nlines == 1
+        assert read_par(d + "/ch4.par")["CH4"].wn0[0] == 3028.75219
+        open(d + "/m.states", "w").write("1 0.0 4 0\\n2 3000.0 8 1\\n")
+        open(d + "/m.trans", "w").write("2 1 1.0e-2\\n")
+        assert exomol.read_exomol(d + "/m.states", d + "/m.trans",
+                                  "H2O").nlines == 1
+        kurucz_mol.write_ps_binary(d + "/h.bin", np.array([3000.0]),
+                                   np.array([100.0]), np.array([1e-5]))
+        open(d + "/vo.dat", "w").write("3000.0 0.1 -2.0\\n")
+        assert kurucz_mol.read_plez_vo(d + "/vo.dat").nlines == 1
+        open(d + "/pyline.cfg", "w").write(
+            "[Parameters]\\ndb_list = " + d + "/ch4.par " + d + "/h.bin "
+            + d + "/m.states:" + d + "/m.trans\\ndbtype = hit ps exomol\\n"
+            "part_list = implicit\\noutput = " + d + "/out.tli\\n"
+            "iwav = 2.0\\nfwav = 4.0\\n")
+        assert lineread.main(["-c", d + "/pyline.cfg"]) == 0
+        assert load_tli(d + "/out.tli.npz").species == ["CH4", "H2O"]
+        assert widths.main(["-c", "examples/torch_demo/eclipse.cfg"]) == 0
+        assert not any(k.split(".")[0] in ("jax", "bart_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), \
         proc.stdout + proc.stderr

@@ -98,12 +98,21 @@ def test_cross_section_tiles_match_f64(small, mode):
 
 
 def test_cross_section_osamp_raises(small):
+    """osamp = 4, the bin-averaged cross-sections (once not ported: the
+    name stays), against bart_tpu's at float64."""
     (_, tiles), = ext.tile_lines_bucketed(small.lines, small.wn, 25.0,
                                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ext.cross_section_tiles(tiles, torch.ones(1, dtype=F64),
-                                torch.ones(1, dtype=F64),
-                                ext.BroadeningSpec(), osamp=4)
+    (_, tiles_j), = jext.tile_lines_bucketed(small.lines, small.wn, 25.0)
+    T, p = np.array([600.0, 2500.0]), np.array([1e-3, 10.0]) * 1e6
+    wndelt = float(small.wn[1] - small.wn[0])
+    got = ext.cross_section_tiles(tiles, torch.tensor(T), torch.tensor(p),
+                                  ext.BroadeningSpec(), osamp=4,
+                                  wndelt=wndelt)
+    ref = np.asarray(jext.cross_section_tiles(
+        tiles_j, jnp.asarray(T), jnp.asarray(p), jext.BroadeningSpec(),
+        osamp=4, wndelt=wndelt))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10,
+                               atol=1e-10 * ref.max())
 
 
 @pytest.mark.parametrize("budget", [2e9, 2e6])
