@@ -19,6 +19,7 @@ Public API entry points (lazily imported):
                                                   (snooker, demc, mrw, unif)
     bart_tpu_torch.run_mcmc                       the retrieval
     bart_tpu_torch.build_opacity_grid             the opacity table build
+    bart_tpu_torch.make_mesh / shard_model        multi-device execution
 """
 
 __version__ = "0.1.0"
@@ -34,6 +35,8 @@ _LAZY = {
     "build_opacity_grid": ("bart_tpu_torch.opacity.grid",
                            "build_opacity_grid"),
     "resolve_device": ("bart_tpu_torch.device", "resolve_device"),
+    "make_mesh": ("bart_tpu_torch.parallel.mesh", "make_mesh"),
+    "shard_model": ("bart_tpu_torch.parallel.mesh", "shard_model"),
 }
 
 

@@ -112,6 +112,12 @@ class Likelihood:
         self._prior = (None if prior is None else
                        tuple(free_part(a) for a in (prior, priorlow, priorup)))
 
+    @property
+    def mesh(self):
+        """The (chain, wn) mesh the forward model is split over
+        (parallel.mesh.shard_model), or None."""
+        return getattr(self.forward, "mesh", None)
+
     def __call__(self, free: torch.Tensor):
         """free [C, nfree] -> (loglike [C], model [C, nfilt])."""
         full = self.space.expand(free)

@@ -20,6 +20,13 @@ Outputs as bart_tpu's:
                   package's: a torch generator's state stands where
                   bart_tpu keeps its JAX key.
 
+On a (chain, wn) mesh (parallel.mesh.shard_model) every rank runs the
+same retrieval on the replicated ensemble; only rank 0 prints and writes
+files (log, savefile, savemodel, checkpoints and their sidecars).
+Whether a block replays the captured step or runs the eager loop is
+decided before the first block from the mesh (NCCL: captured; gloo:
+eager) and logged.
+
 With ``leastsq`` the chains start around a least-squares pre-fit
 (``least_squares_prefit``), jittered by 1% of each parameter's range with
 numpy's generator of ``seed``: the same starts as bart_tpu's.
@@ -176,9 +183,11 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
     sampler state is kept in ``dtype`` whatever the forward model's."""
     t_start = time.time()
     log_lines: list[str] = []
+    mesh = like.mesh
+    writer = mesh is None or mesh.rank == 0
 
     def log(msg):
-        if verbose:
+        if verbose and writer:
             print(msg)
         log_lines.append(msg)
 
@@ -210,6 +219,13 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
         walk=walk, pmin=space.free_min, pmax=space.free_max,
         stepsize=space.stepsize[space.ifree], fgamma=fgamma,
         snooker_frac=snooker_frac, z_thin=z_thin)
+    if mesh is not None:
+        how = ("each block the replay of one captured step"
+               if sampler.graphs(like.device)
+               else "eager steps (a gloo mesh's collectives cannot be "
+               "captured)" if like.device.type == "cuda" else "eager steps")
+        log(f"mesh {mesh.n_chain} x {mesh.n_wn} ({mesh.backend}) on "
+            f"{like.device}: {how}")
     gen = torch.Generator(device=like.device)
     gen.manual_seed(seed)
 
@@ -235,14 +251,20 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
     nblocks = int(np.ceil(max(iters_per_chain - done0, 0) / block))
     cap = done0 + nblocks * block
     np_dtype = np.dtype(str(dtype).removeprefix("torch."))
-    pos_store = _SampleStore(
-        nchains, space.nfree, cap, np_dtype,
-        path=(checkpoint + ".pos.dat") if checkpoint else None, n0=done0)
-    model_store = (
-        _SampleStore(nchains, nmodel, cap, np_dtype,
-                     path=(checkpoint + ".mod.dat") if checkpoint else None,
-                     n0=done0)
-        if savemodel else None)
+
+    def store(nparam, suffix):
+        # only the writer keeps the sidecar; the other ranks hold the
+        # samples in memory, resumed from the sidecar's first done0
+        path = (checkpoint + suffix) if checkpoint else None
+        st = _SampleStore(nchains, nparam, cap, np_dtype,
+                          path=path if writer else None, n0=done0)
+        if path and not writer and done0:
+            st.buf[:done0] = np.memmap(path, np_dtype, "r",
+                                       shape=(done0, nchains, nparam))
+        return st
+
+    pos_store = store(space.nfree, ".pos.dat")
+    model_store = store(nmodel, ".mod.dat") if savemodel else None
     psrf = np.full(space.nfree, np.inf)
     psrf_rank = np.full(space.nfree, np.inf)
     converged = False
@@ -277,7 +299,7 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
                 log(f"burn-in gamma adaptation frozen: fgamma {fg:.3f}"
                     f" (block accept {block_acc:.3f})")
 
-        if checkpoint and (ib + 1) % checkpoint_every == 0:
+        if checkpoint and writer and (ib + 1) % checkpoint_every == 0:
             pos_store.flush()
             if model_store is not None:
                 model_store.flush()
@@ -325,14 +347,14 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
     pnames = ([space.pnames[i] for i in space.ifree] if space.pnames
               else [f"p{i}" for i in space.ifree])
 
-    if savefile:
+    if savefile and writer:
         np.save(savefile, posterior)
-    if checkpoint:
+    if checkpoint and writer:
         pos_store.flush()
         if model_store is not None:
             model_store.flush()
         save_checkpoint(checkpoint, state, done_iters, gen, fg)
-    if savemodel and models is not None:
+    if savemodel and models is not None and writer:
         np.save(savemodel, models)
         if modelper > 0:
             # one numbered file every ``modelper`` iterations per chain,
@@ -350,7 +372,7 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
                 for fname in split_files:
                     os.replace(fname,
                                os.path.join(base, os.path.basename(fname)))
-    if logfile:
+    if logfile and writer:
         # posterior std for the log's uncertainty column
         uncert = posterior.transpose(1, 0, 2).reshape(
             space.nfree, -1).std(axis=1)

@@ -28,6 +28,13 @@ steps.  On a CUDA device one step is captured as a CUDA graph
 jitted ``lax.scan`` block.  The graph reads slice ``i`` of the block's
 variates, ``i`` a device counter it increments itself, and the DE gamma
 scale from a device scalar filled between blocks.
+
+On a (chain, wn) mesh (parallel.mesh) the ensemble state stays
+replicated: every rank draws the same variates from the same seed, so the
+proposal, the accept and the archive run alike on every rank, and only
+the forward inside the likelihood is split.  The graph captures the
+forward's all-reduce on an NCCL mesh; on a gloo mesh, whose collectives
+cannot be captured, a block is the eager loop.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ import numpy as np
 import torch
 
 __all__ = ["SamplerState", "SnookerVariates", "DemcVariates", "MrwVariates",
-           "UnifVariates", "EnsembleSampler", "StepBuffers", "StepGraph"]
+           "UnifVariates", "EnsembleSampler", "StepBuffers", "StepGraph",
+           "capturable"]
 
 
 def _reflect(x: torch.Tensor, lo: torch.Tensor,
@@ -347,20 +355,27 @@ class EnsembleSampler:
             self._graphs[key] = StepGraph(self, state, nsteps)
         return self._graphs[key]
 
+    def graphs(self, device: torch.device) -> bool:
+        """Whether ``run_block`` replays a captured step by default for a
+        state on ``device``: a CUDA device and a likelihood whose mesh,
+        if any, can be captured (NCCL; a gloo mesh runs the eager
+        loop)."""
+        return device.type == "cuda" and capturable(self.loglike_fn)
+
     def run_block(self, state: SamplerState, generator: torch.Generator,
                   nsteps: int, fgamma: float | None = None,
                   graphed: bool | None = None):
         """Advance ``nsteps`` iterations; the block's variates are drawn
-        first (``draw_block``).  ``graphed`` (by default: whether the
-        state is on a CUDA device) replays the captured step
-        (``step_graph``) instead of the eager loop; it raises rather than
-        run eagerly.  Returns (state, positions [nsteps, nchain, nfree],
-        loglike [nsteps, nchain], models [nsteps, nchain, nmodel]) on the
-        state's device."""
+        first (``draw_block``).  ``graphed`` (by default ``graphs`` of
+        the state's device) replays the captured step (``step_graph``)
+        instead of the eager loop; it raises rather than run eagerly.
+        Returns (state, positions [nsteps, nchain, nfree], loglike
+        [nsteps, nchain], models [nsteps, nchain, nmodel]) on the state's
+        device."""
         fg = self.fgamma if fgamma is None else fgamma
         pos = state.positions
         if graphed is None:
-            graphed = pos.device.type == "cuda"
+            graphed = self.graphs(pos.device)
         if graphed:
             graph = self.step_graph(state, nsteps)
             self.draw_block(generator, nsteps, out=graph.variates)
@@ -375,6 +390,13 @@ class EnsembleSampler:
             lb.append(state.loglike)
             mb.append(state.models)
         return state, torch.stack(pb), torch.stack(lb), torch.stack(mb)
+
+
+def capturable(loglike_fn) -> bool:
+    """Whether a CUDA graph can capture ``loglike_fn``: True unless its
+    forward runs on a mesh whose collectives cannot be captured (gloo)."""
+    mesh = getattr(loglike_fn, "mesh", None)
+    return mesh is None or mesh.capturable
 
 
 class StepBuffers:
@@ -447,6 +469,9 @@ class StepGraph(StepBuffers):
         if dev.type != "cuda":
             raise RuntimeError(f"StepGraph: a CUDA graph needs a CUDA "
                                f"state, got one on {dev}")
+        if not capturable(sampler.loglike_fn):
+            raise RuntimeError("StepGraph: a CUDA graph cannot capture the "
+                               "collectives of a gloo mesh (NCCL only)")
         super().__init__(sampler, state, nsteps)
         for x in self.variates:       # valid draws for the warm-up steps
             x.fill_(0.5)

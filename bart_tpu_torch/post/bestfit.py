@@ -7,7 +7,10 @@ spectrum, atmosphere, PT envelopes and contribution functions all come
 from the forward model on its own device (the batched forward on one
 row, ``diagnostics`` and ``diagnostics_batch``, post/cf.py).
 ``read_mcmc_log`` is a host copy.  matplotlib (post/plots.py) is
-imported inside ``best_fit_outputs`` only.
+imported inside ``best_fit_outputs`` only.  On a (chain, wn) mesh every
+rank calls ``best_fit_outputs``: the best-fit spectrum, the wn grid and
+the extinction are put together from the ranks' wn shards, and rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -61,6 +64,27 @@ def best_fit_outputs(fm, like, space, result, out_dir: str,
     posterior = result.posterior          # [nchain, nfree, niter]
     pnames = result.pnames
 
+    # --- best-fit forward evaluation (callTransit equivalent): the
+    # batched forward and diagnostics on one row; on a mesh, the wn
+    # shards put together (collectives: every rank takes part) ---
+    full_best = space.expand(torch.as_tensor(result.bestp, **f64)[None])
+    if getattr(like, "wlike", False):
+        full_best = full_best[..., :-3]   # drop (gamma, sigma_r, sigma_w)
+    bandflux, spectrum, _ = fm.batched()(full_best)
+    T_best, q_best, rad_cm, ext, _ = (
+        a[0] for a in fm.diagnostics(full_best))
+    wn_t = fm.wn
+    mesh = getattr(fm, "mesh", None)
+    if mesh is not None:
+        n = fm.n_wn_orig
+        spectrum = mesh.gather(spectrum, 1)[:, :n]
+        ext = mesh.gather(ext)[:, :n]
+        wn_t = mesh.gather(wn_t)[:n]
+        if mesh.rank != 0:
+            return
+    wn = wn_t.cpu().numpy()
+    pressure = fm.pressure.cpu().numpy()
+
     # --- MCMC plots (mc3plots equivalents, BART.py:599-604) ---
     # For uniform atmospheres, rebase the fitted log-scale factors to
     # absolute log10 molar fractions (reference mc3plots.py:45-61).
@@ -85,16 +109,6 @@ def best_fit_outputs(fm, like, space, result, out_dir: str,
                     os.path.join(out_dir, "posterior" + fext),
                     offsets=offsets)
 
-    # --- best-fit forward evaluation (callTransit equivalent): the
-    # batched forward and diagnostics on one row ---
-    full_best = space.expand(torch.as_tensor(result.bestp, **f64)[None])
-    if getattr(like, "wlike", False):
-        full_best = full_best[..., :-3]   # drop (gamma, sigma_r, sigma_w)
-    bandflux, spectrum, _ = fm.batched()(full_best)
-    T_best, q_best, rad_cm, ext, _ = (
-        a[0] for a in fm.diagnostics(full_best))
-    wn = fm.wn.cpu().numpy()
-    pressure = fm.pressure.cpu().numpy()
 
     # best-fit spectrum file (outspec format: wavelength um, value;
     # readtransit.py:23-64 contract)
@@ -149,7 +163,7 @@ def best_fit_outputs(fm, like, space, result, out_dir: str,
     if aux.get("outintens") and fm.config.solution in ("eclipse", "direct"):
         from bart_tpu_torch.rt.eclipse import eclipse_intensity
 
-        I = eclipse_intensity(tau, T_best, fm.wn, fm.mu).cpu().numpy()
+        I = eclipse_intensity(tau, T_best, wn_t, fm.mu).cpu().numpy()
         mu = fm.mu.cpu().numpy()
         with open(os.path.join(out_dir, aux["outintens"]), "w") as f:
             f.write("#wvl [um]  I(mu) [erg s-1 cm-2 cm sr-1] per angle "

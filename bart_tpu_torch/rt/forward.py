@@ -209,6 +209,10 @@ class ForwardModel:
             [int(np.where(sp == m)[0][0]) for m in opac_species],
             device=dev)
         self._graphs = {}   # chain count -> _ForwardGraph (graphed())
+        # set by parallel.mesh.shard_model: the (chain, wn) mesh this
+        # model's forward is split over, and the unpadded wn count
+        self.mesh = None
+        self.n_wn_orig = None
         if species_masses is None:
             from bart_tpu_torch.linelist.molecules import get_molecule
 
@@ -317,17 +321,21 @@ class ForwardModel:
                 opacity.sigma.to(device=dev, dtype=dtype), frows))
 
     @staticmethod
-    def _k1_tables(sigma: torch.Tensor, frows: torch.Tensor | None) -> dict:
+    def _k1_tables(sigma: torch.Tensor, frows: torch.Tensor | None,
+                   device: torch.device | None = None) -> dict:
         """The K = 1 model's table in the kernels' layout, laid out once:
         ``tab``, the RowsTable of the line rows [M*nT, L, W] with the
         continuum rows appended, and ``sigma`` [M, nT, L, W] and
         ``frows`` as views of it.  A table that needs neither continuum
-        rows nor padding is taken as it is, not copied."""
+        rows nor padding is taken as it is, not copied.  With ``device``,
+        the table is laid out where the rows are and then moved there."""
         M, nT, L, W = sigma.shape
         blocks = [sigma.reshape(M * nT, L, W)]
         if frows is not None:
             blocks.append(frows)
         tab = rows_table(blocks)
+        if device is not None:
+            tab = RowsTable(tab.tab.to(device), tab.W)
         out = {"tab": tab,
                "sigma": tab.plain()[:M * nT].unflatten(0, (M, nT))}
         if frows is not None:
@@ -401,6 +409,15 @@ class ForwardModel:
     @property
     def mu_w(self) -> torch.Tensor:
         return self._tables["mu_w"]
+
+    def _rehome(self, device: torch.device) -> None:
+        """Point the model at ``device`` (parallel.mesh.shard_model, once
+        it has put the tables there): its device and its index
+        tensors."""
+        self.device = device
+        self.i_metals = self.i_metals.to(device)
+        self.i_opac = self.i_opac.to(device)
+        self._graphs = {}
 
     def tables_from_jax(self, numpy_tables: dict) -> dict:
         """Carry bart_tpu ForwardModel tables (as numpy arrays, under
@@ -477,25 +494,73 @@ class ForwardModel:
     def __call__(self, params: torch.Tensor,
                  tables: dict[str, torch.Tensor] | None = None):
         """params [C, n_params] -> (bandflux [C, nfilt], spectrum [C, W],
-        valid [C] bool)."""
+        valid [C] bool).  On a mesh (parallel.mesh.shard_model) the
+        spectrum is the rank's block of chains on its wn shard
+        (``mesh.gather(spectrum, C)`` puts it together)."""
         t = self._tables if tables is None else tables
-        cfg = self.config
         params = self._params(params)
+        if self.mesh is not None:
+            return self._meshed(params, t)
         T_safe, q, rad_cm, valid = self._profiles(params, t)
         spectrum = self._spectrum(params, t, T_safe, q, rad_cm)
 
-        if cfg.ebalance and cfg.solution in ("eclipse", "direct"):
-            # energy-balance veto (BARTfunc.py:366-383)
-            sysm = self.system
-            e_in = (const.SIGMA_SB * sysm.t_star**4 * sysm.r_star**2
-                    * np.pi * sysm.r_planet**2 / sysm.sma**2
-                    * const.JOULE_TO_ERG)
-            e_out = torch.trapezoid(spectrum, t["wn"], dim=-1) * 4.0 * (
-                sysm.r_planet * 100.0) ** 2
-            valid = valid & (e_out <= e_in)
+        if self._ebalance:
+            e_out = torch.trapezoid(spectrum, t["wn"], dim=-1)
+            valid = valid & self._energy_ok(e_out)
 
         bandflux = band_integrate(t["band_w"], spectrum)
         return bandflux, spectrum, valid
+
+    @property
+    def _ebalance(self) -> bool:
+        return self.config.ebalance and self.config.solution in ("eclipse",
+                                                                 "direct")
+
+    def _energy_ok(self, e_out: torch.Tensor) -> torch.Tensor:
+        """The energy-balance veto (BARTfunc.py:366-383) on the
+        spectrum's integral over wn, e_out [C]."""
+        sysm = self.system
+        e_in = (const.SIGMA_SB * sysm.t_star**4 * sysm.r_star**2
+                * np.pi * sysm.r_planet**2 / sysm.sma**2
+                * const.JOULE_TO_ERG)
+        return e_out * 4.0 * (sysm.r_planet * 100.0) ** 2 <= e_in
+
+    def _meshed(self, params: torch.Tensor, t: dict):
+        """The forward on a mesh: this rank's block of chains on its wn
+        shard, then ONE all-reduce over the world of a zeroed [C, nfilt +
+        1 (+ 1)] buffer holding, in the block's rows, the partial band
+        fluxes, the count of invalid samples and (with the energy
+        balance) the partial integral of the spectrum over wn.  Chain
+        blocks write disjoint rows, so the sum adds the wn shards within
+        a chain and zeros across chains; every wn shard of a chain flags
+        the same samples, so a sample is valid where the count is 0.  The
+        integral is the spectrum against the trapezoid weights of the
+        whole (padded) wn grid, ``wn_trapz``: the weight of a shard's
+        last point carries the half segment to the next shard's first,
+        so no halo point is exchanged."""
+        mesh = self.mesh
+        C = params.shape[0]
+        nf = t["band_w"].shape[0]
+        lo, hi = mesh.chain_block(C)
+        buf = torch.zeros(C, nf + 1 + self._ebalance, dtype=self.dtype,
+                          device=self.device)
+        if hi > lo:
+            p = params[lo:hi]
+            T_safe, q, rad_cm, valid = self._profiles(p, t)
+            spectrum = self._spectrum(p, t, T_safe, q, rad_cm)
+            part = buf[lo:hi]
+            part[:, :nf] = band_integrate(t["band_w"], spectrum)
+            part[:, nf] = (~valid).to(self.dtype)
+            if self._ebalance:
+                part[:, nf + 1] = torch.matmul(spectrum, t["wn_trapz"])
+        else:
+            spectrum = torch.zeros(0, t["wn"].shape[0], dtype=self.dtype,
+                                   device=self.device)
+        mesh.all_reduce(buf)
+        valid = buf[:, nf] == 0
+        if self._ebalance:
+            valid = valid & self._energy_ok(buf[:, nf + 1])
+        return buf[:, :nf], spectrum, valid
 
     def batched(self):
         """The forward over a chain batch as a plain callable."""
@@ -545,10 +610,15 @@ class ForwardModel:
         call with that C.  The callable copies ``params`` into the buffer,
         replays and returns the graph's own output tensors, which the next
         call with the same C overwrites.  Only on a CUDA model: it raises
-        on the CPU, and a failed capture raises."""
+        on the CPU and on a mesh whose collectives cannot be captured
+        (gloo), and a failed capture raises."""
         if self.device.type != "cuda":
             raise RuntimeError(f"ForwardModel.graphed: a CUDA graph needs a "
                                f"CUDA model, this one is on {self.device}")
+        if self.mesh is not None and not self.mesh.capturable:
+            raise RuntimeError(
+                "ForwardModel.graphed: a CUDA graph cannot capture the "
+                f"collectives of a {self.mesh.backend} mesh (NCCL only)")
 
         def forward(params: torch.Tensor):
             C = int(params.shape[0])

@@ -75,15 +75,28 @@ smooth bins.  Phases:
      on the demo list written as a .par (against the numpy parser, bit
      for bit), the lineread CLI on it plus an ExoMol triplet, the widths
      tool
-  6. with ``--trace`` only (after phase 9): a torch.profiler trace of a
+ 10. multi-device execution on gloo ranks that share the card (the
+     ranks are ``chip_smoke.py --phase10-rank`` subprocesses; their
+     times measure overhead, not scaling): per mesh (1x2, 2x1, 2x2) the
+     512-chain eclipse and transit K = 1 forwards and the folded pair
+     with ``fold_adapt=None`` on phase 3's fine table, each rank holding
+     only its shard of the table, its kernels counted and each held on
+     its shard against its plain version, the gathered spectra against
+     the unsharded card forward, the forward's and the all-reduce's time
+     a rank; a 2-chain on-the-fly forward on 1x2; a 3-step snooker block
+     on 2x2 against the unsharded eager block; a world of one NCCL rank
+     whose graphed block (the all-reduce captured) must equal the
+     unmeshed graphed block bit for bit; the dryrun under torchrun
+  6. with ``--trace`` only (after phase 10): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
      time and the five stages of the forward during which the device
      idled longest (a graph replay runs no stage)
 
 Each path's launch counts are zeroed just before its phase 3 (phases 7
-and each CLI run of 8, and 9: just before it) and read just after its
-phase 4 (phases 7, 8 and 9: at its end): the wrappers count in Python, so
+and each CLI run of 8, and 9: just before it; phase 10: in each rank,
+before its forwards) and read just after its phase 4 (phases 7, 8 and 9:
+at its end; phase 10: after the forwards): the wrappers count in Python, so
 they see the
 eager launches and each graph capture, never a replay.  The kernels'
 ``launches`` are counted on the device instead: each path's kernels in
@@ -97,6 +110,8 @@ and the result JSON.
     python3 chip_smoke.py --trace     # all phases, then phase 6
     python3 chip_smoke.py --cli       # phases 0-1, then phase 8
     python3 chip_smoke.py --phase9    # phases 0-1, phase 3's table, phase 9
+    python3 chip_smoke.py --phase10   # phases 0-1, phase 3's table, a
+                                      # 320-bin fine table, phase 10
 """
 
 from __future__ import annotations
@@ -1886,6 +1901,569 @@ def phase9(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
     return dict(otf=otf, osamp=osamp, host=host, counts=counts,
                 seconds=took)
 
+
+#: phase 10: the meshes of gloo ranks that share the card (name ->
+#: (n_chain, n_wn)); the chains of a forward; the chains a folded plain
+#: version takes a call when it is held against its kernel on a rank's
+#: whole block (it holds [C, L, W K] temporaries: 16 chains are ~0.3 GB a
+#: tensor on half the fine grid);
+#: the on-the-fly forward's chains and byte budget (two ranks hold their
+#: temporaries at once); the steps of the meshed snooker block and the
+#: share of its chains whose accept decisions may differ from the
+#: unsharded block's (float32 band sums added in another order can flip
+#: a decision that sits on the edge); the output bins of the fine build
+#: under --phase10; the sharded spectra against the unsharded card
+#: forward; seconds a group of ranks may take
+MESH_LAYOUTS = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
+MESH_CHAINS, MESH_FOLD_CHAINS = 512, 16
+MESH_OTF_CHAINS, MESH_OTF_BUDGET = 2, 4e9
+MESH_BLOCK_STEPS, MESH_FLIP_SHARE = 3, 0.01
+MESH_FOLD_BINS, MESH_SPEC_RTOL = 320, 1e-6
+MESH_TIMEOUT = 300
+
+
+def mesh_inputs(inp, n_out: int):
+    """The demo inputs cut to the first ``n_out`` output bins (the
+    filters that lie inside them): the output grid of a fine table built
+    on those bins."""
+    import dataclasses
+
+    if n_out == len(inp.wn):
+        return inp
+    top = inp.wn[n_out - 1]
+    return dataclasses.replace(
+        inp, wn=inp.wn[:n_out], star_flux=inp.star_flux[:n_out],
+        filters=[f for f in inp.filters if f[0][-1] < top])
+
+
+def mesh_models(inp, grid, fine, device, cases) -> dict:
+    """Phase 10's models on ``device``: eclipse (raygrid) and transit
+    (CIA) on the K = 1 table ``grid``; folded eclipse (expsum) and transit
+    (CIA) with ``fold_adapt=None`` and bfloat16 fine rows on ``fine``; the
+    on-the-fly eclipse model on the demo lines' uniform tiles."""
+    import torch
+
+    from bart_tpu_torch import constants as const
+    from bart_tpu_torch.demo import build_demo_model
+    from bart_tpu_torch.linelist.molecules import get_molecule
+    from bart_tpu_torch.obs.bands import build_band_matrix
+    from bart_tpu_torch.opacity.extinction import (BroadeningSpec,
+                                                   tile_lines, wing_cutoff)
+    from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
+
+    f32 = dict(device=device, dtype=torch.float32)
+    out = {}
+    for case in cases:
+        if case in ("eclipse", "transit"):
+            out[case] = build_demo_model(inp, grid=grid, solution=case,
+                                         cia=case == "transit", **f32)
+        elif case.startswith("folded"):
+            solution = case.split("-")[1]
+            sub = mesh_inputs(inp, fine.sigma.shape[-1] // FOLD_K)
+            out[case] = build_demo_model(
+                sub, grid=fine, solution=solution, cia=solution == "transit",
+                quadrature="expsum" if solution == "eclipse" else "raygrid",
+                fold=FOLD_K, fold_adapt=None, fold_bf16=True, **f32)
+        else:                                    # on the fly
+            spec, mol = BroadeningSpec(), get_molecule("CH4")
+            cutoff = wing_cutoff(20.0, float(inp.wn[-1]),
+                                 float(inp.t_grid[0]),
+                                 float(inp.pressure[-1])
+                                 * const.BAR_TO_BARYE, mol.mass * const.AMU,
+                                 mol.diameter * 1e-8, spec)
+            tiles = tile_lines(inp.lines, inp.wn, cutoff, tile_size=256,
+                               **f32)
+            out[case] = ForwardModel(
+                ForwardConfig(**inp.config_kwargs), wn_grid=inp.wn,
+                pressure=inp.pressure, species=inp.species,
+                base_abundances=inp.base_q, opacity={"CH4": tiles},
+                system=inp.system, bands=build_band_matrix(
+                    inp.wn, inp.filters, star_flux=inp.star_flux,
+                    rprs=inp.system.rprs, **f32),
+                broadening=spec, nwidth=20.0, budget_bytes=MESH_OTF_BUDGET,
+                **f32)
+    return out
+
+
+def held_table(fm):
+    """(the columns in use of the model's wn-indexed table, its wn axis):
+    the K = 1 table [R, L, W], the folded one [R, L, W, K], or the first
+    species' line tiles [n_tiles, lines]."""
+    t = fm.tables
+    if "tabk" in t:
+        return t["tabk"].bins(), 2
+    if "tab" in t:
+        return t["tab"].plain(), 2
+    return t["lt0_wn0"], 0
+
+
+def mesh_params(case: str, nchain: int) -> np.ndarray:
+    """The chains of a phase-10 forward: around the demo parameters (the
+    transit radius spread by 10 km), as phase 3's."""
+    from bart_tpu_torch.demo import DEMO_PARAMS, DEMO_PARAMS_TRANSIT
+
+    transit = case.endswith("transit")
+    base = DEMO_PARAMS_TRANSIT if transit else DEMO_PARAMS
+    spread = np.where(np.arange(len(base)) == 5, 10.0, 0.005) \
+        if transit else 0.005
+    rng = np.random.default_rng(10 + len(case))
+    return np.tile(base, (nchain, 1)) + rng.normal(
+        0, 1, (nchain, len(base))) * spread
+
+
+def mesh_kernel_checks(fused, fm, params, case: str) -> dict:
+    """The case's kernel on this rank's whole block of chains and its wn
+    shard, held against its plain version on the same rows: {kernel:
+    (spectrum or out rel err, band rel err of the shard's partial
+    bands)}.  The folded plain versions run on MESH_FOLD_CHAINS chains at
+    a time (they hold [C, L, W K] temporaries) and their slices are put
+    back together, so every row the path launches is compared."""
+    import torch
+
+    from bart_tpu_torch.obs.bands import band_integrate
+    from bart_tpu_torch.rt.transit_geom import slant_geometry
+
+    t = fm.tables
+    lo, hi = fm.mesh.chain_block(params.shape[0])
+    p = fm._params(params[lo:hi])
+    T, q, rad, _ = fm._profiles(p, t)
+    ((tab, folded, wn_p, _),), wrows = fm._fused_rows(p, t, T, q, rad)
+    C = wrows.shape[0]
+
+    def sliced(plain, head, tail, *per_chain):
+        """``plain(*head, *per_chain, *tail)`` on MESH_FOLD_CHAINS chains
+        of ``per_chain`` a call, the slices concatenated."""
+        n = MESH_FOLD_CHAINS
+        return torch.cat([plain(*head, *(x[i:i + n] for x in per_chain),
+                                *tail) for i in range(0, C, n)])
+
+    if case.endswith("transit"):
+        G, wgt = slant_geometry(rad)
+        if folded:
+            name, got = "fused_transit_folded", fused.fused_transit_folded(
+                tab, wrows, G, wgt)
+            ref = sliced(fused.transit_folded_plain, (tab,), (), wrows, G,
+                         wgt)
+        else:
+            name, got = "fused_transit", fused.fused_transit(tab, wrows, G,
+                                                             wgt)
+            ref = fused.transit_plain(tab.plain(), wrows, G, wgt)
+        r2 = (fm.system.r_star * 100.0) ** 2
+        got_s, ref_s = ((rad[:, -1:] ** 2 + x) / r2 for x in (got, ref))
+    else:
+        dr = rad[:, :-1] - rad[:, 1:]
+        drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
+        tail = (wn_p, t["mu"], t["mu_w"], wrows, T, drp, fm._powers)
+        if folded:
+            name = "fused_eclipse_folded"
+            got = fused.fused_eclipse_folded(tab, *tail)
+            ref = sliced(fused.eclipse_folded_plain,
+                         (tab, wn_p, t["mu"], t["mu_w"]), (fm._powers,),
+                         wrows, T, drp)
+        else:
+            name = "fused_eclipse"
+            got = fused.fused_eclipse(tab, *tail)
+            ref = fused.eclipse_plain(tab.plain(), *tail)
+        got_s, ref_s = got, ref
+    check(got.shape == ref.shape and got.shape[0] == C,
+          f"{name}: kernel {tuple(got.shape)}, plain {tuple(ref.shape)}")
+    return {name: (rel_err(got, ref), rel_err(
+        band_integrate(t["band_w"], got_s), band_integrate(t["band_w"],
+                                                           ref_s)))}
+
+
+def mesh_block(fm, seed: int = 11):
+    """A MESH_BLOCK_STEPS-step snooker block of MESH_CHAINS chains on the
+    eclipse model (eager: on a gloo mesh the step cannot be captured),
+    from uniform starts: (positions [steps, chains, nfree], the initial
+    positions)."""
+    import torch
+
+    from bart_tpu_torch.demo import DEMO_PARAMS, TRUTH
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+    from bart_tpu_torch.inference.samplers import EnsembleSampler
+
+    data = fm(torch.tensor(TRUTH[None]))[0][0].double().cpu().numpy()
+    space = ParamSpace(pinit=DEMO_PARAMS, pmin=[-5, -2, -2, 0, 0.55, -9],
+                       pmax=[-1, 1, 1, 1, 1.2, 1.5],
+                       stepsize=[0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
+    like = Likelihood(fm, space, data, 0.03 * data)
+    sampler = EnsembleSampler(
+        loglike_fn=like, nfree=space.nfree, nmodel=len(data),
+        nchains=MESH_CHAINS, walk="snooker", pmin=space.free_min,
+        pmax=space.free_max, stepsize=space.stepsize[space.ifree])
+    gen = torch.Generator(device=fm.device).manual_seed(seed)
+    state = sampler.init_state(gen)
+    pos0 = state.positions.cpu().numpy()
+    _, pb, _, _ = sampler.run_block(state, gen, MESH_BLOCK_STEPS,
+                                    graphed=False)
+    return pb.cpu().numpy(), pos0
+
+
+def accept_decisions(pb: np.ndarray, pos0: np.ndarray) -> np.ndarray:
+    """[steps, chains] bool: whether each step moved each chain."""
+    prev = np.concatenate([pos0[None], pb[:-1]])
+    return np.any(pb != prev, axis=-1)
+
+
+def mesh_timed(fn, nrep: int = 5) -> float:
+    """Median ms of ``nrep`` calls, each synchronised (a rank's calls wait
+    for the other ranks' at the collective)."""
+    import torch
+
+    times = []
+    for _ in range(nrep + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times[1:]))
+
+
+def phase10_rank(job: str, rank: int, world: int, n_chain: int,
+                 backend: str) -> int:
+    """One rank of phase 10 (``chip_smoke.py --phase10-rank``): the
+    models of the job on the host, sharded onto cuda:0 over the mesh;
+    every case's forward with the kernels' counts zeroed just before and
+    read just after; then each kernel on the shard against its plain
+    version, the gathered spectra (rank 0 saves them), the per-rank
+    forward and collective times, the table bytes; with ``block`` the
+    meshed snooker block; with ``nccl`` (a world of one NCCL rank) the
+    graphed eclipse block with its all-reduce captured against the
+    unmeshed graphed block, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from bart_tpu_torch.demo import demo_inputs
+    from bart_tpu_torch.opacity.grid import load_grid
+    from bart_tpu_torch.parallel import (init_distributed, make_mesh,
+                                         shard_model)
+    from bart_tpu_torch.rt import fused
+
+    torch.set_num_threads(max(1, 8 // world))
+    meta = json.load(open(os.path.join(job, "job.json")))
+    init_distributed(f"file://{job}/rendezvous", world, rank,
+                     backend=backend, device="cuda:0",
+                     timeout_s=MESH_TIMEOUT)
+    mesh = make_mesh(n_chain, device="cuda:0")
+    inp = demo_inputs()
+    grid = load_grid(meta["grid"], device="cpu")
+    fine = load_grid(meta["fine"], device="cpu") if meta.get("fine") else None
+    out = {"rank": rank, "chain": mesh.chain, "wn": mesh.wn, "cases": {}}
+    models = mesh_models(inp, grid, fine, "cpu", meta["cases"])
+    for case, fm in models.items():
+        full, axis = held_table(fm)
+        n = full.shape[axis]
+        shard_model(fm, mesh)
+        held = held_table(fm)[0]
+        out["cases"][case] = {
+            "held_bytes": held.nbytes, "full_bytes": full.nbytes,
+            "padded_bytes": full.nbytes // n * (n + (-n) % mesh.n_wn),
+            "device": str(held.device),
+            "on_mesh_device": held.device == mesh.device}
+    kernels = (fused.fused_eclipse, fused.fused_transit,
+               fused.fused_eclipse_folded, fused.fused_transit_folded)
+    params = {case: torch.tensor(mesh_params(
+        case, MESH_OTF_CHAINS if case == "onthefly" else MESH_CHAINS),
+        dtype=torch.float32) for case in models}
+    results = {}
+    for k in kernels:
+        k.launches = 0                           # phase 10's path starts
+    for case, fm in models.items():
+        n0 = mesh.collectives
+        results[case] = fm(params[case])
+        out["cases"][case]["collectives"] = mesh.collectives - n0
+    torch.cuda.synchronize()
+    out["launches"] = {k.__name__: k.launches for k in kernels}  # it ends
+    saved = {}
+    for case, fm in models.items():
+        band, spec, valid = results[case]
+        C = params[case].shape[0]
+        rec = out["cases"][case]
+        rec["local_shape"] = list(spec.shape)
+        if case != "onthefly":
+            t0 = time.perf_counter()
+            rec["kernel_vs_plain"] = mesh_kernel_checks(fused, fm,
+                                                        params[case], case)
+            torch.cuda.synchronize()
+            rec["check_s"] = time.perf_counter() - t0
+        whole = fm.mesh.gather(spec, C)
+        saved[f"{case}/band"] = band.cpu().numpy()
+        saved[f"{case}/valid"] = valid.cpu().numpy()
+        saved[f"{case}/spectrum"] = whole.cpu().numpy()
+        buf = torch.zeros(C, band.shape[1] + 1, device=fm.device)
+        rec["forward_ms"] = mesh_timed(lambda: fm(params[case]),
+                                       1 if case == "onthefly" else 5)
+        rec["all_reduce_ms"] = mesh_timed(lambda: mesh.all_reduce(buf))
+    if meta.get("block"):
+        pb, pos0 = mesh_block(models["eclipse"])
+        saved["block/positions"], saved["block/pos0"] = pb, pos0
+    if meta.get("nccl"):
+        out["nccl"] = nccl_graphed_block(models["eclipse"], inp, mesh)
+    if rank == 0:
+        np.savez(os.path.join(job, "rank0.npz"), **saved)
+    with open(os.path.join(job, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_graphed_block(fm_mesh, inp, mesh) -> dict:
+    """On a world of one NCCL rank: the graphed 512-chain eclipse block
+    (StepGraph, BLOCK steps) on the meshed model, whose captured step
+    holds the band-flux all-reduce, against the same block on an
+    unmeshed model of the same table; bit for bit."""
+    import torch
+
+    from bart_tpu_torch.demo import DEMO_PARAMS, TRUTH, build_demo_model
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+    from bart_tpu_torch.inference.samplers import (EnsembleSampler,
+                                                   StepGraph)
+
+    check(mesh.capturable, f"a {mesh.backend} mesh is not capturable")
+    fm_plain = build_demo_model(inp, grid=fm_mesh.opacity,
+                                device=fm_mesh.device)
+    blocks = []
+    for fm in (fm_mesh, fm_plain):
+        data = fm(torch.tensor(TRUTH[None]))[0][0].double().cpu().numpy()
+        space = ParamSpace(pinit=DEMO_PARAMS,
+                           pmin=[-5, -2, -2, 0, 0.55, -9],
+                           pmax=[-1, 1, 1, 1, 1.2, 1.5],
+                           stepsize=[0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
+        like = Likelihood(fm, space, data, 0.03 * data)
+        sampler = EnsembleSampler(
+            loglike_fn=like, nfree=space.nfree, nmodel=len(data),
+            nchains=MESH_CHAINS, walk="snooker", pmin=space.free_min,
+            pmax=space.free_max, stepsize=space.stepsize[space.ifree])
+        gen = torch.Generator(device=fm.device).manual_seed(5)
+        state = sampler.init_state(gen)
+        n0 = mesh.collectives
+        out = sampler.run_block(state, gen, BLOCK)
+        check(isinstance(sampler.step_graph(state, BLOCK), StepGraph),
+              "the block did not replay a captured step")
+        n = mesh.collectives - n0
+        # ms a graphed step: blocks from the block's end state, the
+        # variates drawn as run_mcmc draws them
+        step_ms = mesh_timed(lambda: sampler.run_block(out[0], gen, BLOCK),
+                             3) / BLOCK
+        blocks.append((out, n, step_ms))
+    (a, n_mesh, ms_mesh), (b, _, ms_plain) = blocks
+    same = all(torch.equal(x, y) for x, y in zip(
+        (a[1], a[2], a[3], *a[0]), (b[1], b[2], b[3], *b[0])))
+    return {"bit_equal": same, "python_collectives": n_mesh,
+            "accept": float(a[0].naccept.sum()) / (BLOCK * MESH_CHAINS),
+            "step_ms": ms_mesh, "plain_step_ms": ms_plain}
+
+
+def run_ranks(work: str, name: str, n_chain: int, n_wn: int, backend: str,
+              what: dict) -> tuple:
+    """One group of phase-10 ranks (``chip_smoke.py --phase10-rank``
+    subprocesses: a process with a CUDA context must not fork) on
+    cuda:0, within MESH_TIMEOUT s: (each rank's record, rank 0's arrays,
+    seconds)."""
+    job = os.path.join(work, name)
+    os.makedirs(job)
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump(what, f)
+    world = n_chain * n_wn
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase10-rank", job,
+         str(r), str(world), str(n_chain), backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=MESH_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0,
+              f"phase 10 {name} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    recs = [json.load(open(os.path.join(job, f"rank{r}.json")))
+            for r in range(world)]
+    return recs, dict(np.load(os.path.join(job, "rank0.npz"))), \
+        time.perf_counter() - t0
+
+
+def phase10(fused, fm, fine, inp, smi: str) -> dict:
+    """Phase 10: multi-device execution on gloo ranks that share the card
+    (their timings measure overhead and correctness, not scaling).  The
+    K = 1 table of phase 3 and the fine table go to files that each rank
+    loads on the host; per mesh (1x2, 2x1, 2x2) the ranks shard eclipse
+    and transit K = 1 and the folded pair (``fold_adapt=None``), run each
+    512-chain forward with the kernels counted, hold each kernel on its
+    shard against its plain version, and gather the spectra, which are
+    held against the unsharded card forward at the same wavenumbers; 1x2
+    also runs a 2-chain on-the-fly forward, 2x2 a 3-step snooker block
+    against the unsharded eager block.  Then a world of one NCCL rank
+    (the graphed block with its all-reduce captured, against the
+    unmeshed graphed block, bit for bit) and the dryrun under torchrun
+    on four gloo ranks."""
+    import shutil
+
+    import torch
+
+    from bart_tpu_torch.opacity.grid import save_grid
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase10")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    files = {"grid": os.path.join(work, "grid.npz"),
+             "fine": os.path.join(work, "fine.npz")}
+    save_grid(fm.opacity, files["grid"])
+    save_grid(fine, files["fine"])
+    n_out = fine.sigma.shape[-1] // FOLD_K
+    dev = fm.device
+    cases = ["eclipse", "transit", "folded-eclipse", "folded-transit"]
+
+    # the unsharded references on the card
+    refs = {}
+    models = mesh_models(inp, fm.opacity, fine, dev, cases + ["onthefly"])
+    for case, m in models.items():
+        nch = MESH_OTF_CHAINS if case == "onthefly" else MESH_CHAINS
+        refs[case] = [x.cpu().numpy() for x in m(torch.tensor(
+            mesh_params(case, nch), dtype=torch.float32, device=dev))]
+    block_ref = mesh_block(models["eclipse"])
+    del models
+    torch.cuda.empty_cache()
+    print(f"# phase 10: unsharded references on the card in "
+          f"{time.perf_counter() - t_phase:.1f} s (folded on {n_out} output "
+          f"bins x {FOLD_K})")
+
+    out = {"layouts": {}}
+    for name, (n_chain, n_wn) in MESH_LAYOUTS.items():
+        recs, saved, secs = run_ranks(
+            work, name, n_chain, n_wn, "gloo",
+            {**files, "cases": cases + (["onthefly"] if name == "1x2"
+                                        else []),
+             "block": name == "2x2"})
+        out["layouts"][name] = mesh_layout_checks(
+            name, n_wn, recs, saved, refs, block_ref, secs, smi)
+
+    recs, _, secs = run_ranks(work, "nccl", 1, 1, "nccl",
+                              {**files, "cases": ["eclipse"], "nccl": True})
+    nc = recs[0]["nccl"]
+    print(f"# phase 10 ({smi}): a world of one NCCL rank: the graphed "
+          f"{MESH_CHAINS}-chain eclipse block ({BLOCK} steps, the "
+          f"band-flux all-reduce captured in the step; accept "
+          f"{nc['accept']:.3f}) against the unmeshed graphed block: "
+          f"{'bit for bit' if nc['bit_equal'] else 'DIFFERENT'}; "
+          f"{nc['python_collectives']} all-reduces counted in Python (the "
+          f"warm-ups and the capture; replays are not counted); a graphed "
+          f"step {nc['step_ms']:.3f} ms meshed, {nc['plain_step_ms']:.3f} ms "
+          f"unmeshed (median of 3 blocks); {secs:.1f} s")
+    check(nc["bit_equal"], "the NCCL-meshed graphed block differs from the "
+          "unmeshed one")
+    out["nccl"] = nc
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "4", "-m", "bart_tpu_torch.parallel.dryrun",
+         "--backend", "gloo", "--device", "cuda:0", "--timeout",
+         str(MESH_TIMEOUT)],
+        cwd=root, env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [root, os.environ.get("PYTHONPATH", "")])},
+        capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    lines = [x for x in proc.stdout.splitlines() if ": OK" in x]
+    for x in lines:
+        print(f"# phase 10: dryrun: {x}")
+    check(proc.returncode == 0 and len(lines) == 3,
+          f"the dryrun failed ({proc.returncode}):\n{proc.stdout[-3000:]}"
+          f"\n{proc.stderr[-3000:]}")
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 10 ({smi}): dryrun under torchrun (4 gloo ranks on the "
+          f"card) {out['dryrun_s']:.1f} s; phase 10 {out['seconds']:.1f} s")
+    return out
+
+
+def mesh_layout_checks(name, n_wn, recs, saved, refs, block_ref, secs,
+                       smi) -> dict:
+    """Phase 10's checks and lines for one mesh: each rank's collectives,
+    table bytes, kernels launched and kernels against their plain
+    versions; the gathered spectra and bands against the unsharded card
+    forward; with the block, the share of chains whose accept decisions
+    differ."""
+    tol = {"fused_eclipse": SPEC_RTOL[False], "fused_transit": OUT_RTOL,
+           "fused_eclipse_folded": SPEC_RTOL[True],
+           "fused_transit_folded": OUT_RTOL}
+    launches = [r["launches"] for r in recs]
+    for r, n in enumerate(launches):
+        check(all(v >= 1 for v in n.values()),
+              f"phase 10 {name} rank {r} did not launch every kernel: {n}")
+    res = {"launches": launches, "seconds": secs, "cases": {}}
+    for case in recs[0]["cases"]:
+        per = [r["cases"][case] for r in recs]
+        for r, c in enumerate(per):
+            check(c["collectives"] == 1,
+                  f"{name} {case} rank {r}: {c['collectives']} collectives")
+            check(c["on_mesh_device"], f"{name} {case}: {c['device']}")
+            check(c["held_bytes"] * n_wn == c["padded_bytes"],
+                  f"{name} {case} rank {r}: {c['held_bytes']} B x {n_wn} "
+                  f"!= {c['padded_bytes']} B")
+        band, spec, valid = refs[case]
+        n = spec.shape[1]
+        g_spec = saved[f"{case}/spectrum"][:, :n]
+        e_spec = float(np.max(np.abs(g_spec.astype(np.float64) - spec)
+                              / np.maximum(np.abs(spec), 1e-300)))
+        e_band = float(np.max(np.abs(saved[f"{case}/band"].astype(
+            np.float64) - band) / np.maximum(np.abs(band), 1e-300)))
+        check(np.array_equal(saved[f"{case}/valid"], valid),
+              f"{name} {case}: valid differs")
+        check(e_spec < MESH_SPEC_RTOL, f"{name} {case}: spectrum {e_spec}")
+        check(e_band < BAND_RTOL, f"{name} {case}: band {e_band}")
+        errs = {}
+        for c in per:
+            for k, (e, eb) in c.get("kernel_vs_plain", {}).items():
+                check(e < tol[k] and eb < BAND_RTOL,
+                      f"{name} {case}: {k} vs plain {e}, band {eb}")
+                errs[k] = max(errs.get(k, (0, 0))[0], e), max(
+                    errs.get(k, (0, 0))[1], eb)
+        fwd = max(c["forward_ms"] for c in per)
+        ar = max(c["all_reduce_ms"] for c in per)
+        res["cases"][case] = {"spectrum_rel": e_spec, "band_rel": e_band,
+                              "kernel_vs_plain": errs, "forward_ms": fwd,
+                              "all_reduce_ms": ar,
+                              "held_bytes": per[0]["held_bytes"],
+                              "full_bytes": per[0]["full_bytes"],
+                              "local_shape": [c["local_shape"] for c in per]}
+        kp = "; ".join(f"{k} vs plain {e:.2e} (bands {eb:.2e})"
+                       for k, (e, eb) in errs.items())
+        print(f"# phase 10 ({smi}): {name} {case}: gathered spectrum vs the "
+              f"unsharded card forward max rel {e_spec:.3e}, bands "
+              f"{e_band:.3e}; {kp or 'no fused kernel'}; forward "
+              f"{fwd:.2f} ms a rank (slowest), all-reduce {ar:.3f} ms "
+              f"({ar / fwd:.1%}); table {per[0]['held_bytes'] / 2**20:.2f} "
+              f"of {per[0]['full_bytes'] / 2**20:.2f} MiB a rank; local "
+              f"spectra {[c['local_shape'] for c in per]}")
+    if "block/positions" in saved:
+        ref_pb, ref_pos0 = block_ref
+        check(np.array_equal(saved["block/pos0"], ref_pos0),
+              f"{name}: the block's initial positions differ")
+        d_ref = accept_decisions(ref_pb, ref_pos0)
+        d = accept_decisions(saved["block/positions"], saved["block/pos0"])
+        flips = float(np.mean(np.any(d != d_ref, axis=0)))
+        res["block_flip_share"] = flips
+        print(f"# phase 10: {name}: {MESH_BLOCK_STEPS}-step snooker block of "
+              f"{MESH_CHAINS} chains (eager: gloo) against the unsharded eager "
+              f"block: accept decisions differ on {flips:.4f} of chains; "
+              f"accept {d.mean():.3f} (unsharded {d_ref.mean():.3f})")
+        check(flips <= MESH_FLIP_SHARE, f"{name}: {flips} of chains flipped")
+    res["check_s"] = max(sum(c.get("check_s", 0.0)
+                             for c in r["cases"].values()) for r in recs)
+    print(f"# phase 10: {name}: launches counted in each rank {launches}; "
+          f"{secs:.1f} s for the group, of which the kernel-vs-plain checks "
+          f"{res['check_s']:.1f} s (the slowest rank)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1894,6 +2472,10 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--phase10-rank"]:
+        job, rank, world, n_chain, backend = sys.argv[2:7]
+        return phase10_rank(job, int(rank), int(world), int(n_chain),
+                            backend)
     from bart_tpu_torch.demo import (DEMO_PARAMS, TRUTH, build_demo_model,
                                      demo_inputs, random_rows)
     from bart_tpu_torch.device import resolve_device
@@ -1980,6 +2562,24 @@ def main() -> int:
                                grid=fm.opacity, solution="transit",
                                cia=True)
         phase9(fused, fm, fmt, inp_full, f32, smi.strip())
+        return 0
+    if "--phase10" in sys.argv[1:]:
+        from bart_tpu_torch.opacity.grid import build_opacity_grid
+        from bart_tpu_torch.utils.grids import folded_fine_grid
+
+        fm = build_demo_model(inp_full, device=dev, dtype=torch.float32,
+                              budget_bytes=8e9)
+        t0 = time.perf_counter()
+        fine = build_opacity_grid(
+            {"CH4": inp_full.lines},
+            folded_fine_grid(inp_full.wn[:MESH_FOLD_BINS], FOLD_K),
+            inp_full.t_grid, inp_full.pressure, budget_bytes=24e9,
+            device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        print(f"# phase 10: the fine table of the first {MESH_FOLD_BINS} "
+              f"output bins {tuple(fine.sigma.shape)} built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        phase10(fused, fm, fine, inp_full, smi.strip())
         return 0
     fused.fused_eclipse.launches = 0   # comparisons do not count
 
@@ -2108,6 +2708,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p9 = phase9(fused, fm, tpath["fm"], inp_full, f32, smi.strip())
 
+    # --- phase 10: the (chain, wn) mesh of ranks sharing the card ------
+    torch.cuda.empty_cache()
+    p10 = phase10(fused, fm, fpath["fm"].opacity, inp_full, smi.strip())
+
     # --- phase 6 (--trace): where the forwards' wall time goes ---------
     if "--trace" in sys.argv[1:]:
         trace_forwards({
@@ -2175,6 +2779,10 @@ def main() -> int:
                                  if name in run["counts"]},
                 # phase 9: the wrapper's count over its runs
                 "phase9_launches": p9["counts"].get(name, 0),
+                # phase 10: the wrapper's count in each rank of each mesh
+                "phase10_launches": {
+                    lay: [n[name] for n in r["launches"]]
+                    for lay, r in p10["layouts"].items()},
                 "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "bound_term": bnd[2],
                 # share of the bound's FMAs on tensor cores, in which

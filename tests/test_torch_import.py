@@ -114,7 +114,8 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
     "build_band_matrix", "tile_lines_bucketed", "tile_lines",
     "load_checkpoint",
     "Likelihood", "contribution_functions", "transmittance",
-    "band_average", "Pipeline", "cli.main"])
+    "band_average", "Pipeline", "cli.main", "init_distributed",
+    "local_device", "dryrun.main"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without ``device=`` and without a card, every entry point
     that creates tensors raises: none falls back to the CPU."""
@@ -136,6 +137,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
                                                    tile_lines_bucketed)
     from bart_tpu_torch.opacity.grid import (OpacityGrid, build_opacity_grid,
                                              load_grid, save_grid)
+    from bart_tpu_torch.parallel import dryrun, init_distributed, local_device
     from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
 
     inp = demo_inputs(nlayer=4, nwave=32, nlines=10, t_step=1300.0)
@@ -181,7 +183,13 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         # the driver: without --device, even --validate asks for the card
         "Pipeline": lambda: Pipeline(cfg),
         "cli.main": lambda: cli.main(["-c", demo_cfg, "--validate"]),
+        # a rank's device: cuda:{LOCAL_RANK} unless the caller names one
+        "init_distributed": lambda: init_distributed(
+            f"file://{tmp_path}/rdzv", 1, 0),
+        "local_device": lambda: local_device(),
+        "dryrun.main": lambda: dryrun.main([]),
     }
+    monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
 
@@ -400,4 +408,51 @@ def test_onthefly_and_line_list_entry_points_run_without_jax(tmp_path):
         print("ok")
     """)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), \
+        proc.stdout + proc.stderr
+
+
+def test_parallel_imports_and_runs_without_jax(tmp_path):
+    """bart_tpu_torch.parallel (distributed, mesh, dryrun) and the lazy
+    make_mesh/shard_model exports with jax and bart_tpu blocked; no group
+    without a world size; a one-rank gloo group on the CPU, a 1x1 mesh,
+    a sharded forward equal to the unsharded one and one collective."""
+    proc = _run(f"""
+        import os, sys
+        sys.modules["jax"] = None
+        sys.modules["bart_tpu"] = None
+        import numpy as np, torch
+        import bart_tpu_torch
+        import bart_tpu_torch.parallel.dryrun
+        from bart_tpu_torch.parallel import (init_distributed, is_multihost,
+                                             make_mesh)
+        from bart_tpu_torch.demo import DEMO_PARAMS, build_demo_model, demo_inputs
+        assert bart_tpu_torch.make_mesh is make_mesh
+        shard_model = bart_tpu_torch.shard_model
+        torch.set_num_threads(2)
+        os.environ.pop("WORLD_SIZE", None)
+        assert init_distributed(device="cpu") is False
+        try:
+            make_mesh(1, 1, device="cpu")
+            raise AssertionError("make_mesh without a group")
+        except RuntimeError:
+            pass
+        assert init_distributed("file://{tmp_path}/rdzv", 1, 0,
+                                device="cpu") is False
+        assert not is_multihost()
+        mesh = make_mesh(1, 1, device="cpu")
+        assert mesh.shape == {{"chain": 1, "wn": 1}} and not mesh.capturable
+        inp = demo_inputs(nlayer=6, nwave=64, nlines=40, t_step=1300.0)
+        fm = build_demo_model(inp, dtype=torch.float64, budget_bytes=1e7,
+                              device="cpu")
+        ref = fm(torch.tensor(DEMO_PARAMS[None]))
+        shard_model(fm, mesh)
+        got = fm(torch.tensor(DEMO_PARAMS[None]))
+        assert mesh.collectives == 1 and fm.n_wn_orig == 64
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert not any(k.split(".")[0] in ("jax", "bart_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
         proc.stdout + proc.stderr
