@@ -19,7 +19,12 @@ Public API entry points (lazily imported):
                                                   (snooker, demc, mrw, unif)
     bart_tpu_torch.run_mcmc                       the retrieval
     bart_tpu_torch.build_opacity_grid             the opacity table build
+    bart_tpu_torch.Pipeline / load_config         the staged CLI pipeline
+    bart_tpu_torch.load_tli / save_tli            line databases (TLI)
     bart_tpu_torch.make_mesh / shard_model        multi-device execution
+
+The CLI is ``python -m bart_tpu_torch -c cfg`` or, installed, the
+``bart-tpu-torch`` console script.
 """
 
 __version__ = "0.1.0"
@@ -35,6 +40,10 @@ _LAZY = {
     "build_opacity_grid": ("bart_tpu_torch.opacity.grid",
                            "build_opacity_grid"),
     "resolve_device": ("bart_tpu_torch.device", "resolve_device"),
+    "Pipeline": ("bart_tpu_torch.driver.pipeline", "Pipeline"),
+    "load_config": ("bart_tpu_torch.driver.config", "load_config"),
+    "load_tli": ("bart_tpu_torch.linelist.tli", "load_tli"),
+    "save_tli": ("bart_tpu_torch.linelist.tli", "save_tli"),
     "make_mesh": ("bart_tpu_torch.parallel.mesh", "make_mesh"),
     "shard_model": ("bart_tpu_torch.parallel.mesh", "shard_model"),
 }

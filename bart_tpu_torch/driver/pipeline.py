@@ -128,6 +128,10 @@ class Pipeline:
 
         with timer("forward_setup"):
             fm, like, space = self.stage_forward(atm, wn, grid)
+        if cfg.fold_K > 1:
+            # a folded model keeps its own tables (bin-mean, folded and
+            # smooth): the fine table is not read again, so let it go
+            fm.opacity = grid = None
         if self.just_plots:
             result = None
         else:

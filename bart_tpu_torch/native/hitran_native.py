@@ -2,12 +2,12 @@
 (hitran_scan.cpp; this package's own copy of
 bart_tpu/native/hitran_native.py).
 
-The shared library is built with g++ at first use into ``build/`` at the
-repository root, keyed on a hash of the source, written under a
-temporary name and moved into place, so that processes building it at
-once do not read a half-written file.  This is host code: no device.
-linelist.hitran.read_par tries it first and falls back to the numpy
-parser.
+The shared library is built with g++ at first use into
+``bart_tpu_torch/build/`` (utils/build.py), keyed on a hash of the
+source, written under a temporary name and moved into place, so that
+processes building it at once do not read a half-written file.  This is
+host code: no device.  linelist.hitran.read_par tries it first and falls
+back to the numpy parser.
 """
 
 from __future__ import annotations
@@ -20,19 +20,21 @@ from pathlib import Path
 
 import numpy as np
 
+from bart_tpu_torch.utils import build
+
 __all__ = ["read_par", "library_path"]
 
 _SRC = Path(__file__).resolve().parent / "hitran_scan.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _FLAGS = ("-O3", "-shared", "-fPIC")
 
 _lib = None
 
 
 def library_path() -> Path:
-    """build/libhitran_scan_<hash>.so, keyed on the source and flags."""
+    """bart_tpu_torch/build/libhitran_scan_<hash>.so, keyed on the
+    source and flags."""
     key = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode())
-    return _BUILD_DIR / f"libhitran_scan_{key.hexdigest()[:16]}.so"
+    return build.BUILD_DIR / f"libhitran_scan_{key.hexdigest()[:16]}.so"
 
 
 def _load() -> ctypes.CDLL:
@@ -42,7 +44,7 @@ def _load() -> ctypes.CDLL:
         return _lib
     so = library_path()
     if not so.is_file():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build.build_dir()
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
                        check=True, capture_output=True)

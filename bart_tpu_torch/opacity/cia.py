@@ -3,8 +3,8 @@
 Bilinear interpolation of tabulated CIA opacity in (T, wavenumber),
 scaled by the number densities of the two colliding species, in amagat.
 
-The readers are host numpy, copied rather than imported: bart_tpu's
-module imports jax at top level.  ``read_cia`` reads the
+The readers and ``write_cia`` are host numpy, copied rather than
+imported: bart_tpu's module imports jax at top level.  ``read_cia`` reads the
 Borysow/transit-style grid table (``read_cia_hitran`` the HITRAN-format
 per-temperature blocks):
 
@@ -27,7 +27,7 @@ import torch
 from bart_tpu_torch.utils.interp import interp
 
 __all__ = ["CiaTable", "read_cia", "read_cia_hitran", "cia_extinction",
-           "cia_weights", "LOSCHMIDT"]
+           "cia_weights", "write_cia", "LOSCHMIDT"]
 
 # Loschmidt number: molecules cm-3 at 1 amagat
 LOSCHMIDT = 2.6867811e19
@@ -62,6 +62,21 @@ def read_cia(path: str) -> CiaTable:
         raise ValueError(f"{path}: not a CIA grid table")
     data = np.asarray(rows)
     return CiaTable(species, temps, data[:, 0], data[:, 1:].T.copy())
+
+
+def write_cia(table: CiaTable, path: str) -> None:
+    """Write ``table`` in the grid format ``read_cia`` reads (bart_tpu's
+    own header line, so both packages write the same bytes)."""
+    with open(path, "w") as f:
+        f.write("# CIA table written by bart_tpu (cm-1 amagat-2)\n")
+        f.write(f"i {table.species[0]} {table.species[1]}\n")
+        f.write("t " + " ".join(f"{t:.1f}" for t in table.temps) + "\n")
+        for i, wn in enumerate(table.wn):
+            f.write(
+                f"{wn:.2f} "
+                + " ".join(f"{a:.6e}" for a in table.absorption[:, i])
+                + "\n"
+            )
 
 
 def read_cia_hitran(path: str) -> CiaTable:

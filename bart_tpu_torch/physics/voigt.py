@@ -15,8 +15,10 @@ import numpy as np
 import torch
 
 __all__ = ["faddeeva_real", "voigt_profile", "doppler_hwhm",
-           "lorentz_hwhm_collision"]
+           "lorentz_hwhm_collision", "SQRT_LN2", "SQRT_PI"]
 
+SQRT_LN2 = float(np.sqrt(np.log(2.0)))
+SQRT_PI = float(np.sqrt(np.pi))
 _INV_SQRT_PI = float(1.0 / np.sqrt(np.pi))
 _C_LIGHT = 2.99792458e10
 _K_B = 1.380649e-16

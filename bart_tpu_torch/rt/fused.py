@@ -62,6 +62,7 @@ import torch
 
 from bart_tpu_torch.rt.planck import planck_wn
 from bart_tpu_torch.rt.tau import TAU_CLAMP
+from bart_tpu_torch.utils import build
 
 __all__ = ["fused_eclipse", "eclipse_plain", "fused_transit",
            "transit_plain", "fused_eclipse_folded", "eclipse_folded_plain",
@@ -72,7 +73,6 @@ __all__ = ["fused_eclipse", "eclipse_plain", "fused_transit",
            "rows_table"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
@@ -439,9 +439,9 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    """build/<name>_<hash>.so, keyed on the source, the csrc headers it
-    includes (``#include "x.cuh"``, and those they include) and the
-    flags."""
+    """bart_tpu_torch/build/<name>_<hash>.so, keyed on the source, the
+    csrc headers it includes (``#include "x.cuh"``, and those they
+    include) and the flags."""
     todo, seen, src = [f"{name}.cu"], set(), b""
     while todo:
         fname = todo.pop()
@@ -453,7 +453,7 @@ def _so_path(name: str) -> Path:
         todo += sorted(h.decode() for h in re.findall(
             rb'^\s*#include\s+"([^"]+)"', text, re.M))
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
+    return build.BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
 
 def build_kernels(names=tuple(_KERNELS),
@@ -467,7 +467,7 @@ def build_kernels(names=tuple(_KERNELS),
     todo = [(n, so) for n, so in todo if not so.is_file()]
     if not todo:
         return {}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build.build_dir()
     nvcc = _nvcc()
     extra = ("-Xptxas", "-v") if ptxas_verbose else ()
     procs = []
@@ -492,7 +492,7 @@ def build_kernels(names=tuple(_KERNELS),
 
 def load_kernel(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu with nvcc (once per source hash, into
-    ``build/``) and load it with ctypes."""
+    ``bart_tpu_torch/build/``) and load it with ctypes."""
     with _lib_lock:
         if name in _libs:
             return _libs[name]

@@ -87,6 +87,17 @@ smooth bins.  Phases:
      on 2x2 against the unsharded eager block; a world of one NCCL rank
      whose graphed block (the all-reduce captured) must equal the
      unmeshed graphed block bit for bit; the dryrun under torchrun
+ 11. with ``--cli-fold`` only (after phase 2): the publication-accuracy
+     retrievals through the CLI on examples/torch_demo/eclipse_fold.cfg
+     and transit_fold.cfg (K = 32 on the 80,032-point fine grid, the
+     adaptive split, bfloat16 fine rows): the fine build and a graphed
+     512-chain eclipse retrieval that must recover the cfg's truth
+     (phase 4c's criteria), phase 4b on each CLI model's own likelihood,
+     ``--justSpectrum`` on its directory against the folded forward, each
+     kernel on the CLI models' own rows against its plain version (these,
+     not phase 2's, make the kernels line of this run), the folded bands
+     at the truth against a K = 1 forward's (the source of the cfgs'
+     data), and a 512-chain transit retrieval on the same fine table
   6. with ``--trace`` only (after phase 10): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
@@ -94,21 +105,26 @@ smooth bins.  Phases:
      idled longest (a graph replay runs no stage)
 
 Each path's launch counts are zeroed just before its phase 3 (phases 7
-and each CLI run of 8, and 9: just before it; phase 10: in each rank,
-before its forwards) and read just after its phase 4 (phases 7, 8 and 9:
-at its end; phase 10: after the forwards): the wrappers count in Python, so
+and 9, and each CLI run of 8 and 11: just before it; phase 10: in each
+rank, before its forwards) and read just after its phase 4 (phases 7, 8,
+9 and 11: at its end; phase 10: after the forwards): the wrappers count
+in Python, so
 they see the
 eager launches and each graph capture, never a replay.  The kernels'
 ``launches`` are counted on the device instead: each path's kernels in
 the trace of its replayed block (phase 4b).  Any failed check raises and
 exits non-zero.  The last two lines of stdout are the kernels' JSON
-record (with the share of each kernel's FMAs that runs on tensor cores)
-and the result JSON.
+record and the result JSON.  A kernel's ``bound_ms`` is the largest of
+its FMAs on the float32 pipes at the float32 peak, its FMAs on tensor
+cores at their types' dense peaks times the passes used, its
+exponentials at the special-function rate and its bytes at the HBM rate
+(``bound``); the record names the term that binds.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # phases 0-2, then the kernels' times
     python3 chip_smoke.py --trace     # all phases, then phase 6
-    python3 chip_smoke.py --cli       # phases 0-1, then phase 8
+    python3 chip_smoke.py --cli       # phases 0-2, then phase 8
+    python3 chip_smoke.py --cli-fold  # phases 0-2, then phase 11
     python3 chip_smoke.py --phase9    # phases 0-1, phase 3's table, phase 9
     python3 chip_smoke.py --phase10   # phases 0-1, phase 3's table, a
                                       # 320-bin fine table, phase 10
@@ -116,6 +132,7 @@ and the result JSON.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -132,22 +149,18 @@ import numpy as np
 # ~7e-5 from its float64 result.  Bands average the per-wn rounding down.
 SPEC_RTOL = {False: 1e-4, True: 2e-4}    # keyed by powers (expsum) mode
 BAND_RTOL = 2e-5
-KERNEL_REPLACES = "bart_tpu/rt/fused.py:159"   # def _kernel
 # Transit kernel vs plain version on ``out`` (the absorbed area, not the
 # depth, whose r_bot^2 would hide a wrong out), both float32: the kernel
 # sums the rows, then the layers of each slant path, in other orders
 # than the plain version's two matrix products; measured 3.3e-7..7.8e-7
 # at the shapes here on the H100, so 1e-5 leaves ~13x.  Bands as above.
 OUT_RTOL = 1e-5
-TRANSIT_REPLACES = "bart_tpu/rt/fused.py:341"  # def _tkernel
 # share of (chain, b, w) points whose slant tau must lie in [0.1, 10] in
 # a transit comparison: with saturated tau, out = sum(wgt) whatever ext
 MIXED_SHARE = 0.2
 # The folded kernels against their plain versions: the same tolerances
 # (both sides read the same float32 or bfloat16 table and differ in the
 # order of sums only, now also over the K sub-samples of a bin).
-FOLDED_REPLACES = "bart_tpu/rt/fused.py:535"          # def _fkernel
-FOLDED_TRANSIT_REPLACES = "bart_tpu/rt/fused.py:780"  # def _ftkernel
 FOLD_K = 32
 # a folded result must differ from the K = 1 result on the bin-mean table
 # by more than this somewhere: averaging ext before the exponential fails
@@ -163,8 +176,16 @@ FOLD_K1_BAND_RTOL = 0.05
 # (Hopper architecture white paper), so 1/16 of the FLOP rate.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 SFU_PS = F32_FLOPS / 16
-# dense tensor-core peaks of the same data sheet, FLOP/s
-BF16_FLOPS, TF32_FLOPS = 989e12, 495e12
+# dense tensor-core peaks of the same data sheet, FLOP/s; every
+# tensor-core contraction of the four kernels takes three passes (the
+# weights' three bfloat16 parts, or 3xTF32)
+TENSOR_FLOPS = {"bf16": 989e12, "tf32": 495e12}
+TENSOR_PASSES = 3
+#: the TPU kernel each wrapper's kernel replaces
+REPLACES = {"fused_eclipse": "bart_tpu/rt/fused.py:159",          # _kernel
+            "fused_transit": "bart_tpu/rt/fused.py:341",          # _tkernel
+            "fused_eclipse_folded": "bart_tpu/rt/fused.py:535",   # _fkernel
+            "fused_transit_folded": "bart_tpu/rt/fused.py:780"}   # _ftkernel
 
 
 #: steps of a block in phase 4b (timed with one host read a block)
@@ -197,7 +218,8 @@ MADHU_START = [0.45, 0.22, 0.006, 0.12, 2.5, 1550.0, -0.3]
 WLIKE_STEPS, CF_SAMPLES = 30, 300
 #: phase 8: the CLI demo's cfgs, the chains of its retrievals and the
 #: steps a chain of the transit one (one block of run_mcmc's 100)
-CLI_CFGS = ("eclipse", "transit", "eclipse_tea", "eclipse_fold")
+CLI_CFGS = ("eclipse", "transit", "eclipse_tea", "eclipse_fold",
+            "transit_fold")
 CLI_CHAINS, CLI_TRANSIT_STEPS = 512, 100
 #: phase 8's eclipse retrieval: steps a chain and burn-in.  Phase 4c's
 #: 10,000 and 5,000 held three criteria on this cfg's data (another line
@@ -212,6 +234,16 @@ CLI_STEPS, CLI_BURNIN = 25000, 10000
 #: molfit factor at 0 (tests/test_pipeline.py:226-227): the atm file's
 #: radii and T carry 3 and 2 decimals
 CLI_SPEC_RTOL = 5e-3
+#: phase 11 (``--cli-fold``): the folded eclipse retrieval through the
+#: CLI takes phase 8's steps and burn-in (its data are eclipse.cfg's,
+#: whose posterior needed them for split-R-hat); the folded transit one a
+#: block of run_mcmc's 100.  A band of the folded forward at the truth
+#: may sit up to FOLD_DATA_SIGMA of its uncertainty from the K = 1
+#: forward's, whose bands (with noise) are the fold cfgs' data
+FOLD_DATA_SIGMA = 0.3
+#: phase 11: the chains (around the truth) on which each kernel of the
+#: CLI's folded models is held against its plain version and timed
+FOLD_CHECK_SPREAD = 0.005
 #: phase 9a: chains of the on-the-fly forwards (512 in the other paths:
 #: a forward computes the Voigt profiles of all 30,000 lines, 2.6e7
 #: (line, point) pairs a layer on uniform tiles, at each of the chains'
@@ -243,56 +275,72 @@ EXOMOL_TRANS = "3 1 2.5e-2\n4 1 1.0e-3\n4 2 3.0e-2\n"
 EXOMOL_PF = "100 50.0\n296 107.1\n1000 300.0\n"
 
 
-def bound(fmas: float, exps: float, nbytes: float) -> tuple[float, str, str]:
-    """(least ms the card could take, "operations" or "bytes", the term
-    that binds): the largest of the FMAs at the float32 peak, the
-    exponentials at the special-function rate and the bytes at the HBM
-    rate."""
-    terms = {"fmas": 2e3 * fmas / F32_FLOPS,
+def bound(fmas: float, tensor: list, exps: float, nbytes: float) -> dict:
+    """The least time the card could take for one launch, as the
+    kernels line's bound keys: the largest of the FMAs on the float32
+    pipes at the float32 peak, the FMAs on tensor cores (``tensor``:
+    [(what, type, FMAs)]) at their types' dense peaks times the passes
+    used, the exponentials at the special-function rate and the bytes at
+    the HBM rate; with the term that binds, the tensor cores' share of
+    all FMAs, their types and their ms."""
+    tensor_ms = sum(2e3 * TENSOR_PASSES * n / TENSOR_FLOPS[kind]
+                    for _, kind, n in tensor)
+    terms = {"fmas": 2e3 * fmas / F32_FLOPS, "tensor": tensor_ms,
              "exponentials": 1e3 * exps / SFU_PS,
              "bytes": 1e3 * nbytes / HBM_BPS}
     term = max(terms, key=terms.get)
-    return terms[term], "bytes" if term == "bytes" else "operations", term
+    n_tensor = sum(n for _, _, n in tensor)
+    return {"bound_ms": terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "tensor_fmas": n_tensor / (n_tensor + fmas),
+            "tensor_type": " + ".join(f"{kind} x {TENSOR_PASSES} passes "
+                                      f"({what})" for what, kind, _ in tensor),
+            "tensor_ms": tensor_ms}
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def eclipse_bound(R, L, F, C, nmu, powers, K, nbytes_in):
+def eclipse_bound(R, L, F, C, nmu, powers, K, bf16, nbytes_in) -> dict:
     """Bound of one eclipse launch, K = 1 or folded over F = W K fine
-    points: per (chain, layer, fine point) R FMAs for ext, 4 for the
-    recurrence and the flux, nmu for the quadrature, and 1 (powers) or
-    nmu exponentials; one Planck exponential per (chain, layer, output
-    bin).  Bytes: every input as stored and the output, once each."""
+    points: per (chain, layer, fine point) R FMAs for ext (the fill: on
+    tensor cores, TF32 at K = 1 and bfloat16 on a bfloat16 fine table;
+    on the float32 pipes on a float32 fine table), 4 for the recurrence
+    and the flux, nmu for the quadrature, and 1 (powers) or nmu
+    exponentials; one Planck exponential per (chain, layer, output bin).
+    Bytes: every input as stored and the output, once each."""
     pts = C * L * F
-    return bound(pts * (R + nmu + 4),
+    fill = "bf16" if bf16 else ("tf32" if K == 1 else None)
+    return bound(pts * (nmu + 4) + (0 if fill else pts * R),
+                 [("fill", fill, pts * R)] if fill else [],
                  pts * (1 if powers else nmu) + pts // K,
                  nbytes_in + 4 * C * (F // K))
 
 
-def transit_bound(R, L, F, C, K, nbytes_in):
+def transit_bound(R, L, F, C, K, bf16, nbytes_in) -> dict:
     """Bound of one transit launch, K = 1 or folded over F = W K fine
-    points: per (chain, fine point) L R FMAs for ext, L (L + 1) / 2 for
-    the triangle of slant paths and L for the annulus sum, and L
-    exponentials."""
-    return bound(C * F * (L * R + L * (L + 1) // 2 + L), C * F * L,
-                 nbytes_in + 4 * C * (F // K))
+    points: per (chain, fine point) L R FMAs for ext (the fill, on
+    tensor cores: bfloat16 on a bfloat16 fine table, else TF32), L (L +
+    1) / 2 for the triangle of slant paths (TF32 on tensor cores) and L
+    for the annulus sum, and L exponentials."""
+    pts = C * F
+    return bound(pts * L, [("fill", "bf16" if bf16 else "tf32", pts * L * R),
+                           ("slant", "tf32", pts * L * (L + 1) // 2)],
+                 pts * L, nbytes_in + 4 * C * (F // K))
 
 
-def tensor_share(fill_fmas: float, slant_fmas: float, all_fmas: float,
-                 fill_type: str):
-    """What a kernel runs on tensor cores: (share of the bound's FMAs,
-    their types, ms those FMAs take at the types' dense peaks times the
-    passes used).  The fill is three passes: bfloat16 on a bfloat16 table
-    (the weights' three parts, ``fill_type`` "bf16"), TF32 on a float32
-    table (big and small parts of both operands, "tf32", every K = 1
-    launch); the slant product three TF32 passes."""
-    fill_peak = {"bf16": BF16_FLOPS, "tf32": TF32_FLOPS}[fill_type]
-    ms = 2e3 * 3 * (fill_fmas / fill_peak + slant_fmas / TF32_FLOPS)
-    kinds = [f"{fill_type} x 3 passes (fill)"] + (
-        ["tf32 x 3 passes (slant)"] if slant_fmas else [])
-    return (fill_fmas + slant_fmas) / all_fmas, " + ".join(kinds), ms
+def kernel_record(name: str, max_abs_err: float, ms: float, plain_ms: float,
+                  bnd: dict, launches: int, **more) -> dict:
+    """One kernel's entry of a kernels line: the contract's keys,
+    ``bound``'s keys and ``more``."""
+    return {"name": name, "route": "cuda",
+            "source": f"bart_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches, **more,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            **bnd,
+            # no single PyTorch call computes any of the four
+            "library_ms": None}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1341,6 +1389,76 @@ def cli_run(argv: list[str], kernels) -> dict:
                 stages={r["stage"]: r["wall_s"] for r in stages})
 
 
+def cli_truth(label: str, cfg_path: str, loc: str, run: dict):
+    """The eclipse retrieval in ``loc`` (the CLI's output.npy and
+    MCMC.log) against the demo truth by tests/test_end_to_end.py:71-87's
+    four criteria: pulls below 3.5 on the constrained parameters, the
+    99% interval covers the truth, chi2/dof below 3, split-R-hat below
+    1.35.  Prints the run's stages and the criteria; returns the cfg."""
+    from bart_tpu_torch.demo import TRUTH
+    from bart_tpu_torch.driver.config import load_config, load_data_array
+    from bart_tpu_torch.inference.gr import split_rhat_rank
+    from bart_tpu_torch.inference.likelihood import ParamSpace
+
+    post = np.load(os.path.join(loc, "output.npy"))
+    with open(os.path.join(loc, "MCMC.log")) as f:
+        log = f.read()
+    chi2 = float(re.findall(r"best chi2 = ([-+0-9.eE]+)", log)[-1])
+    cfg = load_config(cfg_path, {"loc_dir": loc, "quiet": "True"})
+    space = ParamSpace(cfg.params, cfg.pmin, cfg.pmax, cfg.stepsize)
+    nfree = space.nfree
+    flat = post.transpose(1, 0, 2).reshape(nfree, -1)
+    mean, std = flat.mean(1), flat.std(1)
+    truth = TRUTH[space.ifree]
+    constrained = std < 0.5 * (space.free_max - space.free_min) / np.sqrt(12)
+    pulls = np.abs(mean - truth) / np.maximum(std, 1e-12)
+    qq = np.percentile(flat, [0.5, 99.5], axis=1)
+    covered = (truth > qq[0]) & (truth < qq[1])
+    rhat = split_rhat_rank(post.transpose(0, 2, 1))
+    chi2_dof = chi2 / len(load_data_array(cfg.data))
+    print(f"# {label}: {post.shape[0]} chains x {post.shape[2]} kept steps "
+          f"in {run['seconds']:.2f} s; stages "
+          + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
+          + f"; launches counted in Python {run['counts']}")
+    print(f"# {label}: mean "
+          f"{np.array2string(mean, precision=4)}, std "
+          f"{np.array2string(std, precision=4)}, truth "
+          f"{np.array2string(truth, precision=4)}; constrained "
+          f"{constrained.tolist()}, pulls "
+          f"{np.array2string(pulls, precision=3)}; 99% interval covers "
+          f"{covered.tolist()}; chi2/dof {chi2_dof:.3f}; split-Rhat "
+          f"{np.array2string(rhat, precision=4)}")
+    check(bool(np.all(np.isfinite(post))), f"{label}: non-finite posterior")
+    check(bool(np.all(pulls[constrained] < 3.5)),
+          f"{label}: truth recovery: pulls {pulls} on {constrained}")
+    check(bool(np.all(covered)), f"{label}: truth recovery: the 99% "
+          f"interval misses the truth ({qq}, {truth})")
+    check(chi2_dof < 3.0, f"{label}: truth recovery: chi2/dof {chi2_dof}")
+    check(bool(np.all(rhat < 1.35)),
+          f"{label}: truth recovery: split-Rhat {rhat}")
+    return cfg
+
+
+def cli_model(cfg_path: str, loc: str, device, **over):
+    """(cfg, forward model) of the CLI on the cfg at ``cfg_path`` with the
+    files in ``loc`` (reused where they exist: --resume), built in this
+    process by ``Pipeline.run`` with --justPlots and no plots, which
+    stops after the forward's set-up; ``over``: cfg keys to override."""
+    from bart_tpu_torch.driver.config import load_config
+    from bart_tpu_torch.driver.pipeline import Pipeline
+
+    class Model(Pipeline):
+        def stage_forward(self, atm, wn, grid):
+            self.model = super().stage_forward(atm, wn, grid)
+            return self.model
+
+    cfg = load_config(cfg_path, {"loc_dir": loc, "quiet": "True",
+                                 "plots": "False", **over})
+    pipe = Model(cfg, just_plots=True, resume=True, device=device)
+    pipe.run()
+    return cfg, pipe.model[0]
+
+
 def cli_phase(fused, smi: str) -> dict:
     """Phase 8: the port's CLI, ``python3 -m bart_tpu_torch -c cfg``, on
     the cfgs of examples/torch_demo at full width (100 layers x 2501 wn x
@@ -1363,11 +1481,8 @@ def cli_phase(fused, smi: str) -> dict:
 
     import torch
 
-    from bart_tpu_torch.demo import TRUTH
-    from bart_tpu_torch.driver.config import load_config, load_data_array
+    from bart_tpu_torch.driver.config import load_config
     from bart_tpu_torch.driver.pipeline import Pipeline
-    from bart_tpu_torch.inference.gr import split_rhat_rank
-    from bart_tpu_torch.inference.likelihood import ParamSpace
     from bart_tpu_torch.io.atm import read_atm
     from bart_tpu_torch.io.spectrum import read_spectrum
 
@@ -1431,43 +1546,9 @@ def cli_phase(fused, smi: str) -> dict:
                    "--burnin", str(CLI_BURNIN), "--plots", "False",
                    "--grtest", "False"],
                   kernels)
-    post = np.load(os.path.join(eloc, "output.npy"))
-    with open(os.path.join(eloc, "MCMC.log")) as f:
-        log = f.read()
-    chi2 = float(re.findall(r"best chi2 = ([-+0-9.eE]+)", log)[-1])
-    cfg = load_config(ecfg, {"loc_dir": eloc, "quiet": "True"})
-    space = ParamSpace(cfg.params, cfg.pmin, cfg.pmax, cfg.stepsize)
-    nfree = space.nfree
-    flat = post.transpose(1, 0, 2).reshape(nfree, -1)
-    mean, std = flat.mean(1), flat.std(1)
-    truth = TRUTH[space.ifree]
-    constrained = std < 0.5 * (space.free_max - space.free_min) / np.sqrt(12)
-    pulls = np.abs(mean - truth) / np.maximum(std, 1e-12)
-    qq = np.percentile(flat, [0.5, 99.5], axis=1)
-    covered = (truth > qq[0]) & (truth < qq[1])
-    rhat = split_rhat_rank(post.transpose(0, 2, 1))
-    chi2_dof = chi2 / len(load_data_array(cfg.data))
-    print(f"# phase 8: cli eclipse.cfg: {CLI_CHAINS} chains x "
-          f"{post.shape[2]} kept steps in {run['seconds']:.2f} s; stages "
-          + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
-          + f"; launches counted in Python {run['counts']}")
-    print(f"# phase 8: cli eclipse.cfg: mean "
-          f"{np.array2string(mean, precision=4)}, std "
-          f"{np.array2string(std, precision=4)}, truth "
-          f"{np.array2string(truth, precision=4)}; constrained "
-          f"{constrained.tolist()}, pulls "
-          f"{np.array2string(pulls, precision=3)}; 99% interval covers "
-          f"{covered.tolist()}; chi2/dof {chi2_dof:.3f}; split-Rhat "
-          f"{np.array2string(rhat, precision=4)}")
+    cfg = cli_truth("phase 8: cli eclipse.cfg", ecfg, eloc, run)
     check(run["counts"]["fused_eclipse"] > 0,
           "the CLI eclipse run did not launch fused_eclipse")
-    check(bool(np.all(np.isfinite(post))), "non-finite posterior")
-    check(bool(np.all(pulls[constrained] < 3.5)),
-          f"cli truth recovery: pulls {pulls} on {constrained}")
-    check(bool(np.all(covered)), "cli truth recovery: the 99% interval "
-          f"misses the truth ({qq}, {truth})")
-    check(chi2_dof < 3.0, f"cli truth recovery: chi2/dof {chi2_dof}")
-    check(bool(np.all(rhat < 1.35)), f"cli truth recovery: split-Rhat {rhat}")
     out["eclipse"] = run
 
     files = [os.path.join(eloc, n) for n in ("atmosphere.atm",
@@ -1478,13 +1559,8 @@ def cli_phase(fused, smi: str) -> dict:
     check([os.stat(f).st_mtime_ns for f in files] == mtimes,
           "--justSpectrum rewrote the atm or the opacity file")
     wn_s, spec_s = read_spectrum(os.path.join(eloc, cfg.outspec), wn=True)
-    pipe = Pipeline(cfg, device=dev)
-    atm = pipe.stage_atmosphere(pipe.stage_pressure(),
-                                pipe.stage_abundances())
+    _, fm = cli_model(ecfg, eloc, dev)
     wn = cfg.wavenumber_grid()
-    fm, _, _ = pipe.stage_forward(
-        atm, wn, pipe.stage_opacity(pipe.stage_linelist(wn), wn,
-                                    atm.pressure, atm))
     p = np.array(cfg.params, np.float64)
     p[-1] = 0.0   # the atm file carries unscaled abundances
     _, spec_p, valid = fm(torch.tensor(p[None], dtype=torch.float32,
@@ -1525,6 +1601,326 @@ def cli_phase(fused, smi: str) -> dict:
           "for the phase")
     return out
 
+
+
+def fold_path_kernels(fused, fm, params) -> dict:
+    """Phase 11: the two kernels of one of the CLI's folded models at the
+    shapes its forward gives them (the folded kernel on the fine bins,
+    the K = 1 kernel on the smooth ones), each held against its plain
+    version on the same inputs and timed beside it with CUDA events;
+    with each launch's bound.  These launches do not count."""
+    import torch
+
+    from bart_tpu_torch.rt.transit_geom import slant_geometry
+
+    t = fm.tables
+    transit = fm.config.solution == "transit"
+    T_safe, q, rad_cm, _ = fm._profiles(params, t)
+    parts, wrows = fm._fused_rows(params, t, T_safe, q, rad_cm)
+    C, L = T_safe.shape
+    if transit:
+        G, wgt = slant_geometry(rad_cm)
+        Gp = fused.prepare_slant(G)
+        pair = (fused.fused_transit_folded, fused.fused_transit)
+    else:
+        dr = rad_cm[:, :-1] - rad_cm[:, 1:]
+        drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
+        mu, muw = t["mu"], t["mu_w"]
+        pair = (fused.fused_eclipse_folded, fused.fused_eclipse)
+    counts = [k.launches for k in pair]
+    out = {}
+    for tab, folded, wn_p, _ in parts:
+        kernel = pair[0] if folded else pair[1]
+        K = tab.K if folded else 1
+        R, F = tab.tab.shape[0], tab.W * K
+        bf16 = folded and tab.tab.dtype == torch.bfloat16
+        if transit:
+            args, pargs = (wrows, Gp, wgt), (wrows, G, wgt)
+            plain = (fused.transit_folded_plain if folded else
+                     lambda tb, *a: fused.transit_plain(tb.plain(), *a))
+            rtol = OUT_RTOL
+            bnd = transit_bound(R, L, F, C, K, bf16,
+                                nbytes(tab.tab, wrows, G, wgt))
+        else:
+            args = pargs = (wn_p, mu, muw, wrows, T_safe, drp, fm._powers)
+            plain = (fused.eclipse_folded_plain if folded else
+                     lambda tb, *a: fused.eclipse_plain(tb.plain(), *a))
+            rtol = SPEC_RTOL[fm._powers]
+            bnd = eclipse_bound(R, L, F, C, int(mu.shape[0]), fm._powers, K,
+                                bf16, nbytes(tab.tab, *args[:-1]))
+        got, ref = kernel(tab, *args), plain(tab, *pargs)
+        torch.cuda.synchronize()
+        name = kernel.__name__
+        out[name] = dict(
+            rel=rel_err(got, ref), abs=abs_err(got, ref), R=R, W=tab.W, K=K,
+            ms=cuda_ms(lambda: kernel(tab, *args), 5 if folded else 10),
+            plain_ms=cuda_ms(lambda: plain(tab, *pargs), 2), bound=bnd)
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(out[name]["rel"] < rtol,
+              f"{name} on the CLI's rows: rel err {out[name]['rel']}")
+        del got, ref
+    for k, n in zip(pair, counts):
+        k.launches = n                        # comparisons do not count
+    return out
+
+
+def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
+    """Phase 11 (``--cli-fold``): the publication-accuracy retrieval
+    through the port's CLI at full width: examples/torch_demo/
+    eclipse_fold.cfg and transit_fold.cfg (100 layers x 2501 output bins,
+    K = 32 on the 80,032-point fine grid, the adaptive split 0.02,
+    bfloat16 fine rows, 27 T-nodes, CH4 and H2-H2 CIA).
+
+    (a) ``driver.cli.main`` on eclipse_fold.cfg: the fine build, then
+    512 chains x CLI_STEPS graphed steps (burn-in CLI_BURNIN), no plots,
+    no running convergence test; fused_eclipse_folded and fused_eclipse
+    launched; phase 8's four truth criteria; then phase 4b on the CLI's
+    own likelihood (graphed block = eager block bit for bit, each kernel
+    once a step in the trace of a replayed block, the step's times).
+    (b) ``--justSpectrum`` on its directory reuses the atm and opacity
+    files (no second build) and matches the CLI's folded forward at the
+    cfg's parameters within phase 2's tolerances; the bins that forward
+    sends to the folded kernel are fine_bin_mask's on the file, each
+    kernel against its plain version on its rows, and the folded bands at
+    the truth within FOLD_DATA_SIGMA of a K = 1 forward's (the cfgs' data
+    are the K = 1 pipeline's).  (c) ``driver.cli.main`` on
+    transit_fold.cfg on (a)'s opacity file (make_inputs.py writes both
+    cfgs from one fold block; the file's wn, pressure and T grids are
+    checked against the transit cfg and model): 512 chains x 100 steps,
+    fused_transit_folded and fused_transit launched, output.npy finite,
+    MCMC.log written; phase 4b, its kernels and its truth bands as in
+    (a)-(b)."""
+    import shutil
+
+    import torch
+
+    from bart_tpu_torch.demo import TRUTH, TRUTH_TRANSIT
+    from bart_tpu_torch.driver.config import load_data_array
+    from bart_tpu_torch.driver.pipeline import Pipeline
+    from bart_tpu_torch.io.spectrum import read_spectrum
+    from bart_tpu_torch.opacity.grid import fine_bin_mask, load_grid
+    from bart_tpu_torch.utils.grids import folded_fine_grid
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    demo = os.path.join(root, "examples", "torch_demo")
+    work = os.path.join(root, "build", "phase11")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    dev = f32["device"]
+    kernels = (fused.fused_eclipse_folded, fused.fused_eclipse,
+               fused.fused_transit_folded, fused.fused_transit)
+    ecfg, tcfg = (os.path.join(demo, f"{n}.cfg")
+                  for n in ("eclipse_fold", "transit_fold"))
+    eloc, tloc = os.path.join(work, "eclipse"), os.path.join(work, "transit")
+    opac = os.path.join(eloc, "opacity_CH4.npz")
+    gib = 2.0 ** 30
+
+    # the CLI's likelihood, parameter space and cfg, and the device memory
+    # the pipeline holds when its retrieval starts
+    held, likes = {}, {}
+    stage_mcmc = Pipeline.stage_mcmc
+
+    def measured(self, like, space):
+        torch.cuda.synchronize()
+        held[self.cfg.solution] = torch.cuda.memory_allocated() / gib
+        likes[self.cfg.solution] = (like, space, self.cfg)
+        return stage_mcmc(self, like, space)
+
+    def near(truth, spread):
+        return torch.tensor(np.tile(truth, (CLI_CHAINS, 1)) + rng.normal(
+            0, 1, (CLI_CHAINS, len(truth))) * spread, **f32)
+
+    def truth_bands(fm, fm1, truth, uncert, label):
+        p = torch.tensor(truth[None], **f32)
+        b, _, valid = fm(p)
+        b1, _, valid1 = fm1(p)
+        check(bool(valid[0]) and bool(valid1[0]), f"{label}: invalid truth")
+        b, b1 = b[0].double().cpu().numpy(), b1[0].double().cpu().numpy()
+        sig = np.abs(b - b1) / uncert
+        print(f"# phase 11: {label}: folded bands at the truth against the "
+              f"K = 1 forward's (the data's source): rel "
+              f"{np.array2string(np.abs(b - b1) / b1, precision=3)}, in "
+              f"sigma {np.array2string(sig, precision=3)} (max "
+              f"{sig.max():.3f}, bound {FOLD_DATA_SIGMA})")
+        check(float(sig.max()) < FOLD_DATA_SIGMA,
+              f"{label}: the K = 1 data sit {sig.max():.3f} sigma from the "
+              "folded model at the truth: make the fold cfgs' data from the "
+              "folded forward")
+
+    rng = np.random.default_rng(2)
+    Pipeline.stage_mcmc = measured
+    out = {"steps": {}}
+    try:
+        # (a) eclipse_fold.cfg: the fine build and the retrieval
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = cli_run(["-c", ecfg, "--loc_dir", eloc, "--nchains",
+                       str(CLI_CHAINS), "--numit", str(CLI_CHAINS * CLI_STEPS),
+                       "--burnin", str(CLI_BURNIN), "--plots", "False",
+                       "--grtest", "False"], kernels)
+        peak = torch.cuda.max_memory_allocated() / gib
+        cfg = cli_truth("phase 11: cli eclipse_fold.cfg", ecfg, eloc, run)
+        step_ms = 1e3 * run["stages"]["mcmc"] / CLI_STEPS
+        n_fine = len(folded_fine_grid(cfg.wavenumber_grid(), cfg.fold_K))
+        print(f"# phase 11 ({smi}): cli eclipse_fold.cfg: opacity (the "
+              f"{n_fine}-point fine build) {run['stages']['opacity']} s, "
+              f"mcmc {run['stages']['mcmc']} s = {step_ms:.3f} ms a "
+              f"{CLI_CHAINS}-chain "
+              f"step with the host's stores; peak {peak:.2f} GiB, "
+              f"{held['eclipse']:.2f} GiB held when the retrieval starts")
+        check(run["counts"]["fused_eclipse_folded"] > 0
+              and run["counts"]["fused_eclipse"] > 0,
+              f"the CLI folded eclipse run launched {run['counts']}")
+        check(run["counts"]["fused_transit_folded"] == 0
+              and run["counts"]["fused_transit"] == 0,
+              f"the CLI folded eclipse run launched {run['counts']}")
+        out["eclipse"] = run
+        like, space, _ = likes.pop("eclipse")
+        fm = like.forward
+        params = near(TRUTH, FOLD_CHECK_SPREAD)
+        label = "phase 11: cli eclipse_fold.cfg"
+        out["steps"]["cli_eclipse_fold"] = step = step_phase(
+            label, like, space, fm, params,
+            [fused.fused_eclipse_folded, fused.fused_eclipse])
+        print_steps(label, step, smi)
+        del like, space
+
+        # (b) --justSpectrum on the same directory
+        files = [os.path.join(eloc, "atmosphere.atm"), opac]
+        mtimes = [os.stat(f).st_mtime_ns for f in files]
+        spec_run = cli_run(["-c", ecfg, "--loc_dir", eloc, "--justSpectrum"],
+                           kernels)
+        check([os.stat(f).st_mtime_ns for f in files] == mtimes,
+              "--justSpectrum rewrote the atm or the opacity file")
+        wn_s, spec_s = read_spectrum(os.path.join(eloc, cfg.outspec),
+                                     wn=True)
+        K, wn = cfg.fold_K, cfg.wavenumber_grid()
+        grid = load_grid(opac, device=dev)
+        mask = fine_bin_mask(grid.sigma, K, delta=0.02).cpu().numpy()
+        n_f = int(mask.sum())
+        del grid
+        p = np.array(cfg.params, np.float64)
+        p[-1] = 0.0   # the atm file carries unscaled abundances
+        # the folded forward on the files --justSpectrum read
+        _, fms = cli_model(ecfg, eloc, dev)
+        _, spec_p, valid = fms(torch.tensor(p[None], **f32))
+        spec_p = spec_p[0].double().cpu().numpy()
+        del fms
+        e_spec = float(np.max(np.abs(spec_s - spec_p) / np.abs(spec_p)))
+        print(f"# phase 11: cli eclipse_fold.cfg --justSpectrum: "
+              f"{len(spec_s)} wn in {spec_run['seconds']:.2f} s, stages "
+              + ", ".join(f"{k} {v} s" for k, v in spec_run["stages"].items())
+              + f"; launches {spec_run['counts']}; vs the folded forward at "
+              f"the cfg's parameters: max rel err {e_spec:.3e}; "
+              f"fine bins {n_f} of {len(wn)} ({n_f / len(wn):.3f}), K = {K}")
+        check(bool(valid[0]), "the cfg's parameters are invalid")
+        check(np.allclose(np.sort(wn_s), wn, rtol=1e-6), "outspec wn grid")
+        check(e_spec < SPEC_RTOL[fm._powers],
+              f"folded --justSpectrum rel err {e_spec}")
+        check(spec_run["counts"]["fused_eclipse_folded"] > 0
+              and spec_run["counts"]["fused_eclipse"] > 0,
+              f"--justSpectrum launched {spec_run['counts']}")
+        check(fm._idx_fine is not None
+              and np.array_equal(fm._idx_fine, np.where(mask)[0])
+              and fm.tables["tabk"].W == n_f,
+              "the folded bins are not fine_bin_mask's")
+        out["spectrum"] = spec_run
+        checks = fold_path_kernels(fused, fm, params)
+        # the K = 1 pipeline's forward (the source of the cfg's data)
+        k1loc = os.path.join(work, "k1")
+        _, fm1 = cli_model(ecfg, k1loc, dev, rtosamp="1")
+        truth_bands(fm, fm1, TRUTH, load_data_array(cfg.uncert),
+                    "eclipse_fold.cfg")
+        # the graphs of phase 4b hold their models in reference cycles
+        del fm, fm1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) transit_fold.cfg on (a)'s table
+        torch.cuda.reset_peak_memory_stats()
+        run = cli_run(["-c", tcfg, "--loc_dir", tloc, "--nchains",
+                       str(CLI_CHAINS), "--numit",
+                       str(CLI_CHAINS * CLI_TRANSIT_STEPS), "--burnin", "50",
+                       "--plots", "False", "--opacityfile", opac], kernels)
+        tpeak = torch.cuda.max_memory_allocated() / gib
+        post = np.load(os.path.join(tloc, "output.npy"))
+        print(f"# phase 11 ({smi}): cli transit_fold.cfg on the eclipse "
+              f"run's table: {CLI_CHAINS} chains x {CLI_TRANSIT_STEPS} steps "
+              f"in {run['seconds']:.2f} s; stages "
+              + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
+              + f"; launches counted in Python {run['counts']}; posterior "
+              f"{post.shape}; peak {tpeak:.2f} GiB, {held['transit']:.2f} "
+              "GiB held when the retrieval starts")
+        check(run["counts"]["fused_transit_folded"] > 0
+              and run["counts"]["fused_transit"] > 0,
+              f"the CLI folded transit run launched {run['counts']}")
+        check(post.shape[0] == CLI_CHAINS and post.shape[2] > 0
+              and bool(np.all(np.isfinite(post))), "transit posterior")
+        check(os.path.isfile(os.path.join(tloc, "MCMC.log")), "no MCMC.log")
+        out["transit"] = run
+        like, space, tc = likes.pop("transit")
+        fmt = like.forward
+        grid = load_grid(opac, device="cpu")
+        t_grid = np.arange(tc.tlow, tc.thigh + tc.tempdelt / 2, tc.tempdelt)
+        check(np.array_equal(grid.wn_grid, folded_fine_grid(
+            tc.wavenumber_grid(), tc.fold_K))
+              and np.array_equal(grid.t_grid, t_grid)
+              and np.allclose(grid.pressure,
+                              fmt.pressure.double().cpu().numpy(),
+                              rtol=1e-6, atol=0),
+              "eclipse_fold.cfg's opacity file is not transit_fold.cfg's "
+              "table (wn, T or pressure grid): build it for transit")
+        del grid
+        # the radius (parameter 5) spread in km, the rest as eclipse's
+        params = near(TRUTH_TRANSIT, np.where(
+            np.arange(len(TRUTH_TRANSIT)) == 5, 10.0, FOLD_CHECK_SPREAD))
+        label = "phase 11: cli transit_fold.cfg"
+        out["steps"]["cli_transit_fold"] = step = step_phase(
+            label, like, space, fmt, params,
+            [fused.fused_transit_folded, fused.fused_transit])
+        print_steps(label, step, smi)
+        del like, space
+        checks.update(fold_path_kernels(fused, fmt, params))
+        _, fmt1 = cli_model(tcfg, os.path.join(work, "k1_transit"), dev,
+                            rtosamp="1", opacityfile=os.path.join(
+                                k1loc, "opacity_CH4.npz"))
+        truth_bands(fmt, fmt1, TRUTH_TRANSIT, load_data_array(tc.uncert),
+                    "transit_fold.cfg")
+        del fmt, fmt1
+    finally:
+        Pipeline.stage_mcmc = stage_mcmc
+    for name, c in checks.items():
+        print(f"# phase 11 ({smi}): {name} on the CLI's rows (R={c['R']} "
+              f"W={c['W']} K={c['K']} C={CLI_CHAINS}): max rel err "
+              f"{c['rel']:.3e}, abs {c['abs']:.3e}; kernel {c['ms']:.3f} ms, "
+              f"plain {c['plain_ms']:.3f} ms, bound {c['bound']['bound_ms']:.3f}"
+              f" ms ({c['bound']['bound_term']}; tensor cores "
+              f"{c['bound']['tensor_ms']:.3f} ms, {c['bound']['tensor_type']})")
+    out["checks"] = checks
+    print(f"# phase 11 ({smi}): {time.perf_counter() - t_phase:.1f} s for "
+          "the phase")
+    return out
+
+
+def cli_fold_kernels(p11: dict) -> list:
+    """Phase 11's kernels line: launches on the device, in the trace of a
+    replayed block of each CLI model's step; python_launches the
+    wrapper's count over the phase's three CLI runs (eager calls,
+    warm-ups, captures: a replay is never counted there); the rest from
+    each kernel on the CLI models' own rows."""
+    runs = {r: p11[r]["counts"] for r in ("eclipse", "spectrum", "transit")}
+    recs = []
+    for name, c in p11["checks"].items():
+        by_path = {p: st["counts"][name] for p, st in p11["steps"].items()
+                   if name in st["counts"]}
+        recs.append(kernel_record(
+            name, c["abs"], c["ms"], c["plain_ms"], c["bound"],
+            sum(by_path.values()), launches_by_path=by_path,
+            python_launches=sum(r[name] for r in runs.values()),
+            cli_fold_launches={r: n[name] for r, n in runs.items()},
+            max_rel_err=c["rel"]))
+    return recs
 
 
 def onthefly_phase(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
@@ -2555,6 +2951,13 @@ def main() -> int:
     if "--cli" in sys.argv[1:]:
         cli_phase(fused, smi.strip())
         return 0
+    if "--cli-fold" in sys.argv[1:]:
+        p11 = cli_fold_phase(fused, f32, smi.strip())
+        print(json.dumps({"kernels": cli_fold_kernels(p11)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--phase9" in sys.argv[1:]:
         fm = build_demo_model(inp_full, device=dev, dtype=torch.float32,
                               budget_bytes=8e9)
@@ -2728,39 +3131,26 @@ def main() -> int:
             smi.strip())
 
     # --- the kernels' record: bounds from this run's shapes ------------
+    bf16 = torch.bfloat16
     nmu = int(mu.shape[0])
     R, L, W = tab.shape
-    e_bound = eclipse_bound(R, L, W, nchain, nmu, fm._powers, 1,
+    e_bound = eclipse_bound(R, L, W, nchain, nmu, fm._powers, 1, False,
                             nbytes(tab, wrows, T_safe, drp, t["wn"]))
     ttab, twr, tG, twgt = tpath["rows"]
-    t_bound = transit_bound(ttab.shape[0], L, W, nchain, 1,
+    t_bound = transit_bound(ttab.shape[0], L, W, nchain, 1, False,
                             nbytes(ttab, twr, tG, twgt))
     ftab = fpath["parts"][0][0]
     f_rows = fpath["rows"][True]
     f_bound = eclipse_bound(ftab.tab.shape[0], L, ftab.W * ftab.K, nchain,
                             int(f_rows[1].shape[0]), fpath["fm"]._powers,
-                            ftab.K, nbytes(ftab.tab, *f_rows[:-1]))
+                            ftab.K, ftab.tab.dtype == bf16,
+                            nbytes(ftab.tab, *f_rows[:-1]))
     fttab = ftpath["parts"][0][0]
     ft_bound = transit_bound(fttab.tab.shape[0], L, fttab.W * fttab.K, nchain,
-                             fttab.K, nbytes(fttab.tab, *ftpath["rows"][True]))
+                             fttab.K, fttab.tab.dtype == bf16,
+                             nbytes(fttab.tab, *ftpath["rows"][True]))
 
-    # the FMAs of the bounds above that run on tensor cores
-    tri = L * (L + 1) // 2
-    pts = nchain * L * W
-    e_tensor = tensor_share(pts * R, 0, pts * (R + nmu + 4), "tf32")
-    pts = nchain * W
-    t_R = ttab.shape[0]
-    t_tensor = tensor_share(pts * L * t_R, pts * tri,
-                            pts * (L * t_R + tri + L), "tf32")
-    pts = nchain * L * ftab.W * ftab.K
-    f_R, f_nmu = ftab.tab.shape[0], int(f_rows[1].shape[0])
-    f_tensor = tensor_share(pts * f_R, 0, pts * (f_R + f_nmu + 4), "bf16")
-    pts = nchain * fttab.W * fttab.K
-    ft_R = fttab.tab.shape[0]
-    ft_tensor = tensor_share(pts * L * ft_R, pts * tri,
-                             pts * (L * ft_R + tri + L), "bf16")
-
-    def record(name, replaces, max_abs_err, ms, plain_ms, bnd, tensor):
+    def record(name, max_abs_err, ms, plain_ms, bnd):
         # launches: on the device, in the traces of the replayed blocks of
         # every main path that runs this kernel (the K = 1 kernels also
         # serve the smooth bins of the folded paths); python_launches: the
@@ -2768,29 +3158,17 @@ def main() -> int:
         # captures: a replay is never counted there)
         by_path = {p: st["counts"][name] for p, st in steps.items()
                    if name in st["counts"]}
-        return {"name": name, "route": "cuda",
-                "source": f"bart_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path,
-                "python_launches": python[name],
-                # phase 8: the wrapper's count in each CLI run
-                "cli_launches": {r: run["counts"][name]
-                                 for r, run in cli.items()
-                                 if name in run["counts"]},
-                # phase 9: the wrapper's count over its runs
-                "phase9_launches": p9["counts"].get(name, 0),
-                # phase 10: the wrapper's count in each rank of each mesh
-                "phase10_launches": {
-                    lay: [n[name] for n in r["launches"]]
-                    for lay, r in p10["layouts"].items()},
-                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_term": bnd[2],
-                # share of the bound's FMAs on tensor cores, in which
-                # types, and their time at those types' dense peaks
-                "tensor_fmas": tensor[0], "tensor_type": tensor[1],
-                "tensor_ms": tensor[2],
-                # no single PyTorch call computes any of the four
-                "library_ms": None}
+        return kernel_record(
+            name, max_abs_err, ms, plain_ms, bnd, sum(by_path.values()),
+            launches_by_path=by_path, python_launches=python[name],
+            # phase 8: the wrapper's count in each CLI run
+            cli_launches={r: run["counts"][name] for r, run in cli.items()
+                          if name in run["counts"]},
+            # phase 9: the wrapper's count over its runs
+            phase9_launches=p9["counts"].get(name, 0),
+            # phase 10: the wrapper's count in each rank of each mesh
+            phase10_launches={lay: [n[name] for n in r["launches"]]
+                              for lay, r in p10["layouts"].items()})
 
     steps = {"eclipse": estep, "transit": tpath["step"],
              "folded_eclipse": fpath["step"],
@@ -2805,16 +3183,12 @@ def main() -> int:
     print(f"# chip_smoke ({smi.strip()}): {time.perf_counter() - t_start:.1f}"
           " s from the start to the records")
     print(json.dumps({"kernels": [
-        record("fused_eclipse", KERNEL_REPLACES, max_abs, k_ms, p_ms,
-               e_bound, e_tensor),
-        record("fused_transit", TRANSIT_REPLACES, t_max_abs, tk_ms, tp_ms,
-               t_bound, t_tensor),
-        record("fused_eclipse_folded", FOLDED_REPLACES,
-               f_max_abs["eclipse"], ft_["eclipse"]["k_ms"],
-               ft_["eclipse"]["p_ms"], f_bound, f_tensor),
-        record("fused_transit_folded", FOLDED_TRANSIT_REPLACES,
-               f_max_abs["transit"], ft_["transit"]["k_ms"],
-               ft_["transit"]["p_ms"], ft_bound, ft_tensor),
+        record("fused_eclipse", max_abs, k_ms, p_ms, e_bound),
+        record("fused_transit", t_max_abs, tk_ms, tp_ms, t_bound),
+        record("fused_eclipse_folded", f_max_abs["eclipse"],
+               ft_["eclipse"]["k_ms"], ft_["eclipse"]["p_ms"], f_bound),
+        record("fused_transit_folded", f_max_abs["transit"],
+               ft_["transit"]["k_ms"], ft_["transit"]["p_ms"], ft_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,20 +13,24 @@ their counterparts from what the repository holds, next to itself:
 * ``abundances.txt``: H, He, C, N and O, the photospheric values of
   Asplund et al. 2009 (ARA&A 47, 481, Table 1) with standard atomic
   weights, in the reference's five columns;
-* four cfgs on the line list and CIA table of examples/demo_inputs:
+* five cfgs on the line list and CIA table of examples/demo_inputs:
   ``eclipse.cfg`` and ``transit.cfg`` (bart_tpu's demo cfgs with these
   paths), ``eclipse_tea.cfg`` (thermochemical equilibrium of ten species
-  with the shipped NASA-7 tables in place of the uniform abundances) and
-  ``eclipse_fold.cfg`` (rtosamp = 32, adaptive split, bfloat16 tables).
+  with the shipped NASA-7 tables in place of the uniform abundances),
+  and ``eclipse_fold.cfg`` and ``transit_fold.cfg`` (the publication
+  accuracy: rtosamp = 32, adaptive split, bfloat16 tables).
 
 The data in the eclipse and transit cfgs are the band fluxes of the
 port's own pipeline stages at the demo truth (``demo.TRUTH``,
 ``demo.TRUTH_TRANSIT``) on the cfgs' full grid, with 3% Gaussian noise
-(numpy seeds 42 and 43).  Everything runs on the CPU in float64.  The
-opacity table is built at the T-nodes that bracket the truth's profile
-only (1300-1500 K of the cfgs' 400-3000 K at 100 K): the forward's
-linear interpolation on a uniform T grid reads no other node, so the
-band fluxes are those of the whole table, at a ninth of the build.
+(numpy seeds 42 and 43); the fold cfgs carry those of their geometry
+(chip_smoke.py --cli-fold checks that the folded bands at the truth sit
+within 0.3 sigma of the K = 1 ones).  Everything runs on the CPU in
+float64.  The opacity table is built at the T-nodes that bracket the
+truth's profile only (1300-1500 K of the cfgs' 400-3000 K at 100 K): the
+forward's linear interpolation on a uniform T grid reads no other node,
+so the band fluxes are those of the whole table, at a ninth of the
+build.
 
     python3 examples/torch_demo/make_inputs.py
 """
@@ -164,7 +168,8 @@ foldtable16 = True
 CFGS = {"eclipse": ("eclipse", "eclipse", _UNIFORM, False),
         "transit": ("transit", "transit", _UNIFORM, False),
         "eclipse_tea": ("tea", "eclipse", _TEA, False),
-        "eclipse_fold": ("fold", "eclipse", _UNIFORM, True)}
+        "eclipse_fold": ("fold", "eclipse", _UNIFORM, True),
+        "transit_fold": ("transit_fold", "transit", _UNIFORM, True)}
 
 
 def _numbers(key: str, values) -> str:

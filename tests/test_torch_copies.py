@@ -32,6 +32,7 @@ import bart_tpu.linelist.hitran as jhitran
 import bart_tpu.linelist.molecules as jmol
 import bart_tpu.linelist.tli as jtli
 import bart_tpu.opacity.cia as jcia
+import bart_tpu.physics.voigt as jvoigt
 import bart_tpu.physics.stoich as jstoich
 import bart_tpu.post.bestfit as jbestfit
 import bart_tpu.utils.grids as jgrids
@@ -53,6 +54,7 @@ import bart_tpu_torch.linelist.hitran as hitran
 import bart_tpu_torch.linelist.molecules as mol
 import bart_tpu_torch.linelist.tli as tli
 import bart_tpu_torch.opacity.cia as cia
+import bart_tpu_torch.physics.voigt as voigt
 import bart_tpu_torch.physics.stoich as stoich
 import bart_tpu_torch.post.bestfit as bestfit
 import bart_tpu_torch.utils.grids as grids
@@ -356,6 +358,37 @@ def _cia_hitran():
             cia.read_cia(str(path))
 
 
+def _write_cia():
+    """write_cia: the port's file equals bart_tpu's byte for byte, on a
+    table drawn from a seed and on the in-repo H2-H2 table, and both
+    packages' read_cia read it back alike."""
+    rng = np.random.default_rng(5)
+    drawn = dict(species=("H2", "He"),
+                 temps=np.array([200.0, 350.5, 1000.0, 3000.25]),
+                 wn=np.sort(rng.uniform(20.0, 9000.0, 37)),
+                 absorption=10.0 ** rng.uniform(-12, -3, (4, 37)))
+    demo = cia.read_cia(str(PORT.parent / "examples" / "demo_inputs"
+                            / "CIA_H2H2_demo.dat"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, fields in enumerate((drawn, dataclasses.asdict(demo))):
+            a, b = Path(tmp) / f"port{k}.dat", Path(tmp) / f"jax{k}.dat"
+            cia.write_cia(cia.CiaTable(**fields), str(a))
+            jcia.write_cia(jcia.CiaTable(**fields), str(b))
+            assert a.read_bytes() == b.read_bytes()
+            got, ref = cia.read_cia(str(a)), jcia.read_cia(str(a))
+            _fields_equal(got, ref)
+            assert got.species == tuple(fields["species"])
+            np.testing.assert_allclose(got.absorption, fields["absorption"],
+                                       rtol=5e-7)
+
+
+def _voigt_constants():
+    assert "SQRT_LN2" in voigt.__all__ and "SQRT_PI" in voigt.__all__
+    assert set(voigt.__all__) == set(jvoigt.__all__)
+    assert voigt.SQRT_LN2 == jvoigt.SQRT_LN2           # to the last bit
+    assert voigt.SQRT_PI == jvoigt.SQRT_PI
+
+
 def _pressure_file_and_wn_grid():
     with tempfile.TemporaryDirectory() as tmp:
         a, b = Path(tmp) / "a.pres", Path(tmp) / "b.pres"
@@ -433,7 +466,8 @@ def _thermo_tables():
 def _config():
     import warnings
 
-    for name in ("eclipse", "transit", "eclipse_tea", "eclipse_fold"):
+    for name in ("eclipse", "transit", "eclipse_tea", "eclipse_fold",
+                 "transit_fold"):
         path = str(DEMO / f"{name}.cfg")
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")   # both warn about wnosamp
@@ -452,7 +486,12 @@ def _config():
             config.load_data_array(got.data),
             jconfig.load_data_array(ref.data))
         assert len(config.load_data_array(got.data)) == 10
-    assert config.load_config(str(DEMO / "eclipse_fold.cfg")).fold_K == 32
+    for name in ("eclipse_fold", "transit_fold"):
+        fold = config.load_config(str(DEMO / f"{name}.cfg"))
+        assert (fold.fold_K, fold.rtadapt, fold.foldtable16) == (32, True,
+                                                                True)
+    assert config.load_config(str(DEMO / "transit_fold.cfg")).solution \
+        == "transit"
     # every default but abun_basic, a file of a reference checkout that
     # the port does not name
     got, ref = config.RetrievalConfig(), jconfig.RetrievalConfig()
@@ -544,6 +583,8 @@ COPIES = {
     "kurucz_grid": _kurucz_grid,
     "hitran_par": _hitran_par,
     "cia_hitran": _cia_hitran,
+    "write_cia": _write_cia,
+    "voigt_constants": _voigt_constants,
     "pressure_file_and_wn_grid": _pressure_file_and_wn_grid,
     "tli": _tli,
     "thermo_tables": _thermo_tables,

@@ -131,6 +131,48 @@ def test_forward_matches_bart_tpu_batched(demo, cfg):
                                bt.numpy(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("cfg", [{}, {"ebalance": True},
+                                 {"quadrature": "expsum"}])
+def test_direct_solution_matches_bart_tpu_batched(demo, cfg):
+    """solution="direct" (tests/test_rt.py:271-282): the raw emergent
+    flux band-integrated with no stellar division, on bart_tpu's tables
+    carried over, alone, with ebalance and with expsum."""
+    from bart_tpu_torch.obs.bands import build_band_matrix
+
+    inp, grid = demo
+    bands_j = jbands(inp.wn, inp.filters)
+    fmj = JModel(JConfig(**{**inp.config_kwargs, "solution": "direct"},
+                         **cfg),
+                 wn_grid=inp.wn, pressure=inp.pressure, species=inp.species,
+                 base_abundances=inp.base_q, opacity=grid,
+                 system=inp.system, bands=bands_j, dtype=jnp.float64)
+    fmt = ForwardModel(
+        ForwardConfig(**{**inp.config_kwargs, "solution": "direct"}, **cfg),
+        wn_grid=inp.wn, pressure=inp.pressure, species=inp.species,
+        base_abundances=inp.base_q, opacity=_torch_grid(grid),
+        system=inp.system,
+        bands=build_band_matrix(inp.wn, inp.filters, device="cpu",
+                                dtype=F64),
+        dtype=F64, device="cpu")
+    tabs = fmt.tables_from_jax({k: np.asarray(v)
+                                for k, v in fmj.tables.items()})
+    P = _params()
+    bj, sj, vj = fmj.batched()(jnp.asarray(P))
+    bt, st, vt = fmt(torch.tensor(P), tabs)
+    assert bt.shape == (4, 10) and st.shape == (4, 256)
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    assert not vt[3] and vt[:3].all()
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=1e-9)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-9)
+    # raw fluxes, not planet-to-star ratios (tests/test_rt.py:279-282)
+    assert float(bt[:3].min()) > 1.0
+    # the eclipse forward computes the same emergent flux: only its band
+    # matrix divides by the star
+    fme = _torch_model(inp, grid, **dict(cfg))
+    np.testing.assert_allclose(
+        fme(torch.tensor(P))[1][:3].numpy(), st[:3].numpy(), rtol=1e-9)
+
+
 @pytest.mark.parametrize("name", ["wn", "pressure", "mu", "mu_w", "sigma"])
 def test_forward_views_match_bart_tpu(demo, name):
     inp, grid = demo

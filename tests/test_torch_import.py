@@ -109,13 +109,24 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
                      device="cuda")
 
 
+def _console_script():
+    """The function pyproject.toml's ``bart-tpu-torch`` script runs."""
+    import importlib
+    import tomllib
+
+    target = tomllib.loads((REPO / "pyproject.toml").read_text())[
+        "project"]["scripts"]["bart-tpu-torch"]
+    module, attr = target.split(":")
+    return getattr(importlib.import_module(module), attr)
+
+
 @pytest.mark.parametrize("entry", [
     "ForwardModel", "build_demo_model", "build_opacity_grid", "load_grid",
     "build_band_matrix", "tile_lines_bucketed", "tile_lines",
     "load_checkpoint",
     "Likelihood", "contribution_functions", "transmittance",
-    "band_average", "Pipeline", "cli.main", "init_distributed",
-    "local_device", "dryrun.main"])
+    "band_average", "Pipeline", "cli.main", "bart-tpu-torch",
+    "init_distributed", "local_device", "dryrun.main"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without ``device=`` and without a card, every entry point
     that creates tensors raises: none falls back to the CPU."""
@@ -183,6 +194,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         # the driver: without --device, even --validate asks for the card
         "Pipeline": lambda: Pipeline(cfg),
         "cli.main": lambda: cli.main(["-c", demo_cfg, "--validate"]),
+        # the console script: pyproject's target, resolved as an
+        # installer does
+        "bart-tpu-torch": lambda: _console_script()(
+            ["-c", demo_cfg, "--validate"]),
         # a rank's device: cuda:{LOCAL_RANK} unless the caller names one
         "init_distributed": lambda: init_distributed(
             f"file://{tmp_path}/rdzv", 1, 0),

@@ -205,7 +205,8 @@ def test_native_scanner_builds_from_several_processes(tmp_path):
     code = textwrap.dedent(f"""
         from pathlib import Path
         from bart_tpu_torch.native import hitran_native as h
-        h._BUILD_DIR = Path({str(tmp_path / "build")!r})
+        from bart_tpu_torch.utils import build
+        build.BUILD_DIR = Path({str(tmp_path / "build")!r})
         out = h.read_par({str(tmp_path / "fixture.par")!r})
         print(sorted((k, v.nlines) for k, v in out.items()))
     """)

@@ -10,6 +10,7 @@ own float32 build, at tests/test_torch_opacity.py's 2e-6; spectra and
 the best-fit outputs on one shared table at 1e-9 (measured <= 1e-14).
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -43,8 +44,10 @@ NLINES = 600
 RTOL = 1e-9
 OPACITY = "opacity_CH4.npz"
 #: (cfg, overrides) of the spectrum comparisons: folded at rtosamp = 4
+FOLD = {"rtosamp": "4"}
 SPECTRA = {"eclipse": ("eclipse", {}), "transit": ("transit", {}),
-           "eclipse_fold": ("eclipse_fold", {"rtosamp": "4"})}
+           "eclipse_fold": ("eclipse_fold", FOLD),
+           "transit_fold": ("transit_fold", FOLD)}
 
 
 @pytest.fixture(scope="module")
@@ -77,14 +80,15 @@ def port(cfg, **kw):
 @pytest.fixture(scope="module")
 def jax_spectra(work):
     """bart_tpu's --justSpectrum on each of SPECTRA, each in its own
-    directory (transit on a copy of eclipse's table: the same atm);
-    -> {name: (directory, wn, spectrum)}."""
+    directory (each transit on a copy of its eclipse's table: the same
+    atm); -> {name: (directory, wn, spectrum)}."""
     out = {}
     for key, (name, over) in SPECTRA.items():
         loc = work / f"jax_{key}"
         loc.mkdir()
-        if key == "transit":
-            shutil.copy(work / "jax_eclipse" / OPACITY, loc / OPACITY)
+        if key.startswith("transit"):
+            eclipse = key.replace("transit", "eclipse")
+            shutil.copy(work / f"jax_{eclipse}" / OPACITY, loc / OPACITY)
         _, jcfg = cfgs(work, name, loc, **over)
         wn, spec = JPipeline(jcfg, just_spectrum=True).run()
         out[key] = (loc, np.asarray(wn), np.asarray(spec))
@@ -161,7 +165,7 @@ def test_just_spectrum(work, jax_spectra, key):
     got = read_spectrum(str(loc / cfg.outspec))
     np.testing.assert_allclose(got[1], read_spectrum(
         str(jloc / cfg.outspec))[1], rtol=RTOL)
-    if key == "eclipse_fold":
+    if key.endswith("_fold"):
         assert len(load_grid(str(loc / OPACITY), device="cpu").wn_grid) \
             == 4 * len(wn)
 
@@ -200,27 +204,31 @@ def _posterior_files(loc, cfg, seed):
         f.write("\n")
 
 
-@pytest.mark.parametrize("name", ["eclipse", "transit"])
-def test_just_plots(work, jax_spectra, name):
+@pytest.mark.parametrize("key", ["eclipse", "transit", "eclipse_fold",
+                                 "transit_fold"])
+def test_just_plots(work, jax_spectra, key):
     """--justPlots on one output.npy and MCMC.log: bestfit_spectrum.dat,
     cf.npy (eclipse) or transmittance.npy (transit) and tau.npz against
-    bart_tpu's at 1e-9; every figure file written."""
+    bart_tpu's at 1e-9; every figure file written.  Folded at rtosamp =
+    4 on the fine table, which the port's Pipeline lets go before this
+    stage."""
+    name, over = SPECTRA[key]
     locs = {}
     for who in ("jax", "port"):
-        loc = work / f"plots_{who}_{name}"
+        loc = work / f"plots_{who}_{key}"
         loc.mkdir()
-        shutil.copy(jax_spectra["eclipse"][0] / OPACITY, loc / OPACITY)
-        locs[who] = cfgs(work, name, loc, savefiles="True")[
+        shutil.copy(jax_spectra[key][0] / OPACITY, loc / OPACITY)
+        locs[who] = cfgs(work, name, loc, savefiles="True", **over)[
             0 if who == "port" else 1]
         _posterior_files(loc, locs[who], seed=3)
     JPipeline(locs["jax"], just_plots=True, resume=True).run()
     port(locs["port"], just_plots=True, resume=True).run()
-    a, b = work / f"plots_port_{name}", work / f"plots_jax_{name}"
+    a, b = work / f"plots_port_{key}", work / f"plots_jax_{key}"
     got = np.loadtxt(a / "bestfit_spectrum.dat")
     ref = np.loadtxt(b / "bestfit_spectrum.dat")
     assert got.shape == ref.shape == (101, 2)
     np.testing.assert_allclose(got, ref, rtol=RTOL)
-    cf = "cf.npy" if name == "eclipse" else "transmittance.npy"
+    cf = "cf.npy" if name.startswith("eclipse") else "transmittance.npy"
     ref_cf = np.load(b / cf)
     assert ref_cf.shape == (16, 10)
     np.testing.assert_allclose(np.load(a / cf), ref_cf, rtol=RTOL,
@@ -260,6 +268,51 @@ def test_full_tiny_run_then_plots_and_resume(work, jax_spectra):
     res = port(cfg, resume=True).run()
     assert res.posterior.shape == (4, 4, 180)
     np.testing.assert_array_equal(res.posterior[:, :, :80], post)
+
+
+@pytest.mark.parametrize("name", ["eclipse_fold", "transit_fold"])
+def test_folded_cli_retrieval(work, jax_spectra, name, monkeypatch):
+    """The folded retrieval through ``driver.cli.main`` (rtosamp = 4,
+    the adaptive split, bfloat16 fine rows), 4 chains x one block of 100
+    steps on the CPU, where the wrappers run the four kernels' plain
+    versions: the forward calls the folded and the K = 1 wrapper, the
+    posterior is finite, MCMC.log is written, and the fine table is
+    reused from the directory, not rebuilt."""
+    from bart_tpu_torch.driver import cli
+    from bart_tpu_torch.rt import forward
+
+    loc = work / f"cli_{name}"
+    loc.mkdir()
+    shutil.copy(jax_spectra[name][0] / OPACITY, loc / OPACITY)
+    mtime = (loc / OPACITY).stat().st_mtime_ns
+    transit = name.startswith("transit")
+    calls = {}
+    for wrapper in (("fused_transit_folded", "fused_transit") if transit
+                    else ("fused_eclipse_folded", "fused_eclipse")):
+        def counted(*a, _fn=getattr(forward, wrapper), _name=wrapper,
+                    **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(forward, wrapper, counted)
+    argv = ["-c", str(DEMO / f"{name}.cfg"), "--device", "cpu",
+            "--loc_dir", str(loc), "--linedb", str(work / "lines.tli.npz"),
+            "--nchains", "4", "--numit", "400", "--burnin", "20",
+            "--plots", "False"]
+    for k, v in {**TINY, **FOLD}.items():
+        argv += [f"--{k}", v]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the cfg sets wnosamp
+        assert cli.main(argv) == 0
+    assert len(calls) == 2 and min(calls.values()) > 0, calls
+    assert (loc / OPACITY).stat().st_mtime_ns == mtime
+    post = np.load(loc / "output.npy")
+    nfree = 5 if transit else 4
+    assert post.shape == (4, nfree, 80) and np.all(np.isfinite(post))
+    log = (loc / "MCMC.log").read_text()
+    assert "Best-fit params" in log
+    stages = [json.loads(line)["stage"] for line in
+              (loc / "stage_timing.jsonl").read_text().splitlines()]
+    assert stages[-2:] == ["forward_setup", "mcmc"]
 
 
 def test_cli_subprocess_without_jax(work):
