@@ -80,9 +80,7 @@ _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 # the source)
 _MAX_NMU = 16          # the kernel keeps the quadrature in shared memory
 _TILE_W, _CB, _NSTAGE, _NTHREADS = 64, 32, 4, 256
-# fused_eclipse_folded.cu: TILE_F, TY, CPT (float32 tables); MTILE_F,
-# CBM, NSTAGE, MTHREADS (bfloat16 tables, the tensor-core kernel)
-_F_TILE_F, _F_TY, _F_CPT = 128, 2, 4
+# fused_eclipse_folded.cu: MTILE_F, CBM, NSTAGE, MTHREADS
 _F_MTILE_F, _F_CBM, _F_NSTAGE, _F_MTHREADS = 64, 32, 4, 256
 # fused_transit_mma.cuh (the K = 1 and the folded transit kernel): FT_W,
 # FT_CB, FT_NS, FT_MT
@@ -104,7 +102,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _KERNELS = {
     "fused_eclipse": [_VP] * 8 + [_CI] * 8 + [_VP],
     "fused_transit": [_VP] * 5 + [_CI] * 6 + [_VP],
-    "fused_eclipse_folded": [_VP] * 9 + [_CI] * 10 + [_VP],
+    "fused_eclipse_folded": [_VP] * 8 + [_CI] * 10 + [_VP],
     "fused_transit_folded": [_VP] * 5 + [_CI] * 8 + [_VP],
 }
 
@@ -332,8 +330,9 @@ def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 x -> (big, small) as the folded transit kernel feeds its
-    3xTF32 slant product: big is x rounded to TF32's 10 mantissa bits
+    """float32 x -> (big, small) as the tensor-core kernels feed their
+    3xTF32 products (every contraction of a float32 table, and the
+    transit slant product): big is x rounded to TF32's 10 mantissa bits
     (to nearest, ties away from zero), small is x - big (exact) cut to
     10 bits as the unit reads it.  |x - (big + small)| <= 2^-21 |x|."""
     if x.dtype != torch.float32:
@@ -724,22 +723,16 @@ def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
 fused_transit.launches = 0
 
 
-def _ptr(x: torch.Tensor | None):
-    """data_ptr, or a null pointer for an operand the kernel does not read."""
-    return None if x is None else x.data_ptr()
-
-
 def _eclipse_folded_smem(R: int, K: int, bf16: bool) -> int:
     """Bytes of dynamic shared memory a block of the folded eclipse
-    kernels needs (as the launchers count them).  bfloat16: NSTAGE stages
-    of the table tile [Rp][MTILE_F + 8] and the weight parts
-    [3][CBM][Rp + 8] in bfloat16, and two buffers of Planck means
-    [MTILE_F / K][CBM] in float32.  float32: one layer's table slice and
-    the block's weights."""
-    if not bf16:
-        return 4 * (R * _F_TILE_F + _F_TY * _F_CPT * R)
-    Rp = -(-R // _MMA_K) * _MMA_K
-    stage = 2 * (Rp * (_F_MTILE_F + 8) + 3 * _F_CBM * (Rp + 8))
+    kernel needs (as its launcher counts them): NSTAGE stages of the
+    table tile [Rp][MTILE_F + 8] and the weights, then two buffers of
+    Planck means [MTILE_F / K][CBM] in float32.  bfloat16: the weights'
+    three parts [3][CBM][Rp + 8] in bfloat16, Rp = R rounded up to 16;
+    float32: [CBM][Rp + 4] in float32, Rp = R rounded up to 8."""
+    eb, parts, depth = (2, 3, _MMA_K) if bf16 else (4, 1, _MMA_K32)
+    Rp = -(-R // depth) * depth
+    stage = eb * (Rp * (_F_MTILE_F + 8) + parts * _F_CBM * (Rp + 16 // eb))
     return _F_NSTAGE * stage + 2 * 4 * (_F_MTILE_F // K) * _F_CBM
 
 
@@ -780,10 +773,11 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     A CPU ``T`` runs ``eclipse_folded_plain``.  A CUDA ``T`` launches the
     kernel on the current stream, without synchronising: the table is
     read as stored (float32 or bfloat16), everything else in float32,
-    and the result is cast to ``T.dtype``.  A bfloat16 table takes the
-    tensor-core kernel, whose fill contracts the weights' three bfloat16
-    parts (``split_bf16``) exactly.  It raises on any input the kernel
-    does not take, and never falls back.
+    and the result is cast to ``T.dtype``.  The fill runs on tensor
+    cores: on a bfloat16 table exactly, on the weights' three bfloat16
+    parts (``split_bf16``); on a float32 table in 3xTF32, table and
+    weights split in the kernel (``split_tf32``).  It raises on any input
+    the kernel does not take, and never falls back.
     """
     if T.device.type == "cpu":
         return eclipse_folded_plain(ft, wn_out, mu, muw, wrows, T, drp,
@@ -807,25 +801,23 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
                          f"1..{_MAX_NMU}")
     if min(R, L, C) < 1:
         raise ValueError(f"{fn}: empty row, layer or chain axis")
-    Rp = -(-R // _MMA_K) * _MMA_K
     smem = _eclipse_folded_smem(R, K, bool(bf16))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{fn}: {R} rows need {smem} B of shared memory, "
                          f"more than a block has ({_SMEM_LIMIT})")
-    # the grid's second axis: chain blocks (float32) or fine tiles (bf16)
-    if bf16 and -(-W * K // _F_MTILE_F) > _MAX_GRID_Y:
+    if -(-W * K // _F_MTILE_F) > _MAX_GRID_Y:
         raise ValueError(f"{fn}: {W * K} fine wavenumbers exceed the grid's "
                          f"{_MAX_GRID_Y * _F_MTILE_F}")
-    if not bf16 and -(-C // (_F_TY * _F_CPT)) > _MAX_GRID_Y:
-        raise ValueError(f"{fn}: {C} chains exceed the grid's "
-                         f"{_MAX_GRID_Y * _F_TY * _F_CPT}")
-    if max(3 * C * L * Rp, C * W) >= 2**31:
+    # the row axis padded to the depth of one product; the weights as
+    # the kernel reads them: three bfloat16 parts (split_bf16) for a
+    # bfloat16 table, float32 for a float32 one
+    depth = _MMA_K if bf16 else _MMA_K32
+    Rp = -(-R // depth) * depth
+    if max((3 if bf16 else 1) * C * L * Rp, C * W) >= 2**31:
         raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
-    # a bfloat16 table: the weights as three bfloat16 parts (split_bf16)
     f32 = torch.float32
-    wrows32 = None if bf16 else wrows.to(f32).contiguous()
-    wparts = _split_rows(wrows, Rp) if bf16 else None
+    w = _split_rows(wrows, Rp) if bf16 else _pad_rows(wrows, Rp)
     T32 = T.to(f32).contiguous()
     drp32 = drp.to(f32).contiguous()
     wn32 = wn_out.to(f32).contiguous()
@@ -838,7 +830,7 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bart_fused_eclipse_folded(
-            ft.tab.data_ptr(), _ptr(wrows32), _ptr(wparts), T32.data_ptr(),
+            ft.tab.data_ptr(), w.data_ptr(), T32.data_ptr(),
             drp32.data_ptr(), wn32.data_ptr(), minv.data_ptr(),
             wmu.data_ptr(), out.data_ptr(),
             R, Rp, L, W, Fp, C, K, nmu, int(bool(powers)), bf16, stream)

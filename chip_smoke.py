@@ -97,7 +97,12 @@ smooth bins.  Phases:
      kernel on the CLI models' own rows against its plain version (these,
      not phase 2's, make the kernels line of this run), the folded bands
      at the truth against a K = 1 forward's (the source of the cfgs'
-     data), and a 512-chain transit retrieval on the same fine table
+     data), and a 512-chain transit retrieval on the same fine table;
+     then eclipse_fold_f32.cfg (the reference's default float32 fine
+     rows, the 3xTF32 instance of the folded eclipse kernel) on that
+     table: a short graphed retrieval, phase 4b, its kernels on its
+     rows, its bands at the truth against the bfloat16 model's and the
+     K = 1 forward's
   6. with ``--trace`` only (after phase 10): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
@@ -244,6 +249,12 @@ FOLD_DATA_SIGMA = 0.3
 #: phase 11: the chains (around the truth) on which each kernel of the
 #: CLI's folded models is held against its plain version and timed
 FOLD_CHECK_SPREAD = 0.005
+#: phase 11 (d): steps a chain of the retrieval on eclipse_fold_f32.cfg
+#: (the reference's default float32 fine rows; burn-in half of them), and
+#: its folded bands at the truth against the bfloat16 model's
+#: (tests/test_fused.py:592's tolerance for bfloat16 against float32 fine
+#: tables)
+F32_STEPS, F32_BAND_RTOL = 1000, 2e-3
 #: phase 9a: chains of the on-the-fly forwards (512 in the other paths:
 #: a forward computes the Voigt profiles of all 30,000 lines, 2.6e7
 #: (line, point) pairs a layer on uniform tiles, at each of the chains'
@@ -304,16 +315,14 @@ def nbytes(*tensors) -> int:
 
 def eclipse_bound(R, L, F, C, nmu, powers, K, bf16, nbytes_in) -> dict:
     """Bound of one eclipse launch, K = 1 or folded over F = W K fine
-    points: per (chain, layer, fine point) R FMAs for ext (the fill: on
-    tensor cores, TF32 at K = 1 and bfloat16 on a bfloat16 fine table;
-    on the float32 pipes on a float32 fine table), 4 for the recurrence
-    and the flux, nmu for the quadrature, and 1 (powers) or nmu
-    exponentials; one Planck exponential per (chain, layer, output bin).
-    Bytes: every input as stored and the output, once each."""
+    points: per (chain, layer, fine point) R FMAs for ext (the fill, on
+    tensor cores: bfloat16 on a bfloat16 fine table, else TF32), 4 for
+    the recurrence and the flux, nmu for the quadrature, and 1 (powers)
+    or nmu exponentials; one Planck exponential per (chain, layer, output
+    bin).  Bytes: every input as stored and the output, once each."""
     pts = C * L * F
-    fill = "bf16" if bf16 else ("tf32" if K == 1 else None)
-    return bound(pts * (nmu + 4) + (0 if fill else pts * R),
-                 [("fill", fill, pts * R)] if fill else [],
+    return bound(pts * (nmu + 4), [("fill", "bf16" if bf16 else "tf32",
+                                    pts * R)],
                  pts * (1 if powers else nmu) + pts // K,
                  nbytes_in + 4 * C * (F // K))
 
@@ -333,10 +342,13 @@ def transit_bound(R, L, F, C, K, bf16, nbytes_in) -> dict:
 def kernel_record(name: str, max_abs_err: float, ms: float, plain_ms: float,
                   bnd: dict, launches: int, **more) -> dict:
     """One kernel's entry of a kernels line: the contract's keys,
-    ``bound``'s keys and ``more``."""
+    ``bound``'s keys and ``more``.  ``name`` is the wrapper's, or the
+    wrapper's with an instance in brackets (``fused_eclipse_folded
+    [float32]``)."""
+    base = name.split("[")[0]
     return {"name": name, "route": "cuda",
-            "source": f"bart_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches, **more,
+            "source": f"bart_tpu_torch/csrc/{base}.cu",
+            "replaces": REPLACES[base], "launches": launches, **more,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             **bnd,
             # no single PyTorch call computes any of the four
@@ -681,8 +693,15 @@ def kernel_times(fused, f32: dict, quads: dict) -> None:
                     T, drp]
             ms = cuda_ms(lambda: fused.fused_eclipse_folded(ft, wn, *rest,
                                                             powers), 5)
+            p_ms = cuda_ms(lambda: fused.eclipse_folded_plain(ft, wn, *rest,
+                                                              powers), 2)
+            bnd = eclipse_bound(R, L, W * K, C, len(mu), powers, K,
+                                tdt == torch.bfloat16,
+                                nbytes(ft.tab, wn, *rest))
             print(f"# kernels: fused_eclipse_folded {str(tdt)[6:]} {quad} "
-                  f"{W} bins x {K}: {ms:.3f} ms")
+                  f"{W} bins x {K}: {ms:.3f} ms; plain {p_ms:.3f} ms; bound "
+                  f"{bnd['bound_ms']:.3f} ms ({bnd['bound_term']}; tensor "
+                  f"cores {bnd['tensor_ms']:.3f} ms)")
     del tab, wrows, fine, ft
     args = [torch.tensor(a, **f32)
             for a in random_transit_rows(Rt, L, 2501, C, seed=7)[:4]]
@@ -1689,7 +1708,13 @@ def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
     checked against the transit cfg and model): 512 chains x 100 steps,
     fused_transit_folded and fused_transit launched, output.npy finite,
     MCMC.log written; phase 4b, its kernels and its truth bands as in
-    (a)-(b)."""
+    (a)-(b).  (d) ``driver.cli.main`` on eclipse_fold_f32.cfg (foldtable16
+    left at the reference's default: float32 fine rows) on (a)'s opacity
+    file: 512 chains x F32_STEPS graphed steps, output.npy finite,
+    acceptance > 0, MCMC.log written, the step's ms and the memory; phase
+    4b on its likelihood; its kernels on its rows; its folded bands at the
+    truth within F32_BAND_RTOL of (b)'s bfloat16 model's and within
+    FOLD_DATA_SIGMA of the K = 1 forward's."""
     import shutil
 
     import torch
@@ -1710,9 +1735,11 @@ def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
     dev = f32["device"]
     kernels = (fused.fused_eclipse_folded, fused.fused_eclipse,
                fused.fused_transit_folded, fused.fused_transit)
-    ecfg, tcfg = (os.path.join(demo, f"{n}.cfg")
-                  for n in ("eclipse_fold", "transit_fold"))
-    eloc, tloc = os.path.join(work, "eclipse"), os.path.join(work, "transit")
+    ecfg, tcfg, fcfg = (os.path.join(demo, f"{n}.cfg")
+                        for n in ("eclipse_fold", "transit_fold",
+                                  "eclipse_fold_f32"))
+    eloc, tloc, floc = (os.path.join(work, n)
+                        for n in ("eclipse", "transit", "eclipse_f32"))
     opac = os.path.join(eloc, "opacity_CH4.npz")
     gib = 2.0 ** 30
 
@@ -1731,12 +1758,14 @@ def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
         return torch.tensor(np.tile(truth, (CLI_CHAINS, 1)) + rng.normal(
             0, 1, (CLI_CHAINS, len(truth))) * spread, **f32)
 
-    def truth_bands(fm, fm1, truth, uncert, label):
-        p = torch.tensor(truth[None], **f32)
-        b, _, valid = fm(p)
-        b1, _, valid1 = fm1(p)
-        check(bool(valid[0]) and bool(valid1[0]), f"{label}: invalid truth")
-        b, b1 = b[0].double().cpu().numpy(), b1[0].double().cpu().numpy()
+    def bands_at(fm, truth, label):
+        b, _, valid = fm(torch.tensor(truth[None], **f32))
+        check(bool(valid[0]), f"{label}: invalid truth")
+        return b[0].double().cpu().numpy()
+
+    def truth_bands(b, b1, uncert, label):
+        """The folded bands ``b`` at the truth against the K = 1
+        forward's ``b1``."""
         sig = np.abs(b - b1) / uncert
         print(f"# phase 11: {label}: folded bands at the truth against the "
               f"K = 1 forward's (the data's source): rel "
@@ -1830,8 +1859,9 @@ def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
         # the K = 1 pipeline's forward (the source of the cfg's data)
         k1loc = os.path.join(work, "k1")
         _, fm1 = cli_model(ecfg, k1loc, dev, rtosamp="1")
-        truth_bands(fm, fm1, TRUTH, load_data_array(cfg.uncert),
-                    "eclipse_fold.cfg")
+        b16 = bands_at(fm, TRUTH, "eclipse_fold.cfg")
+        b1 = bands_at(fm1, TRUTH, "eclipse_fold.cfg, K = 1")
+        truth_bands(b16, b1, load_data_array(cfg.uncert), "eclipse_fold.cfg")
         # the graphs of phase 4b hold their models in reference cycles
         del fm, fm1
         gc.collect()
@@ -1885,9 +1915,71 @@ def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
         _, fmt1 = cli_model(tcfg, os.path.join(work, "k1_transit"), dev,
                             rtosamp="1", opacityfile=os.path.join(
                                 k1loc, "opacity_CH4.npz"))
-        truth_bands(fmt, fmt1, TRUTH_TRANSIT, load_data_array(tc.uncert),
-                    "transit_fold.cfg")
+        truth_bands(bands_at(fmt, TRUTH_TRANSIT, "transit_fold.cfg"),
+                    bands_at(fmt1, TRUTH_TRANSIT, "transit_fold.cfg, K = 1"),
+                    load_data_array(tc.uncert), "transit_fold.cfg")
         del fmt, fmt1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) eclipse_fold_f32.cfg on (a)'s opacity file: float32 fine rows
+        torch.cuda.reset_peak_memory_stats()
+        run = cli_run(["-c", fcfg, "--loc_dir", floc, "--nchains",
+                       str(CLI_CHAINS), "--numit", str(CLI_CHAINS * F32_STEPS),
+                       "--burnin", str(F32_STEPS // 2), "--plots", "False",
+                       "--grtest", "False", "--opacityfile", opac], kernels)
+        fpeak = torch.cuda.max_memory_allocated() / gib
+        post = np.load(os.path.join(floc, "output.npy"))
+        with open(os.path.join(floc, "MCMC.log")) as f:
+            accept = float(re.findall(r"accept=([0-9.]+)", f.read())[-1])
+        print(f"# phase 11 ({smi}): cli eclipse_fold_f32.cfg on the eclipse "
+              f"run's table: {CLI_CHAINS} chains x {F32_STEPS} steps in "
+              f"{run['seconds']:.2f} s; stages "
+              + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
+              + f" = {1e3 * run['stages']['mcmc'] / F32_STEPS:.3f} ms a "
+              f"{CLI_CHAINS}-chain step with the host's stores; accept "
+              f"{accept:.3f}; launches counted in Python {run['counts']}; "
+              f"posterior {post.shape}; peak {fpeak:.2f} GiB, "
+              f"{held['eclipse']:.2f} GiB held when the retrieval starts")
+        check(run["counts"]["fused_eclipse_folded"] > 0
+              and run["counts"]["fused_eclipse"] > 0
+              and run["counts"]["fused_transit_folded"] == 0
+              and run["counts"]["fused_transit"] == 0,
+              f"the CLI float32-table run launched {run['counts']}")
+        check(post.shape[0] == CLI_CHAINS and post.shape[2] > 0
+              and bool(np.all(np.isfinite(post))), "float32-table posterior")
+        check(accept > 0.0, "float32-table retrieval: no accepted proposal")
+        out["f32"] = run
+        like, space, _ = likes.pop("eclipse")
+        fmf = like.forward
+        check(fmf.tables["tabk"].tab.dtype == torch.float32
+              and fmf.tables["tabk"].W == n_f,
+              "eclipse_fold_f32.cfg's model does not hold float32 fine rows "
+              "on fine_bin_mask's bins")
+        params = near(TRUTH, FOLD_CHECK_SPREAD)
+        label = "phase 11: cli eclipse_fold_f32.cfg"
+        out["steps"]["cli_eclipse_fold_f32"] = step = step_phase(
+            label, like, space, fmf, params,
+            [fused.fused_eclipse_folded, fused.fused_eclipse])
+        print_steps(label, step, smi)
+        del like, space
+        f32_checks = fold_path_kernels(fused, fmf, params)
+        checks["fused_eclipse_folded[float32]"] = f32_checks.pop(
+            "fused_eclipse_folded")
+        c = f32_checks["fused_eclipse"]
+        print(f"# phase 11: eclipse_fold_f32.cfg: fused_eclipse on its "
+              f"smooth bins (W={c['W']}): max rel err {c['rel']:.3e}, kernel "
+              f"{c['ms']:.3f} ms")
+        bf = bands_at(fmf, TRUTH, "eclipse_fold_f32.cfg")
+        e16 = float(np.max(np.abs(bf - b16) / np.abs(b16)))
+        print(f"# phase 11: eclipse_fold_f32.cfg: folded bands at the truth "
+              f"against the bfloat16 model's: max rel {e16:.3e} (bound "
+              f"{F32_BAND_RTOL})")
+        check(e16 < F32_BAND_RTOL, f"float32 against bfloat16 fine rows: "
+              f"bands at the truth rel {e16}")
+        truth_bands(bf, b1, load_data_array(cfg.uncert),
+                    "eclipse_fold_f32.cfg")
+        del fmf
     finally:
         Pipeline.stage_mcmc = stage_mcmc
     for name, c in checks.items():
@@ -1906,20 +1998,36 @@ def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
 def cli_fold_kernels(p11: dict) -> list:
     """Phase 11's kernels line: launches on the device, in the trace of a
     replayed block of each CLI model's step; python_launches the
-    wrapper's count over the phase's three CLI runs (eager calls,
+    wrapper's count over the phase's four CLI runs (eager calls,
     warm-ups, captures: a replay is never counted there); the rest from
-    each kernel on the CLI models' own rows."""
-    runs = {r: p11[r]["counts"] for r in ("eclipse", "spectrum", "transit")}
+    each kernel on the CLI models' own rows.  The folded eclipse kernel
+    has an entry per table type, each counted on the runs of its type:
+    ``fused_eclipse_folded`` the bfloat16 instance (eclipse_fold.cfg),
+    ``fused_eclipse_folded[float32]`` the float32 one
+    (eclipse_fold_f32.cfg)."""
+    runs = {r: p11[r]["counts"]
+            for r in ("eclipse", "spectrum", "transit", "f32")}
     recs = []
-    for name, c in p11["checks"].items():
+    for key, c in p11["checks"].items():
+        name = key.split("[")[0]
+        f32 = key.endswith("[float32]")
+        folded = name == "fused_eclipse_folded"
+
+        def mine(run):
+            # the K = 1 kernels serve every run, a folded instance those
+            # of its table type
+            return not folded or run.endswith("f32") == f32
+
         by_path = {p: st["counts"][name] for p, st in p11["steps"].items()
-                   if name in st["counts"]}
+                   if name in st["counts"] and mine(p)}
+        more = {"table": "float32" if f32 else "bfloat16"} if folded else {}
         recs.append(kernel_record(
-            name, c["abs"], c["ms"], c["plain_ms"], c["bound"],
+            key, c["abs"], c["ms"], c["plain_ms"], c["bound"],
             sum(by_path.values()), launches_by_path=by_path,
-            python_launches=sum(r[name] for r in runs.values()),
-            cli_fold_launches={r: n[name] for r, n in runs.items()},
-            max_rel_err=c["rel"]))
+            python_launches=sum(n[name] for r, n in runs.items() if mine(r)),
+            cli_fold_launches={r: n[name] for r, n in runs.items()
+                               if mine(r)},
+            max_rel_err=c["rel"], **more))
     return recs
 
 

@@ -13,12 +13,14 @@ their counterparts from what the repository holds, next to itself:
 * ``abundances.txt``: H, He, C, N and O, the photospheric values of
   Asplund et al. 2009 (ARA&A 47, 481, Table 1) with standard atomic
   weights, in the reference's five columns;
-* five cfgs on the line list and CIA table of examples/demo_inputs:
+* six cfgs on the line list and CIA table of examples/demo_inputs:
   ``eclipse.cfg`` and ``transit.cfg`` (bart_tpu's demo cfgs with these
   paths), ``eclipse_tea.cfg`` (thermochemical equilibrium of ten species
   with the shipped NASA-7 tables in place of the uniform abundances),
-  and ``eclipse_fold.cfg`` and ``transit_fold.cfg`` (the publication
-  accuracy: rtosamp = 32, adaptive split, bfloat16 tables).
+  ``eclipse_fold.cfg`` and ``transit_fold.cfg`` (the publication
+  accuracy: rtosamp = 32, adaptive split, bfloat16 tables), and
+  ``eclipse_fold_f32.cfg`` (the same with the reference's default
+  float32 fine tables: foldtable16 left out).
 
 The data in the eclipse and transit cfgs are the band fluxes of the
 port's own pipeline stages at the demo truth (``demo.TRUTH``,
@@ -164,12 +166,20 @@ rtadapt = True
 foldtable16 = True
 """
 
-#: cfg name -> (loc_dir suffix, solution, atmosphere, folded)
-CFGS = {"eclipse": ("eclipse", "eclipse", _UNIFORM, False),
-        "transit": ("transit", "transit", _UNIFORM, False),
-        "eclipse_tea": ("tea", "eclipse", _TEA, False),
-        "eclipse_fold": ("fold", "eclipse", _UNIFORM, True),
-        "transit_fold": ("transit_fold", "transit", _UNIFORM, True)}
+_FOLD_F32 = """
+; Publication accuracy: 32 sub-samples a bin folded into the kernels,
+; the adaptive split; float32 fine tables (foldtable16's default, off)
+rtosamp = 32
+rtadapt = True
+"""
+
+#: cfg name -> (loc_dir suffix, solution, atmosphere, fold block)
+CFGS = {"eclipse": ("eclipse", "eclipse", _UNIFORM, ""),
+        "transit": ("transit", "transit", _UNIFORM, ""),
+        "eclipse_tea": ("tea", "eclipse", _TEA, ""),
+        "eclipse_fold": ("fold", "eclipse", _UNIFORM, _FOLD),
+        "transit_fold": ("transit_fold", "transit", _UNIFORM, _FOLD),
+        "eclipse_fold_f32": ("fold_f32", "eclipse", _UNIFORM, _FOLD_F32)}
 
 
 def _numbers(key: str, values) -> str:
@@ -198,7 +208,7 @@ def write_cfg(out: str, name: str, data=None, uncert=None) -> str:
             "\n" + _COMMON.format(
                 name=suffix, atmosphere=atmosphere, data=block,
                 filters=filters, params=_PARAMS[source],
-                fold=_FOLD if fold else "", solution=solution))
+                fold=fold, solution=solution))
     path = os.path.join(out, f"{name}.cfg")
     with open(path, "w") as f:
         f.write(text)

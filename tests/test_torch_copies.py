@@ -467,7 +467,7 @@ def _config():
     import warnings
 
     for name in ("eclipse", "transit", "eclipse_tea", "eclipse_fold",
-                 "transit_fold"):
+                 "transit_fold", "eclipse_fold_f32"):
         path = str(DEMO / f"{name}.cfg")
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")   # both warn about wnosamp
@@ -490,6 +490,9 @@ def _config():
         fold = config.load_config(str(DEMO / f"{name}.cfg"))
         assert (fold.fold_K, fold.rtadapt, fold.foldtable16) == (32, True,
                                                                 True)
+    # the reference's default: float32 fine tables
+    fold = config.load_config(str(DEMO / "eclipse_fold_f32.cfg"))
+    assert (fold.fold_K, fold.rtadapt, fold.foldtable16) == (32, True, False)
     assert config.load_config(str(DEMO / "transit_fold.cfg")).solution \
         == "transit"
     # every default but abun_basic, a file of a reference checkout that

@@ -328,8 +328,7 @@ def test_folded_kernel_source_constants_match_python():
     np.testing.assert_allclose(lit("kC1"), C1, rtol=1e-15)
     np.testing.assert_allclose(lit("kC2"), const.C2, rtol=1e-15)
     assert lit("kTauClamp") == fused.TAU_CLAMP
-    for macro, value in (("TILE_F", fused._F_TILE_F), ("TY", fused._F_TY),
-                         ("CPT", fused._F_CPT), ("MAX_NMU", fused._MAX_NMU),
+    for macro, value in (("MAX_NMU", fused._MAX_NMU),
                          ("MTILE_F", fused._F_MTILE_F),
                          ("CBM", fused._F_CBM), ("NSTAGE", fused._F_NSTAGE),
                          ("MTHREADS", fused._F_MTHREADS)):
@@ -343,13 +342,16 @@ def test_folded_kernel_source_constants_match_python():
                          ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT)):
         assert re.search(rf"#define {macro} (\d+)", tsrc).group(1) == str(value)
     # both tensor-core kernels contract split_bf16's parts in steps of 16
+    # on a bfloat16 table and split_tf32's in steps of 8 on a float32 one:
+    # one kernel template each, no float32-pipe fill
     assert fused._MMA_K == 16 and "mma_bf16(" in src and "mma_bf16(" in tsrc
-    assert "mma_tf32(" in tsrc
+    assert fused._MMA_K32 == 8 and "mma_tf32(" in src and "mma_tf32(" in tsrc
+    assert len(re.findall(r"__global__", src)) == 1
+    assert "template <typename TabT, bool POWERS, int NMU>" in src
     assert set(fused._KERNELS) == {p.stem for p in fused._CSRC.glob("*.cu")}
     # every sub-sample count the wrappers let through is a lane group
-    assert all(32 % k == 0 and fused._F_TILE_F % k == 0
-               and fused._F_MTILE_F % k == 0 and fused._FT_W % k == 0
-               for k in fused._FOLD_K)
+    assert all(32 % k == 0 and fused._F_MTILE_F % k == 0
+               and fused._FT_W % k == 0 for k in fused._FOLD_K)
 
 
 # ---------------------------------------------------------------------
@@ -449,14 +451,19 @@ def test_transit_folded_kernel_ragged_shapes_on_card(cuda_device, shape,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("geometry", ["eclipse", "transit"])
-def test_tensor_core_fill_keeps_tiny_weights_on_card(cuda_device, geometry):
-    """Weights of 1e-32..1e-25 are normal float32 numbers whose smallest
-    bfloat16 part is subnormal (and still exact: split_bf16 holds down to
-    2^-109); the table is scaled up to match, so ext is as in the unscaled
+@pytest.mark.parametrize("geometry, table_dtype",
+                         [("eclipse", BF16), ("eclipse", F32),
+                          ("transit", BF16)])
+def test_tensor_core_fill_keeps_tiny_weights_on_card(cuda_device, geometry,
+                                                     table_dtype):
+    """bfloat16 table: weights of 1e-32..1e-25 are normal float32 numbers
+    whose smallest bfloat16 part is subnormal (and still exact:
+    split_bf16 holds down to 2^-109).  float32 table (3xTF32): weights
+    of 1e-35..1e-28, whose TF32 remainders (2^-11 of them) are subnormal.
+    The table is scaled up to match, so ext is as in the unscaled
     problem.  The fill must keep what the float32 FMAs of the plain
     version keep."""
-    scale = 2.0 ** -133
+    scale = 2.0 ** (-133 if table_dtype == BF16 else -143)
     if geometry == "eclipse":
         fine, args, powers = _eclipse("raygrid", (19, 23, 75, 6), 4)
         args = list(args)
@@ -470,8 +477,12 @@ def test_tensor_core_fill_keeps_tiny_weights_on_card(cuda_device, geometry):
         run, plain = fused.fused_transit_folded, fused.transit_folded_plain
         kw, rtol = {}, 1e-5
     rest = [_t(a, F32, cuda_device) for a in args[1:]]
-    ft = _ft(fine / scale, 4, F32, BF16, cuda_device)
+    ft = _ft(fine / scale, 4, F32, table_dtype, cuda_device)
     assert bool(torch.isfinite(ft.tab.float()).all())
+    if table_dtype == F32:
+        small = fused.split_tf32(rest[3])[1]
+        tiny = torch.finfo(F32).tiny
+        assert bool(((small != 0) & (small.abs() < tiny)).any())
     got, ref = run(ft, *rest, **kw), plain(ft, *rest, **kw)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=rtol)

@@ -44,10 +44,15 @@ NLINES = 600
 RTOL = 1e-9
 OPACITY = "opacity_CH4.npz"
 #: (cfg, overrides) of the spectrum comparisons: folded at rtosamp = 4
+#: (eclipse_fold_f32: float32 fine tables, foldtable16's default)
 FOLD = {"rtosamp": "4"}
 SPECTRA = {"eclipse": ("eclipse", {}), "transit": ("transit", {}),
            "eclipse_fold": ("eclipse_fold", FOLD),
-           "transit_fold": ("transit_fold", FOLD)}
+           "transit_fold": ("transit_fold", FOLD),
+           "eclipse_fold_f32": ("eclipse_fold_f32", FOLD)}
+#: spectra that read another one's table (the same atm and grids)
+TABLE_OF = {"transit": "eclipse", "transit_fold": "eclipse_fold",
+            "eclipse_fold_f32": "eclipse_fold"}
 
 
 @pytest.fixture(scope="module")
@@ -80,15 +85,15 @@ def port(cfg, **kw):
 @pytest.fixture(scope="module")
 def jax_spectra(work):
     """bart_tpu's --justSpectrum on each of SPECTRA, each in its own
-    directory (each transit on a copy of its eclipse's table: the same
+    directory (those of TABLE_OF on a copy of that one's table: the same
     atm); -> {name: (directory, wn, spectrum)}."""
     out = {}
     for key, (name, over) in SPECTRA.items():
         loc = work / f"jax_{key}"
         loc.mkdir()
-        if key.startswith("transit"):
-            eclipse = key.replace("transit", "eclipse")
-            shutil.copy(work / f"jax_{eclipse}" / OPACITY, loc / OPACITY)
+        if key in TABLE_OF:
+            shutil.copy(work / f"jax_{TABLE_OF[key]}" / OPACITY,
+                        loc / OPACITY)
         _, jcfg = cfgs(work, name, loc, **over)
         wn, spec = JPipeline(jcfg, just_spectrum=True).run()
         out[key] = (loc, np.asarray(wn), np.asarray(spec))
@@ -205,7 +210,7 @@ def _posterior_files(loc, cfg, seed):
 
 
 @pytest.mark.parametrize("key", ["eclipse", "transit", "eclipse_fold",
-                                 "transit_fold"])
+                                 "transit_fold", "eclipse_fold_f32"])
 def test_just_plots(work, jax_spectra, key):
     """--justPlots on one output.npy and MCMC.log: bestfit_spectrum.dat,
     cf.npy (eclipse) or transmittance.npy (transit) and tau.npz against
@@ -270,14 +275,16 @@ def test_full_tiny_run_then_plots_and_resume(work, jax_spectra):
     np.testing.assert_array_equal(res.posterior[:, :, :80], post)
 
 
-@pytest.mark.parametrize("name", ["eclipse_fold", "transit_fold"])
+@pytest.mark.parametrize("name", ["eclipse_fold", "transit_fold",
+                                  "eclipse_fold_f32"])
 def test_folded_cli_retrieval(work, jax_spectra, name, monkeypatch):
     """The folded retrieval through ``driver.cli.main`` (rtosamp = 4,
-    the adaptive split, bfloat16 fine rows), 4 chains x one block of 100
-    steps on the CPU, where the wrappers run the four kernels' plain
-    versions: the forward calls the folded and the K = 1 wrapper, the
-    posterior is finite, MCMC.log is written, and the fine table is
-    reused from the directory, not rebuilt."""
+    the adaptive split; bfloat16 fine rows, float32 ones on
+    eclipse_fold_f32.cfg), 4 chains x one block of 100 steps on the CPU,
+    where the wrappers run the four kernels' plain versions: the forward
+    calls the folded and the K = 1 wrapper, the folded one on fine rows
+    of the cfg's type, the posterior is finite, MCMC.log is written, and
+    the fine table is reused from the directory, not rebuilt."""
     from bart_tpu_torch.driver import cli
     from bart_tpu_torch.rt import forward
 
@@ -286,12 +293,14 @@ def test_folded_cli_retrieval(work, jax_spectra, name, monkeypatch):
     shutil.copy(jax_spectra[name][0] / OPACITY, loc / OPACITY)
     mtime = (loc / OPACITY).stat().st_mtime_ns
     transit = name.startswith("transit")
-    calls = {}
+    calls, dtypes = {}, set()
     for wrapper in (("fused_transit_folded", "fused_transit") if transit
                     else ("fused_eclipse_folded", "fused_eclipse")):
         def counted(*a, _fn=getattr(forward, wrapper), _name=wrapper,
                     **kw):
             calls[_name] = calls.get(_name, 0) + 1
+            if _name.endswith("_folded"):
+                dtypes.add(a[0].tab.dtype)
             return _fn(*a, **kw)
         monkeypatch.setattr(forward, wrapper, counted)
     argv = ["-c", str(DEMO / f"{name}.cfg"), "--device", "cpu",
@@ -304,6 +313,8 @@ def test_folded_cli_retrieval(work, jax_spectra, name, monkeypatch):
         warnings.simplefilter("ignore")       # the cfg sets wnosamp
         assert cli.main(argv) == 0
     assert len(calls) == 2 and min(calls.values()) > 0, calls
+    assert dtypes == {torch.float32 if name.endswith("_f32")
+                      else torch.bfloat16}
     assert (loc / OPACITY).stat().st_mtime_ns == mtime
     post = np.load(loc / "output.npy")
     nfree = 5 if transit else 4

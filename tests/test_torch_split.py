@@ -4,8 +4,8 @@ bart_tpu_torch.rt.fused, held on the CPU.
 (a) ``split_bf16`` (three bfloat16 parts that sum to the float32 weight
     bit for bit) and ``split_tf32`` (big + small within 2^-21);
 (b) a plain torch emulation of the kernels' arithmetic -- the parts times
-    the bfloat16 table summed in float32, the slant product as
-    small x big + big x small + big x big -- against
+    the bfloat16 table summed in float32, the fill of a float32 table and
+    the slant product as small x big + big x small + big x big -- against
     ``eclipse_folded_plain``/``transit_folded_plain`` and against
     bart_tpu's ``_single_folded``/``_tsingle_folded`` under vmap at
     float64: the splits keep the port on the JAX package's numbers;
@@ -134,10 +134,17 @@ def test_split_tf32_is_within_two_to_the_minus_21():
 # (b) the kernels' arithmetic, emulated
 
 def _emulated_ext(ft, wrows32, k):
-    """ext [C, L, W] of sub-sample k as the tensor-core fill forms it:
-    the three bfloat16 parts times the bfloat16 table, summed in
-    float32, smallest part first."""
+    """ext [C, L, W] of sub-sample k as the tensor-core fill forms it.
+    bfloat16 table: the three bfloat16 parts times the table, summed in
+    float32, smallest part first.  float32 table: 3xTF32, the two small
+    products summed, then the big one added, all in float32."""
     tab = ft.bins()[..., k].float()
+    if ft.tab.dtype == F32:
+        tb, ts = fused.split_tf32(tab)
+        wb, ws = fused.split_tf32(wrows32)
+        small = (torch.einsum("clr,rlw->clw", wb, ts)
+                 + torch.einsum("clr,rlw->clw", ws, tb))
+        return small + torch.einsum("clr,rlw->clw", wb, tb)
     ext = None
     for part in fused.split_bf16(wrows32):
         term = torch.einsum("clr,rlw->clw", part.float(), tab)
@@ -175,10 +182,14 @@ def _emulated_transit(ft, wrows32, G32, wgt):
     return torch.bmm(wgt[:, None, :], abar / ft.K)[:, 0]
 
 
-def _eclipse_case(quad):
+def _eclipse_case(quad, table_dtype=BF16):
     (mu, muw), powers = QUADS[quad]
     tab, wn, wrows, T, drp = random_rows(*SHAPE)
-    ft, ft64 = _bf16_table(_fine(tab))
+    if table_dtype == BF16:
+        ft, ft64 = _bf16_table(_fine(tab))
+    else:
+        ft = fused.folded_table(_t(_fine(tab), F32), K)
+        ft64 = fused.FoldedTable(ft.tab.double(), K, ft.W)
     wrows32 = _t(wrows, F32)
     rest = [_t(wn), _t(mu), _t(muw), wrows32.double(), _t(T), _t(drp)]
     return ft, ft64, wrows32, rest, powers
@@ -210,6 +221,48 @@ def test_emulated_eclipse_fill_agrees_with_bart_tpu(jx, quad):
     got = _emulated_eclipse(ft, *rest[:3], wrows32, *rest[4:], powers)
     # tests/test_torch_folded.py's float32 tolerance for the eclipse
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-5)
+
+
+@pytest.mark.parametrize("quad", ["raygrid", "expsum"])
+def test_emulated_tf32_fill_of_a_float32_table_agrees_with_the_plain_version(
+        quad):
+    ft, ft64, wrows32, rest, powers = _eclipse_case(quad, F32)
+    assert ft.tab.dtype == F32
+    got = _emulated_eclipse(ft, *rest[:3], wrows32, *rest[4:], powers)
+    ref = fused.eclipse_folded_plain(ft64, *rest, powers=powers)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6)
+    # the fill itself: 3xTF32 within a few 2^-21 of the float64 sum
+    ext = _emulated_ext(ft, wrows32, 2)
+    ext64 = torch.einsum("clr,rlw->clw", wrows32.double(),
+                         ft64.bins()[..., 2])
+    np.testing.assert_allclose(ext.numpy(), ext64.numpy(), rtol=2e-6)
+
+
+@pytest.mark.parametrize("quad", ["raygrid", "expsum"])
+def test_emulated_tf32_fill_of_a_float32_table_agrees_with_bart_tpu(jx, quad):
+    jax, jnp, jfused = jx
+    ft, ft64, wrows32, rest, powers = _eclipse_case(quad, F32)
+    tabk = jfused.fold_table(jnp.asarray(ft64.tab[..., :75 * K].numpy()), K)
+    ref = jax.vmap(
+        lambda w, t, d: jfused._single_folded(
+            tabk, *[jnp.asarray(a.numpy()) for a in rest[:3]], w, t, d,
+            powers=powers)
+    )(*[jnp.asarray(a.numpy()) for a in rest[3:]])
+    got = _emulated_eclipse(ft, *rest[:3], wrows32, *rest[4:], powers)
+    # tests/test_torch_folded.py's float32 tolerance for the eclipse
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-5)
+
+
+def test_one_tf32_pass_would_not_hold_the_tolerance():
+    """The check can fail: big x big alone (plain TF32) is 2^-11 off,
+    beyond the 2e-6 the 3xTF32 fill is held to."""
+    ft, ft64, wrows32, _, _ = _eclipse_case("raygrid", F32)
+    tab = ft.bins()[..., 2]
+    one = torch.einsum("clr,rlw->clw", fused.split_tf32(wrows32)[0],
+                       fused.split_tf32(tab)[0])
+    ext64 = torch.einsum("clr,rlw->clw", wrows32.double(),
+                         ft64.bins()[..., 2])
+    assert float(((one.double() - ext64).abs() / ext64).max()) > 2e-6
 
 
 def _transit_case(shape=SHAPE):
@@ -274,22 +327,40 @@ def _cxx_return(src, name, env):
 def test_eclipse_mma_source_constants_and_smem_match_python():
     src = (fused._CSRC / "fused_eclipse_folded.cu").read_text()
     env = _macros(src)
-    for macro, value in (("TILE_F", fused._F_TILE_F),
-                         ("MTILE_F", fused._F_MTILE_F), ("CBM", fused._F_CBM),
+    assert set(env) >= {"MTILE_F", "CBM", "NSTAGE", "MTHREADS", "MAX_NMU"}
+    for macro, value in (("MTILE_F", fused._F_MTILE_F), ("CBM", fused._F_CBM),
                          ("NSTAGE", fused._F_NSTAGE),
                          ("MTHREADS", fused._F_MTHREADS)):
         assert env[macro] == value
+    # the float32-pipe kernel's tile is gone
+    assert not {"TILE_F", "TY", "CPT"} & set(env)
     assert '#include "hopper.cuh"' in src
-    for R, k in ((27, 32), (19, 2), (16, 4), (48, 8), (41, 16)):
-        Rp = -(-R // 16) * 16
-        env["mma_stage_bytes"] = lambda rp: _cxx_return(
-            src, "mma_stage_bytes", {**env, "Rp": rp})
-        want = _cxx_return(src, "mma_smem_bytes", {**env, "Rp": Rp, "K": k})
-        assert fused._eclipse_folded_smem(R, k, True) == want
-        assert want <= fused._SMEM_LIMIT
+    env["mma_stage_bytes"] = lambda rp, eb, np_: _cxx_return(
+        src, "mma_stage_bytes", {**env, "Rp": rp, "eb": eb, "np": np_})
+    for bf16, eb, parts, depth in ((True, 2, 3, 16), (False, 4, 1, 8)):
+        for R, k in ((27, 32), (19, 2), (16, 4), (48, 8), (41, 16)):
+            Rp = -(-R // depth) * depth
+            want = _cxx_return(src, "mma_smem_bytes",
+                               {**env, "Rp": Rp, "K": k, "eb": eb,
+                                "np": parts})
+            assert fused._eclipse_folded_smem(R, k, bf16) == want
+            # two blocks an SM (228 KB, 1 KB of it reserved a block)
+            assert 2 * (want + 1024) <= 233472
     assert fused._eclipse_folded_smem(27, 32, True) == 49664
-    # the float32-table kernel keeps its formula
-    assert fused._eclipse_folded_smem(27, 32, False) == 4 * (27 * 128 + 8 * 27)
+    # float32: 4 stages of [32][72] + [32][36] words, the Planck means
+    assert fused._eclipse_folded_smem(27, 32, False) == 55808
+    assert fused._eclipse_folded_smem(41, 32, False) == 82432
+    # the epilogue's [CBM][MTILE_F + 4] sums fit the smallest ring
+    epi = 4 * fused._F_CBM * (fused._F_MTILE_F + 4)
+    assert fused._F_NSTAGE * env["mma_stage_bytes"](16, 2, 3) >= epi
+    assert fused._F_NSTAGE * env["mma_stage_bytes"](8, 4, 1) >= epi
+    # the float32 fragment loads: lane (g, t) reads row t, column g of the
+    # table tile (stride MTILE_F + 8 words) and row g, column t of the
+    # weights (stride Rp + 4): 32 different banks for every Rp
+    g, t = np.divmod(np.arange(32), 4)
+    assert len(set(((fused._F_MTILE_F + 8) * t + g) % 32)) == 32
+    for Rp in range(8, 129, 8):
+        assert len(set(((Rp + 4) * g + t) % 32)) == 32
     # every sub-sample count divides the fine tile, and the Planck pairs
     # of a block fit the threads' registers (PP per thread)
     assert all(fused._F_MTILE_F % k == 0 for k in fused._FOLD_K)
