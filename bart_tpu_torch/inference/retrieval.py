@@ -22,7 +22,13 @@ Outputs as bart_tpu's:
 
 On a (chain, wn) mesh (parallel.mesh.shard_model) every rank runs the
 same retrieval on the replicated ensemble; only rank 0 prints and writes
-files (log, savefile, savemodel, checkpoints and their sidecars).
+files (log, savefile, savemodel, checkpoints and their sidecars).  After
+every block, and once more when rank 0 has written its files, the ranks
+check that their states (positions, log-likelihoods, accept counts) are
+equal bit for bit (``Mesh.agree``): every host decision between blocks is
+taken from that state, so equal states keep the ranks' collectives in
+step, and a state that drifted raises on every rank instead of leaving a
+collective waiting.
 Whether a block replays the captured step or runs the eager loop is
 decided before the first block from the mesh (NCCL: captured; gloo:
 eager) and logged.
@@ -278,6 +284,9 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
     prev_nacc = int(state.naccept.sum())
     for ib in range(nblocks):
         state, pb, _, mb = sampler.run_block(state, gen, block, fgamma=fg)
+        if mesh is not None:
+            mesh.agree(state.positions, state.loglike, state.naccept,
+                       what=f"sampler states after block {ib}")
         done_iters += block
         pos_store.append(pb.cpu().numpy())     # [nsteps, nchain, nfree]
         if model_store is not None:
@@ -387,6 +396,12 @@ def run_mcmc(like: Likelihood, space: ParamSpace, *, nchains: int = 10,
                 f.write(f" {bestp[j]: .7e}  {uncert[j]: .7e}  {sn:9.2f}  "
                         f"{pnames[j]}\n")
             f.write("\n")
+    if mesh is not None:
+        # the last agreement doubles as a barrier: no rank returns before
+        # rank 0 has written the files (a resume in the same program
+        # reads its checkpoint)
+        mesh.agree(state.positions, state.loglike, state.naccept,
+                   what="final sampler states")
 
     return RetrievalResult(
         posterior=posterior,

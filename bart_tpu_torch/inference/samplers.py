@@ -45,6 +45,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from bart_tpu_torch.device import graph_capture
+
 __all__ = ["SamplerState", "SnookerVariates", "DemcVariates", "MrwVariates",
            "UnifVariates", "EnsembleSampler", "StepBuffers", "StepGraph",
            "capturable"]
@@ -461,7 +463,10 @@ class StepGraph(StepBuffers):
     """StepBuffers whose step is captured once as a CUDA graph and
     replayed ``nsteps`` times a block.  The kernel wrappers' Python
     launch counts see the warm-up and the capture, never a replay.  Only
-    on a CUDA device; a failed capture or replay raises."""
+    on a CUDA device; a failed capture or replay raises.  The capture
+    runs under ``device.graph_capture`` (no garbage collection inside
+    it): a graph freed by the collector mid-capture would invalidate the
+    capture."""
 
     def __init__(self, sampler: EnsembleSampler, state: SamplerState,
                  nsteps: int):
@@ -483,7 +488,7 @@ class StepGraph(StepBuffers):
                 self._body()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with graph_capture(self.graph):
             self._body()
 
     def _steps(self) -> None:

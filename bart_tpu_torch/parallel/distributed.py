@@ -10,8 +10,20 @@ group comes from explicit arguments or from the variables torchrun sets
     torchrun --standalone --nproc_per_node N -m <module>
 
 The backend is NCCL for a CUDA device and gloo for the CPU unless the
-caller names one.  Ranks that share one card must use gloo (NCCL refuses
-two ranks on one device), and name the card (``device="cuda:0"``).
+caller names one; one rank a card (``cuda:LOCAL_RANK``) is the NCCL
+layout.  An NCCL group is bound to the rank's card (``device_id``), so
+PyTorch creates its communicator at once, and the groups that
+``make_mesh`` splits from it theirs, instead of at each group's first
+collective: a CUDA graph cannot capture a collective whose communicator
+does not exist yet.  Ranks that share one card must use gloo (NCCL
+refuses two ranks on one device), and name the card
+(``device="cuda:0"``).
+
+NCCL destroys a communicator only once every CUDA graph that captured
+one of its collectives is gone, and a sampler keeps its graphs in a
+reference cycle: drop the samplers and run ``gc.collect()`` before
+``torch.distributed.destroy_process_group()``, or the teardown can
+wait for ever (``parallel.dryrun.main`` does).
 """
 
 from __future__ import annotations
@@ -55,8 +67,10 @@ def init_distributed(init_method: str | None = None,
     ``init_method`` defaults to ``env://`` (MASTER_ADDR, MASTER_PORT);
     ``tcp://localhost:<port>`` or ``file://<path>`` name a rendezvous
     directly.  ``backend`` defaults to NCCL on a CUDA ``device`` and gloo
-    on the CPU; ``device`` defaults to ``local_device()``.  A rendezvous
-    or a collective that does not complete in ``timeout_s`` raises."""
+    on the CPU; ``device`` defaults to ``local_device()``.  An NCCL group
+    is bound to that device (``device_id``: its communicators are created
+    eagerly).  A rendezvous or a collective that does not complete in
+    ``timeout_s`` raises (NCCL: its watchdog aborts the process)."""
     import torch.distributed as dist
 
     if world_size is None:
@@ -70,10 +84,12 @@ def init_distributed(init_method: str | None = None,
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    # NCCL: bound to the card, the communicators are made now (eagerly)
+    bind = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(
         backend=backend, init_method=init_method or "env://",
         world_size=int(world_size), rank=int(rank),
-        timeout=datetime.timedelta(seconds=timeout_s))
+        timeout=datetime.timedelta(seconds=timeout_s), **bind)
     return dist.get_world_size() > 1
 
 

@@ -5,7 +5,8 @@ of ranks, then the two sharding proofs (twin of the JAX package's
 
 * ``dryrun_multichip``: the demo problem at 12 layers x 256 wn x 400
   lines sharded over the mesh, data at the truth, a 2-step snooker block
-  of 4 chains per chain coordinate; the log-likelihoods must be finite.
+  of 4 chains per chain coordinate; the log-likelihoods must be finite
+  and the ranks' states equal (``Mesh.agree``).
 * ``demo_scale_shard_check``: the demo-scale table (100 layers x 2501 wn
   x 27 T-nodes; 64 lines: the line count changes the table's values, not
   its layout) sharded over the mesh: each rank holds total / n_wn of the
@@ -37,6 +38,7 @@ or with ranks that share one card, over gloo:
 from __future__ import annotations
 
 import argparse
+import gc
 import sys
 
 import numpy as np
@@ -105,13 +107,14 @@ def dryrun_multichip(mesh, sizes: dict = SIZES["full"]) -> None:
     gen = torch.Generator(device=mesh.device).manual_seed(0)
     state = sampler.init_state(gen, dtype=fm.dtype)
     state, pb, lb, mb = sampler.run_block(state, gen, 2)
+    mesh.agree(state.positions, state.loglike, state.naccept)
     lb = lb.cpu().numpy()
     if lb.shape != (2, nchains) or not np.all(np.isfinite(lb)):
         raise RuntimeError(f"dryrun_multichip: loglike {lb}")
     _say(mesh, f"dryrun_multichip({mesh.n_chain}x{mesh.n_wn}, "
                f"{mesh.backend}): OK - 2 MCMC steps on {nchains} chains "
                f"({'graphed' if sampler.graphs(mesh.device) else 'eager'}), "
-               f"loglike finite: "
+               f"the ranks' states equal, loglike finite: "
                f"{lb[-1]}")
 
 
@@ -194,6 +197,7 @@ def main(argv=None) -> int:
         demo_scale_shard_check(mesh, sizes)
         folded_shard_check(mesh, sizes)
     finally:
+        gc.collect()         # the block's graphs first (distributed.py)
         dist.destroy_process_group()
     return 0
 

@@ -20,6 +20,14 @@ psum for the JAX package; here it is written out, and the mesh counts it
 serves NCCL and gloo (whose CUDA tensors support all_reduce and
 broadcast only).  NCCL collectives can be captured in a CUDA graph,
 gloo's cannot (``Mesh.capturable``).
+
+The ensemble state is replicated, so every rank must hold the same state
+after every block, bit for bit: ``Mesh.agree`` checks it with one
+all-reduce of a fingerprint of the state's bits and raises on every rank
+when any rank differs (inference.retrieval.run_mcmc calls it after each
+block).  Ranks that drifted apart would otherwise take different host
+decisions between blocks, and a collective one of them skips waits
+forever.
 """
 
 from __future__ import annotations
@@ -31,8 +39,31 @@ import torch
 
 from bart_tpu_torch.parallel.distributed import local_device
 
-__all__ = ["Mesh", "make_mesh", "table_shardings", "pad_tables_for_mesh",
-           "shard_tables", "shard_model"]
+__all__ = ["Mesh", "make_mesh", "fingerprint", "table_shardings",
+           "pad_tables_for_mesh", "shard_tables", "shard_model"]
+
+#: int dtype of each element size, to read a tensor's bits
+_BITS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+
+
+def fingerprint(*tensors: torch.Tensor) -> torch.Tensor:
+    """int64 [2 len(tensors)] on the tensors' device: per tensor, the sums
+    of the low and of the high 32 bits of its elements' bit patterns,
+    each element weighted by its position (mod 65521, plus 1).  Equal
+    tensors give equal fingerprints; a change of one ulp in one element
+    changes the low sum, and a swap of two elements the weights.  The
+    sums wrap modulo 2^64, which keeps them independent of the order of
+    summation."""
+    out = []
+    for x in tensors:
+        x = x.detach().contiguous().reshape(-1)
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        bits = x.view(_BITS[x.element_size()]).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out += [((bits & 0xFFFFFFFF) * w).sum(),
+                (((bits >> 32) & 0xFFFFFFFF) * w).sum()]
+    return torch.stack(out)
 
 
 @dataclasses.dataclass(eq=False)
@@ -92,6 +123,28 @@ class Mesh:
         dist.all_reduce(x, group=group)
         return x
 
+    def agree(self, *tensors: torch.Tensor, what: str = "state") -> None:
+        """Raise on every rank unless every rank holds the same
+        ``tensors``, bit for bit: one all-reduce (MAX) of each rank's
+        ``fingerprint`` and its bitwise complement gives the largest and
+        the smallest fingerprint over the world, which must be equal.
+        Reads the result on the host.  Counted as a collective."""
+        import torch.distributed as dist
+
+        fp = fingerprint(*tensors)
+        both = torch.cat([fp, ~fp])
+        self.collectives += 1
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        n = fp.numel()
+        hi, lo = both[:n], ~both[n:]
+        if not torch.equal(hi, lo):
+            raise RuntimeError(
+                f"the ranks' {what} differ (rank {self.rank} of a "
+                f"{self.n_chain} x {self.n_wn} mesh: fingerprint "
+                f"{fp.tolist()}, the world's smallest {lo.tolist()} and "
+                f"largest {hi.tolist()}): a replicated state has drifted "
+                "apart")
+
     def gather(self, x: torch.Tensor, nchains: int | None = None
                ) -> torch.Tensor:
         """[..., W_local] -> [..., W_local n_wn]: this rank's wn shard put
@@ -122,7 +175,9 @@ def make_mesh(n_chain: int = 1, n_wn: int | None = None,
     (parallel.distributed.init_distributed).  With ``n_wn=None`` all
     ranks left go to the wn axis; n_chain x n_wn must be the world size.
     ``device`` is the rank's device, ``local_device(device)``.  Every rank
-    must call it alike: it creates one group per chain coordinate."""
+    must call it alike: it creates one group per chain coordinate (on
+    an NCCL group bound to the rank's card, ``init_distributed``, each
+    with its communicator made at once)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():

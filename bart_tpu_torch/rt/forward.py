@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from bart_tpu_torch import constants as const
-from bart_tpu_torch.device import resolve_device
+from bart_tpu_torch.device import graph_capture, resolve_device
 from bart_tpu_torch.obs.bands import BandMatrix, band_integrate
 from bart_tpu_torch.opacity.cia import (LOSCHMIDT, CiaTable, cia_extinction,
                                         cia_weights)
@@ -860,7 +860,7 @@ class _ForwardGraph:
                 fm(self.params)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with graph_capture(self.graph):
             self.out = fm(self.params)
 
     def __call__(self, params: torch.Tensor):

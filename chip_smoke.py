@@ -76,7 +76,7 @@ smooth bins.  Phases:
      for bit), the lineread CLI on it plus an ExoMol triplet, the widths
      tool
  10. multi-device execution on gloo ranks that share the card (the
-     ranks are ``chip_smoke.py --phase10-rank`` subprocesses; their
+     ranks are ``chip_smoke.py --mesh-rank`` subprocesses; their
      times measure overhead, not scaling): per mesh (1x2, 2x1, 2x2) the
      512-chain eclipse and transit K = 1 forwards and the folded pair
      with ``fold_adapt=None`` on phase 3's fine table, each rank holding
@@ -85,8 +85,9 @@ smooth bins.  Phases:
      the unsharded card forward, the forward's and the all-reduce's time
      a rank; a 2-chain on-the-fly forward on 1x2; a 3-step snooker block
      on 2x2 against the unsharded eager block; a world of one NCCL rank
-     whose graphed block (the all-reduce captured) must equal the
-     unmeshed graphed block bit for bit; the dryrun under torchrun
+     whose graphed block (the all-reduce captured) must equal the eager
+     block on the mesh and the unmeshed graphed block bit for bit; the
+     dryrun under torchrun
  11. with ``--cli-fold`` only (after phase 2): the publication-accuracy
      retrievals through the CLI on examples/torch_demo/eclipse_fold.cfg
      and transit_fold.cfg (K = 32 on the 80,032-point fine grid, the
@@ -103,6 +104,20 @@ smooth bins.  Phases:
      table: a short graphed retrieval, phase 4b, its kernels on its
      rows, its bands at the truth against the bfloat16 model's and the
      K = 1 forward's
+ 13. with ``--nccl4`` only (after phase 1; four cards, one NCCL rank
+     each; fewer cards raise): the K = 1 and the 80,032-point fine table
+     built once, on the four cards at once, the single-card references
+     on card 0; then four ranks as phase 10's, one a card, in one world
+     for every mesh: per mesh (1x4, 4x1, 2x2)
+     the four paths' 512-chain forwards (folded with
+     ``fold_adapt=None``), each kernel on its shard against its plain
+     version and timed, the gathered spectra against the single card's,
+     the graphed block (all-reduce captured) against the eager block bit
+     for bit with the ranks' states checked equal after every block, the
+     accept decisions against the single card's, the slowest rank's step,
+     forward and all-reduce times; the truth recovery (phase 4c's) on
+     2x2 with files from rank 0 alone; then the dryrun under torchrun on
+     four NCCL ranks; its own kernels line (each kernel's ms per mesh)
   6. with ``--trace`` only (after phase 10): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
@@ -110,9 +125,10 @@ smooth bins.  Phases:
      idled longest (a graph replay runs no stage)
 
 Each path's launch counts are zeroed just before its phase 3 (phases 7
-and 9, and each CLI run of 8 and 11: just before it; phase 10: in each
-rank, before its forwards) and read just after its phase 4 (phases 7, 8,
-9 and 11: at its end; phase 10: after the forwards): the wrappers count
+and 9, and each CLI run of 8 and 11: just before it; phases 10 and 13:
+in each rank, before its forwards) and read just after its phase 4
+(phases 7, 8, 9 and 11: at its end; phases 10 and 13: after the
+forwards): the wrappers count
 in Python, so
 they see the
 eager launches and each graph capture, never a replay.  The kernels'
@@ -133,6 +149,8 @@ exponentials at the special-function rate and its bytes at the HBM rate
     python3 chip_smoke.py --phase9    # phases 0-1, phase 3's table, phase 9
     python3 chip_smoke.py --phase10   # phases 0-1, phase 3's table, a
                                       # 320-bin fine table, phase 10
+    python3 chip_smoke.py --nccl4     # phases 0-1, then phase 13 (four
+                                      # cards)
 """
 
 from __future__ import annotations
@@ -1246,12 +1264,14 @@ def model_surface_phase(fused, fm, fmt, inp, nchain: int, f32: dict,
     return dict(step=step, launches=launches)
 
 
-def truth_phase(like, space, nchain: int) -> None:
+def truth_phase(like, space, nchain: int, label: str = "phase 4c",
+                **run_kw) -> dict:
     """Phase 4c: a graphed retrieval of the K = 1 eclipse path at
     ``nchain`` chains from uniform starts, on data made from TRUTH with
     3% noise, held to tests/test_end_to_end.py:71-87's four criteria:
     pulls < 3.5 on the data-constrained directions, the central 99%
-    interval covering the truth, chi2/dof < 3, split-R-hat < 1.35."""
+    interval covering the truth, chi2/dof < 3, split-R-hat < 1.35.
+    ``run_kw`` goes to run_mcmc (output files); returns the figures."""
     import torch
 
     from bart_tpu_torch.demo import TRUTH
@@ -1260,7 +1280,7 @@ def truth_phase(like, space, nchain: int) -> None:
     t0 = time.perf_counter()
     res = run_mcmc(like, space, nchains=nchain,
                    numit=nchain * TRUTH_STEPS, burnin=TRUTH_BURNIN,
-                   block=TRUTH_BLOCK, seed=7, verbose=False)
+                   block=TRUTH_BLOCK, seed=7, verbose=False, **run_kw)
     torch.cuda.synchronize()
     took = time.perf_counter() - t0
     flat = res.posterior.transpose(1, 0, 2).reshape(space.nfree, -1)
@@ -1271,7 +1291,7 @@ def truth_phase(like, space, nchain: int) -> None:
     q = np.percentile(flat, [0.5, 99.5], axis=1)
     covered = (truth > q[0]) & (truth < q[1])
     chi2_dof = -2.0 * res.best_loglike / int(like.data.shape[0])
-    print(f"# phase 4c: truth recovery, {nchain} chains x {TRUTH_STEPS} "
+    print(f"# {label}: truth recovery, {nchain} chains x {TRUTH_STEPS} "
           f"graphed steps (burn-in {TRUTH_BURNIN}) in {took:.2f} s "
           f"({1e3 * took / TRUTH_STEPS:.3f} ms a step, host statistics "
           f"included): mean {np.array2string(mean, precision=4)}, std "
@@ -1289,6 +1309,12 @@ def truth_phase(like, space, nchain: int) -> None:
     check(chi2_dof < 3.0, f"truth recovery: chi2/dof {chi2_dof}")
     check(bool(np.all(res.psrf_rank < 1.35)),
           f"truth recovery: split-Rhat {res.psrf_rank}")
+    return {"seconds": took, "ms_step": 1e3 * took / TRUTH_STEPS,
+            "mean": mean.tolist(), "std": std.tolist(),
+            "pulls": pulls.tolist(), "constrained": constrained.tolist(),
+            "covered": covered.tolist(), "chi2_dof": chi2_dof,
+            "split_rhat": res.psrf_rank.tolist(),
+            "accept": res.accept_rate, "fgamma": res.fgamma_final}
 
 
 def trace_forwards(paths: dict, smi: str, nfwd: int = 5) -> None:
@@ -2417,13 +2443,29 @@ def phase9(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
 #: unsharded block's (float32 band sums added in another order can flip
 #: a decision that sits on the edge); the output bins of the fine build
 #: under --phase10; the sharded spectra against the unsharded card
-#: forward; seconds a group of ranks may take
+#: forward; seconds a group of ranks, a collective of theirs and the
+#: dryrun may take
 MESH_LAYOUTS = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
 MESH_CHAINS, MESH_FOLD_CHAINS = 512, 16
 MESH_OTF_CHAINS, MESH_OTF_BUDGET = 2, 4e9
 MESH_BLOCK_STEPS, MESH_FLIP_SHARE = 3, 0.01
 MESH_FOLD_BINS, MESH_SPEC_RTOL = 320, 1e-6
 MESH_TIMEOUT = 300
+#: phases 10 and 13: the back-to-back all-reduces timed with CUDA events;
+#: the graphed blocks timed a path (BLOCK steps each, one host read a
+#: block; the median counts); seconds the ranks may take to exit once
+#: they wrote their records; the kernel each path launches
+MESH_ALLREDUCES, MESH_TIMED_BLOCKS, MESH_TEARDOWN_S = 50, 3, 60
+CASE_KERNEL = {"eclipse": "fused_eclipse", "transit": "fused_transit",
+               "folded-eclipse": "fused_eclipse_folded",
+               "folded-transit": "fused_transit_folded"}
+#: phase 13 (``--nccl4``): four ranks, one a card over NCCL (fewer cards
+#: raise; nothing falls back to gloo, to shared cards or to fewer ranks),
+#: every path on every one of these meshes (name -> (n_chain, n_wn)), the
+#: truth recovery on 2x2; seconds the ranks may take together
+NCCL4_WORLD = 4
+NCCL4_LAYOUTS = {"1x4": (1, 4), "4x1": (4, 1), "2x2": (2, 2)}
+NCCL4_TIMEOUT = 400
 
 
 def mesh_inputs(inp, n_out: int):
@@ -2515,16 +2557,16 @@ def mesh_params(case: str, nchain: int) -> np.ndarray:
         0, 1, (nchain, len(base))) * spread
 
 
-def mesh_kernel_checks(fused, fm, params, case: str) -> dict:
+def mesh_kernel_rows(fused, fm, params, case: str) -> dict:
     """The case's kernel on this rank's whole block of chains and its wn
-    shard, held against its plain version on the same rows: {kernel:
-    (spectrum or out rel err, band rel err of the shard's partial
-    bands)}.  The folded plain versions run on MESH_FOLD_CHAINS chains at
-    a time (they hold [C, L, W K] temporaries) and their slices are put
-    back together, so every row the path launches is compared."""
+    shard: {"name", "kernel": its wrapper on the forward's own rows,
+    "plain": its plain version on them (the folded ones on
+    MESH_FOLD_CHAINS chains a call, they hold [C, L, W K] temporaries;
+    the slices put back together, so that every row the path launches
+    is compared), "spec": the spectrum of an output, "band_w", "bound":
+    the launch's bound on these rows}."""
     import torch
 
-    from bart_tpu_torch.obs.bands import band_integrate
     from bart_tpu_torch.rt.transit_geom import slant_geometry
 
     t = fm.tables
@@ -2532,7 +2574,8 @@ def mesh_kernel_checks(fused, fm, params, case: str) -> dict:
     p = fm._params(params[lo:hi])
     T, q, rad, _ = fm._profiles(p, t)
     ((tab, folded, wn_p, _),), wrows = fm._fused_rows(p, t, T, q, rad)
-    C = wrows.shape[0]
+    C, L = wrows.shape[:2]
+    bf16 = folded and tab.tab.dtype == torch.bfloat16
 
     def sliced(plain, head, tail, *per_chain):
         """``plain(*head, *per_chain, *tail)`` on MESH_FOLD_CHAINS chains
@@ -2544,36 +2587,44 @@ def mesh_kernel_checks(fused, fm, params, case: str) -> dict:
     if case.endswith("transit"):
         G, wgt = slant_geometry(rad)
         if folded:
-            name, got = "fused_transit_folded", fused.fused_transit_folded(
-                tab, wrows, G, wgt)
-            ref = sliced(fused.transit_folded_plain, (tab,), (), wrows, G,
-                         wgt)
+            name = "fused_transit_folded"
+            kernel = lambda: fused.fused_transit_folded(tab, wrows, G, wgt)
+            plain = lambda: sliced(fused.transit_folded_plain, (tab,), (),
+                                   wrows, G, wgt)
+            R, F, K = tab.tab.shape[0], tab.W * tab.K, tab.K
+            nb = nbytes(tab.tab, wrows, G, wgt)
         else:
-            name, got = "fused_transit", fused.fused_transit(tab, wrows, G,
-                                                             wgt)
-            ref = fused.transit_plain(tab.plain(), wrows, G, wgt)
+            name = "fused_transit"
+            kernel = lambda: fused.fused_transit(tab, wrows, G, wgt)
+            plain = lambda: fused.transit_plain(tab.plain(), wrows, G, wgt)
+            (R, _, F), K = tab.plain().shape, 1
+            nb = nbytes(tab.plain(), wrows, G, wgt)
         r2 = (fm.system.r_star * 100.0) ** 2
-        got_s, ref_s = ((rad[:, -1:] ** 2 + x) / r2 for x in (got, ref))
+        spec = lambda x: (rad[:, -1:] ** 2 + x) / r2
+        bnd = transit_bound(R, L, F, C, K, bf16, nb)
     else:
         dr = rad[:, :-1] - rad[:, 1:]
         drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
         tail = (wn_p, t["mu"], t["mu_w"], wrows, T, drp, fm._powers)
         if folded:
             name = "fused_eclipse_folded"
-            got = fused.fused_eclipse_folded(tab, *tail)
-            ref = sliced(fused.eclipse_folded_plain,
-                         (tab, wn_p, t["mu"], t["mu_w"]), (fm._powers,),
-                         wrows, T, drp)
+            kernel = lambda: fused.fused_eclipse_folded(tab, *tail)
+            plain = lambda: sliced(fused.eclipse_folded_plain,
+                                   (tab, wn_p, t["mu"], t["mu_w"]),
+                                   (fm._powers,), wrows, T, drp)
+            R, F, K = tab.tab.shape[0], tab.W * tab.K, tab.K
+            nb = nbytes(tab.tab, *tail[:-1])
         else:
             name = "fused_eclipse"
-            got = fused.fused_eclipse(tab, *tail)
-            ref = fused.eclipse_plain(tab.plain(), *tail)
-        got_s, ref_s = got, ref
-    check(got.shape == ref.shape and got.shape[0] == C,
-          f"{name}: kernel {tuple(got.shape)}, plain {tuple(ref.shape)}")
-    return {name: (rel_err(got, ref), rel_err(
-        band_integrate(t["band_w"], got_s), band_integrate(t["band_w"],
-                                                           ref_s)))}
+            kernel = lambda: fused.fused_eclipse(tab, *tail)
+            plain = lambda: fused.eclipse_plain(tab.plain(), *tail)
+            (R, _, F), K = tab.plain().shape, 1
+            nb = nbytes(tab.plain(), wrows, T, drp, wn_p)
+        spec = lambda x: x
+        bnd = eclipse_bound(R, L, F, C, int(t["mu"].shape[0]), fm._powers,
+                            K, bf16, nb)
+    return {"name": name, "kernel": kernel, "plain": plain, "spec": spec,
+            "band_w": t["band_w"], "chains": C, "bound": bnd}
 
 
 def mesh_block(fm, seed: int = 11):
@@ -2625,37 +2676,99 @@ def mesh_timed(fn, nrep: int = 5) -> float:
     return float(np.median(times[1:]))
 
 
-def phase10_rank(job: str, rank: int, world: int, n_chain: int,
-                 backend: str) -> int:
-    """One rank of phase 10 (``chip_smoke.py --phase10-rank``): the
-    models of the job on the host, sharded onto cuda:0 over the mesh;
-    every case's forward with the kernels' counts zeroed just before and
-    read just after; then each kernel on the shard against its plain
-    version, the gathered spectra (rank 0 saves them), the per-rank
-    forward and collective times, the table bytes; with ``block`` the
-    meshed snooker block; with ``nccl`` (a world of one NCCL rank) the
-    graphed eclipse block with its all-reduce captured against the
-    unmeshed graphed block, bit for bit."""
+def block_likelihood(fm, case: str, data):
+    """(likelihood, space) of a graphed block on the case's model: the
+    eclipse paths on the demo's parameters, the transit ones on the
+    transit demo's, with ``data`` (the unsharded forward's bands at the
+    truth) and 3% / 0.5% uncertainties, as phase 4."""
+    from bart_tpu_torch.demo import (DEMO_PARAMS, DEMO_PARAMS_TRANSIT,
+                                     TRANSIT_BOUNDS)
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+
+    data = np.asarray(data, np.float64)
+    if case.endswith("transit"):
+        pmin, pmax, step = TRANSIT_BOUNDS
+        space = ParamSpace(pinit=DEMO_PARAMS_TRANSIT, pmin=pmin, pmax=pmax,
+                           stepsize=step)
+        return Likelihood(fm, space, data, 0.005 * data), space
+    space = ParamSpace(pinit=DEMO_PARAMS, pmin=[-5, -2, -2, 0, 0.55, -9],
+                       pmax=[-1, 1, 1, 1, 1.2, 1.5],
+                       stepsize=[0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
+    return Likelihood(fm, space, data, 0.03 * data), space
+
+
+def graphed_blocks(fm, case: str, data, nchains: int, mesh=None) -> dict:
+    """On one model, meshed or not: from uniform starts (seed 11) the
+    eager block and the graphed block (BLOCK steps: the captured step
+    replayed; on a mesh the band-flux all-reduce is in the capture) on
+    the same variates, which must be equal bit for bit; then
+    MESH_TIMED_BLOCKS graphed blocks, each ending in a host read.  On a
+    mesh every block is followed by the ranks' agreement check
+    (``Mesh.agree``).  Returns the graphed block's positions and the
+    initial ones (its accept decisions), the equality, the median ms a
+    graphed step and the acceptance."""
     import torch
-    import torch.distributed as dist
 
-    from bart_tpu_torch.demo import demo_inputs
-    from bart_tpu_torch.opacity.grid import load_grid
-    from bart_tpu_torch.parallel import (init_distributed, make_mesh,
-                                         shard_model)
-    from bart_tpu_torch.rt import fused
+    from bart_tpu_torch.inference.samplers import EnsembleSampler, StepGraph
 
-    torch.set_num_threads(max(1, 8 // world))
-    meta = json.load(open(os.path.join(job, "job.json")))
-    init_distributed(f"file://{job}/rendezvous", world, rank,
-                     backend=backend, device="cuda:0",
-                     timeout_s=MESH_TIMEOUT)
-    mesh = make_mesh(n_chain, device="cuda:0")
-    inp = demo_inputs()
-    grid = load_grid(meta["grid"], device="cpu")
-    fine = load_grid(meta["fine"], device="cpu") if meta.get("fine") else None
-    out = {"rank": rank, "chain": mesh.chain, "wn": mesh.wn, "cases": {}}
-    models = mesh_models(inp, grid, fine, "cpu", meta["cases"])
+    like, space = block_likelihood(fm, case, data)
+    s = EnsembleSampler(loglike_fn=like, nfree=space.nfree,
+                        nmodel=int(like.data.shape[0]), nchains=nchains,
+                        walk="snooker", pmin=space.free_min,
+                        pmax=space.free_max,
+                        stepsize=space.stepsize[space.ifree])
+
+    def agree(st):
+        if mesh is not None:
+            mesh.agree(st.positions, st.loglike, st.naccept,
+                       what=f"{case} sampler states")
+
+    gen = torch.Generator(device=fm.device).manual_seed(11)
+    state = s.init_state(gen)
+    pos0 = state.positions.cpu().numpy()
+    saved = gen.get_state()
+    eager = s.run_block(state, gen, BLOCK, graphed=False)
+    agree(eager[0])
+    gen.set_state(saved)
+    graphed = s.run_block(state, gen, BLOCK, graphed=True)
+    agree(graphed[0])
+    check(isinstance(s.step_graph(state, BLOCK), StepGraph),
+          f"{case}: the block did not replay a captured step")
+    equal = all(torch.equal(g, e) for g, e in zip(
+        [*graphed[0], *graphed[1:]], [*eager[0], *eager[1:]]))
+    st, times = graphed[0], []
+    for _ in range(MESH_TIMED_BLOCKS):
+        t0 = time.perf_counter()
+        st = s.run_block(st, gen, BLOCK)[0]
+        float(st.loglike.sum())
+        times.append(1e3 * (time.perf_counter() - t0) / BLOCK)
+        agree(st)
+    return {"positions": graphed[1].cpu().numpy(), "pos0": pos0,
+            "bit_equal": equal, "step_ms": float(np.median(times)),
+            "step_rounds": times,
+            "accept": float(graphed[0].naccept.sum()) / (BLOCK * nchains)}
+
+
+def mesh_layout(fused, meta: dict, mesh, inp, grid, fine, saved: dict,
+                name: str) -> dict:
+    """One mesh of phases 10 and 13 in one rank: the job's paths built on
+    the host and sharded onto the rank's device; every path's forward
+    with the kernels' counts zeroed just before and read just after;
+    then per path its kernel on this rank's chains and wn shard against
+    its plain version (errors, ms, the launch's bound), the gathered
+    spectra (rank 0 keeps them), the forward's and the all-reduce's ms
+    and, on a mesh that can capture, the graphed blocks of the paths the
+    job gives data for (``graphed_blocks``); on the job's ``block`` mesh
+    the eager block (``mesh_block``); the device's peak bytes."""
+    import torch
+
+    from bart_tpu_torch.obs.bands import band_integrate
+    from bart_tpu_torch.parallel import shard_model
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    models = mesh_models(inp, grid, fine, "cpu", meta["cases"][name])
+    out = {"coords": [mesh.chain, mesh.wn], "cases": {}}
     for case, fm in models.items():
         full, axis = held_table(fm)
         n = full.shape[axis]
@@ -2664,133 +2777,413 @@ def phase10_rank(job: str, rank: int, world: int, n_chain: int,
         out["cases"][case] = {
             "held_bytes": held.nbytes, "full_bytes": full.nbytes,
             "padded_bytes": full.nbytes // n * (n + (-n) % mesh.n_wn),
-            "device": str(held.device),
-            "on_mesh_device": held.device == mesh.device}
+            "device": str(held.device), "on_mesh_device": held.device == dev}
     kernels = (fused.fused_eclipse, fused.fused_transit,
                fused.fused_eclipse_folded, fused.fused_transit_folded)
     params = {case: torch.tensor(mesh_params(
-        case, MESH_OTF_CHAINS if case == "onthefly" else MESH_CHAINS),
+        case, MESH_OTF_CHAINS if case == "onthefly" else meta["nchains"]),
         dtype=torch.float32) for case in models}
     results = {}
     for k in kernels:
-        k.launches = 0                           # phase 10's path starts
+        k.launches = 0                          # the mesh's forwards start
     for case, fm in models.items():
         n0 = mesh.collectives
         results[case] = fm(params[case])
         out["cases"][case]["collectives"] = mesh.collectives - n0
     torch.cuda.synchronize()
-    out["launches"] = {k.__name__: k.launches for k in kernels}  # it ends
-    saved = {}
+    out["launches"] = {k.__name__: k.launches for k in kernels}  # they end
     for case, fm in models.items():
         band, spec, valid = results[case]
         C = params[case].shape[0]
         rec = out["cases"][case]
         rec["local_shape"] = list(spec.shape)
         if case != "onthefly":
-            t0 = time.perf_counter()
-            rec["kernel_vs_plain"] = mesh_kernel_checks(fused, fm,
-                                                        params[case], case)
-            torch.cuda.synchronize()
-            rec["check_s"] = time.perf_counter() - t0
-        whole = fm.mesh.gather(spec, C)
-        saved[f"{case}/band"] = band.cpu().numpy()
-        saved[f"{case}/valid"] = valid.cpu().numpy()
-        saved[f"{case}/spectrum"] = whole.cpu().numpy()
-        buf = torch.zeros(C, band.shape[1] + 1, device=fm.device)
+            k = mesh_kernel_rows(fused, fm, params[case], case)
+            got, ref = k["kernel"](), k["plain"]()
+            check(got.shape == ref.shape and got.shape[0] == k["chains"],
+                  f"{name} {case}: kernel {tuple(got.shape)}, plain "
+                  f"{tuple(ref.shape)}")
+            rec.update(kernel=k["name"], kernel_rel=rel_err(got, ref),
+                       kernel_abs=abs_err(k["spec"](got), k["spec"](ref)),
+                       kernel_band=rel_err(
+                           band_integrate(k["band_w"], k["spec"](got)),
+                           band_integrate(k["band_w"], k["spec"](ref))),
+                       bound=k["bound"], chains=k["chains"])
+            del got, ref
+            rec["kernel_ms"] = cuda_ms(k["kernel"], 10)
+            rec["plain_ms"] = cuda_ms(k["plain"], 2)
+        whole = mesh.gather(spec, C)
+        if mesh.rank == 0:
+            saved[f"{name}/{case}/band"] = band.cpu().numpy()
+            saved[f"{name}/{case}/valid"] = valid.cpu().numpy()
+            saved[f"{name}/{case}/spectrum"] = whole.cpu().numpy()
         rec["forward_ms"] = mesh_timed(lambda: fm(params[case]),
                                        1 if case == "onthefly" else 5)
-        rec["all_reduce_ms"] = mesh_timed(lambda: mesh.all_reduce(buf))
-    if meta.get("block"):
+        buf = torch.zeros(C, band.shape[1] + 1, device=dev)
+        rec["all_reduce_ms"] = cuda_ms(lambda: mesh.all_reduce(buf),
+                                       MESH_ALLREDUCES)
+        if mesh.capturable and case in meta.get("data", {}):
+            blk = graphed_blocks(fm, case, meta["data"][case], C, mesh)
+            if mesh.rank == 0:
+                saved[f"{name}/{case}/block"] = blk["positions"]
+                saved[f"{name}/{case}/pos0"] = blk["pos0"]
+            rec.update({x: blk[x] for x in ("bit_equal", "step_ms",
+                                            "step_rounds", "accept")})
+        print(f"# rank {mesh.rank}: {name} {case} done", flush=True)
+    if name == meta.get("block"):
         pb, pos0 = mesh_block(models["eclipse"])
-        saved["block/positions"], saved["block/pos0"] = pb, pos0
-    if meta.get("nccl"):
-        out["nccl"] = nccl_graphed_block(models["eclipse"], inp, mesh)
+        if mesh.rank == 0:
+            saved[f"{name}/block/positions"] = pb
+            saved[f"{name}/block/pos0"] = pos0
+    del models, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def mesh_truth(meta: dict, mesh, inp, grid, job: str) -> dict:
+    """Phase 13 (d) in one rank: the eclipse model sharded over the mesh
+    and phase 4c's retrieval on it (graphed, its all-reduce captured),
+    every output file of run_mcmc asked for in a directory of the rank's
+    own: only rank 0's may fill."""
+    from bart_tpu_torch.demo import DEMO_PARAMS
+    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
+    from bart_tpu_torch.parallel import shard_model
+
+    fm = shard_model(mesh_models(inp, grid, None, "cpu",
+                                 ["eclipse"])["eclipse"], mesh)
+    data, uncert = (np.asarray(a) for a in meta["truth_data"])
+    space = ParamSpace(pinit=DEMO_PARAMS, pmin=[-5, -2, -2, 0, 0.55, -9],
+                       pmax=[-1, 1, 1, 1, 1.2, 1.5],
+                       stepsize=[0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
+    like = Likelihood(fm, space, data, uncert)
+    out = os.path.join(job, "truth", f"rank{mesh.rank}")
+    os.makedirs(out)
+    return truth_phase(
+        like, space, meta["nchains"],
+        label=f"phase 13 (d), rank {mesh.rank} of a {mesh.n_chain}x"
+              f"{mesh.n_wn} mesh", savefile=os.path.join(out, "output.npy"),
+        logfile=os.path.join(out, "MCMC.log"),
+        checkpoint=os.path.join(out, "checkpoint.npz"))
+
+
+def mesh_rank(job: str) -> int:
+    """One rank of phases 10 and 13 (``chip_smoke.py --mesh-rank job``;
+    RANK, LOCAL_RANK, WORLD_SIZE and MASTER_* set by ``run_ranks`` as
+    torchrun sets them): ``mesh_rank_run``.  A rank that raises prints
+    the traceback and leaves at once (exit 1): tearing its group down
+    would wait for the other ranks' collectives."""
+    import traceback
+
+    try:
+        return mesh_rank_run(job)
+    except Exception:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def mesh_rank_run(job: str) -> int:
+    """One rank: it joins the job's group (``init_distributed``: the
+    job's backend, on the job's device, or on cuda:LOCAL_RANK when it
+    names none), loads the tables on the host, runs every mesh of the job
+    (``mesh_layout``) and, when the job asks, the truth recovery
+    (``mesh_truth``); its record goes to rank<r>.json, rank 0's arrays to
+    rank0.npz, and each mesh's record to the rank's log as it ends."""
+    import torch
+    import torch.distributed as dist
+
+    from bart_tpu_torch.demo import demo_inputs
+    from bart_tpu_torch.opacity.grid import load_grid
+    from bart_tpu_torch.parallel import (init_distributed, local_device,
+                                         make_mesh)
+    from bart_tpu_torch.rt import fused
+
+    t0 = time.perf_counter()
+    meta = json.load(open(os.path.join(job, "job.json")))
+    torch.set_num_threads(meta["threads"])
+    init_distributed(backend=meta["backend"], device=meta["device"],
+                     timeout_s=MESH_TIMEOUT)
+    rank = dist.get_rank()
+    inp = demo_inputs()
+    grid = load_grid(meta["grid"], device="cpu")
+    fine = load_grid(meta["fine"], device="cpu")
+    out = {"rank": rank, "device": str(local_device(meta["device"])),
+           "backend": dist.get_backend(), "layouts": {}}
+    saved = {}
+    for name, (n_chain, n_wn) in meta["layouts"].items():
+        t1 = time.perf_counter()
+        mesh = make_mesh(n_chain, n_wn, device=meta["device"])
+        out["layouts"][name] = mesh_layout(fused, meta, mesh, inp, grid,
+                                           fine, saved, name)
+        out["layouts"][name]["seconds"] = time.perf_counter() - t1
+        print(f"# rank {rank}: {name}: " + json.dumps(out["layouts"][name]),
+              flush=True)
+    if meta.get("truth"):
+        del fine
+        t1 = time.perf_counter()
+        mesh = make_mesh(*meta["truth"], device=meta["device"])
+        out["truth"] = mesh_truth(meta, mesh, inp, grid, job)
+        out["truth"]["wall_s"] = time.perf_counter() - t1
+        print(f"# rank {rank}: truth: " + json.dumps(out["truth"]),
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
     if rank == 0:
         np.savez(os.path.join(job, "rank0.npz"), **saved)
     with open(os.path.join(job, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    # the samplers' graphs go first: NCCL does not destroy a communicator
+    # while a graph that captured one of its collectives lives
+    gc.collect()
+    t1 = time.perf_counter()
     dist.destroy_process_group()
+    print(f"# rank {rank}: the group torn down in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     return 0
 
 
-def nccl_graphed_block(fm_mesh, inp, mesh) -> dict:
-    """On a world of one NCCL rank: the graphed 512-chain eclipse block
-    (StepGraph, BLOCK steps) on the meshed model, whose captured step
-    holds the band-flux all-reduce, against the same block on an
-    unmeshed model of the same table; bit for bit."""
-    import torch
+def run_session(cmd: list, timeout: float, log_path: str, **kw):
+    """``cmd`` in a session of its own with its output in ``log_path``:
+    its return code, or None if it outlived ``timeout`` s, when the whole
+    session (the process and whatever it started) is killed."""
+    import signal
 
-    from bart_tpu_torch.demo import DEMO_PARAMS, TRUTH, build_demo_model
-    from bart_tpu_torch.inference.likelihood import Likelihood, ParamSpace
-    from bart_tpu_torch.inference.samplers import (EnsembleSampler,
-                                                   StepGraph)
-
-    check(mesh.capturable, f"a {mesh.backend} mesh is not capturable")
-    fm_plain = build_demo_model(inp, grid=fm_mesh.opacity,
-                                device=fm_mesh.device)
-    blocks = []
-    for fm in (fm_mesh, fm_plain):
-        data = fm(torch.tensor(TRUTH[None]))[0][0].double().cpu().numpy()
-        space = ParamSpace(pinit=DEMO_PARAMS,
-                           pmin=[-5, -2, -2, 0, 0.55, -9],
-                           pmax=[-1, 1, 1, 1, 1.2, 1.5],
-                           stepsize=[0.01, 0.01, 0.0, 0.0, 0.001, 0.1])
-        like = Likelihood(fm, space, data, 0.03 * data)
-        sampler = EnsembleSampler(
-            loglike_fn=like, nfree=space.nfree, nmodel=len(data),
-            nchains=MESH_CHAINS, walk="snooker", pmin=space.free_min,
-            pmax=space.free_max, stepsize=space.stepsize[space.ifree])
-        gen = torch.Generator(device=fm.device).manual_seed(5)
-        state = sampler.init_state(gen)
-        n0 = mesh.collectives
-        out = sampler.run_block(state, gen, BLOCK)
-        check(isinstance(sampler.step_graph(state, BLOCK), StepGraph),
-              "the block did not replay a captured step")
-        n = mesh.collectives - n0
-        # ms a graphed step: blocks from the block's end state, the
-        # variates drawn as run_mcmc draws them
-        step_ms = mesh_timed(lambda: sampler.run_block(out[0], gen, BLOCK),
-                             3) / BLOCK
-        blocks.append((out, n, step_ms))
-    (a, n_mesh, ms_mesh), (b, _, ms_plain) = blocks
-    same = all(torch.equal(x, y) for x, y in zip(
-        (a[1], a[2], a[3], *a[0]), (b[1], b[2], b[3], *b[0])))
-    return {"bit_equal": same, "python_collectives": n_mesh,
-            "accept": float(a[0].naccept.sum()) / (BLOCK * MESH_CHAINS),
-            "step_ms": ms_mesh, "plain_step_ms": ms_plain}
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True, **kw)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            return None
 
 
-def run_ranks(work: str, name: str, n_chain: int, n_wn: int, backend: str,
-              what: dict) -> tuple:
-    """One group of phase-10 ranks (``chip_smoke.py --phase10-rank``
-    subprocesses: a process with a CUDA context must not fork) on
-    cuda:0, within MESH_TIMEOUT s: (each rank's record, rank 0's arrays,
-    seconds)."""
-    job = os.path.join(work, name)
-    os.makedirs(job)
-    with open(os.path.join(job, "job.json"), "w") as f:
-        json.dump(what, f)
-    world = n_chain * n_wn
+def run_ranks(work: str, name: str, job: dict, world: int,
+              timeout: float = MESH_TIMEOUT) -> tuple:
+    """One world of ``world`` ranks running ``job`` (written to
+    ``work``/``name``/job.json with the ranks' threads): ``chip_smoke.py
+    --mesh-rank`` processes (a process with a CUDA context must not
+    fork), each in a session of its own with its log in
+    ``work``/``name``/rank<r>.log, RANK, LOCAL_RANK = r, WORLD_SIZE and a
+    free MASTER_PORT on localhost set as torchrun sets them.  When one
+    exits non-zero the others are killed at once (they would wait in a
+    collective); all of them after ``timeout`` s, or MESH_TEARDOWN_S s
+    after every rank wrote its record (the group's teardown); either
+    fails the phase with the logs' ends.  Returns (each rank's record,
+    rank 0's arrays, seconds)."""
+    import signal
+    import socket
+
+    path = os.path.join(work, name)
+    os.makedirs(path)
+    with open(os.path.join(path, "job.json"), "w") as f:
+        json.dump({**job, "threads": max(1, (os.cpu_count() or world)
+                                         // world)}, f)
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
+           "PYTHONPATH": os.pathsep.join([root,
+                                          os.environ.get("PYTHONPATH", "")])}
+    records = [os.path.join(path, f"rank{r}.json") for r in range(world)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--phase10-rank", job,
-         str(r), str(world), str(n_chain), backend],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
+    procs, logs, failed, written = [], [], None, None
     try:
-        logs = [p.communicate(timeout=MESH_TIMEOUT)[0] for p in procs]
+        for r in range(world):
+            logs.append(open(os.path.join(path, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 path], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                stdout=logs[-1], stderr=subprocess.STDOUT,
+                start_new_session=True))
+        while failed is None:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            now = time.perf_counter()
+            if written is None and all(map(os.path.exists, records)):
+                written = now
+            if bad:
+                failed = f"rank {bad[0]} exited {codes[bad[0]]}"
+            elif all(c == 0 for c in codes):
+                break
+            elif now - t0 > timeout:
+                failed = f"the ranks outlived {timeout} s"
+            elif written is not None and now - written > MESH_TEARDOWN_S:
+                failed = (f"the ranks wrote their records but did not exit "
+                          f"within {MESH_TEARDOWN_S} s (the group's teardown)")
+            else:
+                time.sleep(0.5)
     finally:
         for p in procs:
             if p.poll() is None:
-                p.kill()
+                os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0,
-              f"phase 10 {name} rank {r} exited {p.returncode}:\n{log[-4000:]}")
-    recs = [json.load(open(os.path.join(job, f"rank{r}.json")))
-            for r in range(world)]
-    return recs, dict(np.load(os.path.join(job, "rank0.npz"))), \
+        for f in logs:
+            f.close()
+    if failed:
+        tails = "\n".join(
+            f"--- rank {r} ---\n"
+            + open(os.path.join(path, f"rank{r}.log")).read()[-3000:]
+            for r in range(world))
+        check(False, f"{name}: {failed}:\n{tails}")
+    recs = [json.load(open(x)) for x in records]
+    return recs, dict(np.load(os.path.join(path, "rank0.npz"))), \
         time.perf_counter() - t0
+
+
+def mesh_layout_checks(label: str, name: str, n_wn: int, recs: list,
+                       saved: dict, refs: dict, smi: str, blocks=None,
+                       block_ref=None) -> dict:
+    """The checks and lines of one mesh: each rank's collectives, table
+    bytes, kernels launched and kernels against their plain versions;
+    the gathered spectra and bands against the unsharded forward; with
+    ``blocks`` (the unsharded graphed blocks) each path's graphed block
+    equal to the eager block on every rank and its accept decisions
+    against the unsharded block's (on a world of one: its positions
+    equal to them bit for bit); with the mesh's eager block, its accept
+    decisions against ``block_ref``'s; the slowest rank's times."""
+    tol = {"fused_eclipse": SPEC_RTOL[False], "fused_transit": OUT_RTOL,
+           "fused_eclipse_folded": SPEC_RTOL[True],
+           "fused_transit_folded": OUT_RTOL}
+    per_rank = [r["layouts"][name] for r in recs]
+    launches = [r["launches"] for r in per_rank]
+    cases = list(per_rank[0]["cases"])
+    for r, n in enumerate(launches):
+        check(all(n[CASE_KERNEL[c]] >= 1 for c in cases if c in CASE_KERNEL),
+              f"{label} {name} rank {r} did not launch every kernel of its "
+              f"paths: {n}")
+    res = {"launches": launches, "cases": {},
+           "peak_gib": [r["peak_bytes"] / 2**30 for r in per_rank],
+           "seconds": max(r["seconds"] for r in per_rank)}
+    for case in cases:
+        per = [r["cases"][case] for r in per_rank]
+        for r, c in enumerate(per):
+            check(c["collectives"] == 1,
+                  f"{name} {case} rank {r}: {c['collectives']} collectives")
+            check(c["on_mesh_device"] and c["device"] == recs[r]["device"],
+                  f"{name} {case} rank {r}: table on {c['device']}")
+            check(c["held_bytes"] * n_wn == c["padded_bytes"],
+                  f"{name} {case} rank {r}: {c['held_bytes']} B x {n_wn} "
+                  f"!= {c['padded_bytes']} B")
+            if "kernel" in c:
+                check(c["kernel_rel"] < tol[c["kernel"]]
+                      and c["kernel_band"] < BAND_RTOL,
+                      f"{name} {case} rank {r}: {c['kernel']} vs plain "
+                      f"{c['kernel_rel']}, bands {c['kernel_band']}")
+            if "bit_equal" in c:
+                check(c["bit_equal"], f"{name} {case} rank {r}: the graphed "
+                      "block differs from the eager block on the mesh")
+        band, spec, valid = refs[case]
+        n = spec.shape[1]
+        g_spec = saved[f"{name}/{case}/spectrum"][:, :n]
+        e_spec = float(np.max(np.abs(g_spec.astype(np.float64) - spec)
+                              / np.maximum(np.abs(spec), 1e-300)))
+        e_band = float(np.max(np.abs(saved[f"{name}/{case}/band"].astype(
+            np.float64) - band) / np.maximum(np.abs(band), 1e-300)))
+        check(np.array_equal(saved[f"{name}/{case}/valid"], valid),
+              f"{name} {case}: valid differs")
+        check(e_spec < MESH_SPEC_RTOL, f"{name} {case}: spectrum {e_spec}")
+        check(e_band < BAND_RTOL, f"{name} {case}: band {e_band}")
+        rc = {"spectrum_rel": e_spec, "band_rel": e_band,
+              "forward_ms": max(c["forward_ms"] for c in per),
+              "all_reduce_ms": max(c["all_reduce_ms"] for c in per),
+              "held_bytes": per[0]["held_bytes"],
+              "full_bytes": per[0]["full_bytes"],
+              "padded_bytes": per[0]["padded_bytes"],
+              "local_shape": [c["local_shape"] for c in per]}
+        k = per[0].get("kernel")
+        text = "no fused kernel"
+        if k:
+            rc.update({x: max(c[x] for c in per) for x in (
+                "kernel_rel", "kernel_band", "kernel_abs", "kernel_ms",
+                "plain_ms")}, kernel=k, bound=per[0]["bound"])
+            text = (f"{k} on each shard vs plain {rc['kernel_rel']:.2e} "
+                    f"(bands {rc['kernel_band']:.2e}), {rc['kernel_ms']:.3f}"
+                    f" ms (plain {rc['plain_ms']:.3f}, bound "
+                    f"{rc['bound']['bound_ms']:.3f}) on {per[0]['chains']} "
+                    "chains")
+        if blocks is not None and "bit_equal" in per[0]:
+            ref = blocks[case]
+            pb, pos0 = (saved[f"{name}/{case}/{x}"] for x in ("block", "pos0"))
+            check(np.array_equal(pos0, ref["pos0"]),
+                  f"{name} {case}: the block's initial positions differ from "
+                  "the unsharded block's")
+            flips = float(np.mean(np.any(
+                accept_decisions(pb, pos0)
+                != accept_decisions(ref["positions"], ref["pos0"]), axis=0)))
+            check(flips <= MESH_FLIP_SHARE,
+                  f"{name} {case}: {flips} of chains flipped")
+            if len(recs) == 1:
+                check(np.array_equal(pb, ref["positions"]),
+                      f"{name} {case}: the graphed block of a world of one "
+                      "differs from the unmeshed graphed block")
+            rc.update(step_ms=max(c["step_ms"] for c in per),
+                      step_rounds=[c["step_rounds"] for c in per],
+                      single_step_ms=ref["step_ms"], flip_share=flips,
+                      accept=per[0]["accept"])
+            text += (f"; graphed step {rc['step_ms']:.3f} ms (unsharded "
+                     f"{ref['step_ms']:.3f}), graphed block = eager block "
+                     f"bit for bit on every rank"
+                     f"{', = the unmeshed block' if len(recs) == 1 else ''}"
+                     f", accept decisions differ from the unsharded block's "
+                     f"on {flips:.4f} of chains (accept {rc['accept']:.3f})")
+        res["cases"][case] = rc
+        print(f"# {label} ({smi}): {name} {case}: gathered spectrum vs the "
+              f"unsharded forward max rel {e_spec:.3e}, bands {e_band:.3e}; "
+              f"{text}; one collective a forward; table "
+              f"{rc['held_bytes'] / 2**20:.2f} MiB a rank = "
+              f"{rc['padded_bytes'] / 2**20:.2f} / {n_wn}; the slowest rank: "
+              f"forward {rc['forward_ms']:.3f} ms, all-reduce "
+              f"{rc['all_reduce_ms']:.4f} ms; local spectra "
+              f"{rc['local_shape']}")
+    if f"{name}/block/positions" in saved:
+        ref_pb, ref_pos0 = block_ref
+        pb, pos0 = saved[f"{name}/block/positions"], saved[f"{name}/block/pos0"]
+        check(np.array_equal(pos0, ref_pos0),
+              f"{name}: the block's initial positions differ")
+        d_ref, d = accept_decisions(ref_pb, ref_pos0), accept_decisions(pb,
+                                                                         pos0)
+        flips = float(np.mean(np.any(d != d_ref, axis=0)))
+        res["block_flip_share"] = flips
+        print(f"# {label}: {name}: {MESH_BLOCK_STEPS}-step snooker block of "
+              f"{MESH_CHAINS} chains (eager) against the unsharded eager "
+              f"block: accept decisions differ on {flips:.4f} of chains; "
+              f"accept {d.mean():.3f} (unsharded {d_ref.mean():.3f})")
+        check(flips <= MESH_FLIP_SHARE, f"{name}: {flips} of chains flipped")
+    print(f"# {label}: {name}: launches counted in each rank's forwards "
+          f"{launches}; peak GiB a rank "
+          f"{[round(x, 2) for x in res['peak_gib']]}; {res['seconds']:.1f} s "
+          f"(the slowest rank)")
+    return res
+
+
+def torchrun_dryrun(label: str, work: str, args: list, backend: str) -> float:
+    """``python -m bart_tpu_torch.parallel.dryrun`` (with ``args``) under
+    torchrun on four ranks, its log in ``work``/dryrun.log, within
+    MESH_TIMEOUT s: its three checks must print OK, the first on a 2x2
+    mesh of ``backend``.  Returns its seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    log = os.path.join(work, "dryrun.log")
+    rc = run_session(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "4", "-m", "bart_tpu_torch.parallel.dryrun",
+         "--timeout", str(MESH_TIMEOUT), *args], MESH_TIMEOUT, log,
+        cwd=root, env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [root, os.environ.get("PYTHONPATH", "")])})
+    text = open(log).read()
+    lines = [x for x in text.splitlines() if ": OK" in x]
+    for x in lines:
+        print(f"# {label}: dryrun: {x}")
+    check(rc == 0 and len(lines) == 3
+          and f"dryrun_multichip(2x2, {backend}): OK" in lines[0],
+          f"{label}: the dryrun failed ({rc}):\n{text[-4000:]}")
+    return time.perf_counter() - t0
 
 
 def phase10(fused, fm, fine, inp, smi: str) -> dict:
@@ -2804,13 +3197,14 @@ def phase10(fused, fm, fine, inp, smi: str) -> dict:
     held against the unsharded card forward at the same wavenumbers; 1x2
     also runs a 2-chain on-the-fly forward, 2x2 a 3-step snooker block
     against the unsharded eager block.  Then a world of one NCCL rank
-    (the graphed block with its all-reduce captured, against the
-    unmeshed graphed block, bit for bit) and the dryrun under torchrun
-    on four gloo ranks."""
+    (the graphed eclipse block with its all-reduce captured, against the
+    eager block on the mesh and the unmeshed graphed block, bit for bit)
+    and the dryrun under torchrun on four gloo ranks."""
     import shutil
 
     import torch
 
+    from bart_tpu_torch.demo import TRUTH
     from bart_tpu_torch.opacity.grid import save_grid
 
     t_phase = time.perf_counter()
@@ -2824,7 +3218,7 @@ def phase10(fused, fm, fine, inp, smi: str) -> dict:
     save_grid(fine, files["fine"])
     n_out = fine.sigma.shape[-1] // FOLD_K
     dev = fm.device
-    cases = ["eclipse", "transit", "folded-eclipse", "folded-transit"]
+    cases = list(CASE_KERNEL)
 
     # the unsharded references on the card
     refs = {}
@@ -2834,152 +3228,275 @@ def phase10(fused, fm, fine, inp, smi: str) -> dict:
         refs[case] = [x.cpu().numpy() for x in m(torch.tensor(
             mesh_params(case, nch), dtype=torch.float32, device=dev))]
     block_ref = mesh_block(models["eclipse"])
+    data = models["eclipse"](torch.tensor(
+        TRUTH[None], dtype=torch.float32, device=dev))[0][0].double()
+    data = data.cpu().numpy()
+    blocks = {"eclipse": graphed_blocks(models["eclipse"], "eclipse", data,
+                                        MESH_CHAINS)}
     del models
     torch.cuda.empty_cache()
     print(f"# phase 10: unsharded references on the card in "
           f"{time.perf_counter() - t_phase:.1f} s (folded on {n_out} output "
           f"bins x {FOLD_K})")
 
+    base = {**files, "nchains": MESH_CHAINS, "device": "cuda:0"}
     out = {"layouts": {}}
     for name, (n_chain, n_wn) in MESH_LAYOUTS.items():
-        recs, saved, secs = run_ranks(
-            work, name, n_chain, n_wn, "gloo",
-            {**files, "cases": cases + (["onthefly"] if name == "1x2"
-                                        else []),
-             "block": name == "2x2"})
+        job = {**base, "backend": "gloo", "layouts": {name: [n_chain, n_wn]},
+               "cases": {name: cases + (["onthefly"] if name == "1x2"
+                                        else [])}, "block": "2x2"}
+        recs, saved, secs = run_ranks(work, name, job, n_chain * n_wn)
         out["layouts"][name] = mesh_layout_checks(
-            name, n_wn, recs, saved, refs, block_ref, secs, smi)
+            "phase 10", name, n_wn, recs, saved, refs, smi,
+            block_ref=block_ref)
+        out["layouts"][name]["group_s"] = secs
 
-    recs, _, secs = run_ranks(work, "nccl", 1, 1, "nccl",
-                              {**files, "cases": ["eclipse"], "nccl": True})
-    nc = recs[0]["nccl"]
-    print(f"# phase 10 ({smi}): a world of one NCCL rank: the graphed "
-          f"{MESH_CHAINS}-chain eclipse block ({BLOCK} steps, the "
-          f"band-flux all-reduce captured in the step; accept "
-          f"{nc['accept']:.3f}) against the unmeshed graphed block: "
-          f"{'bit for bit' if nc['bit_equal'] else 'DIFFERENT'}; "
-          f"{nc['python_collectives']} all-reduces counted in Python (the "
-          f"warm-ups and the capture; replays are not counted); a graphed "
-          f"step {nc['step_ms']:.3f} ms meshed, {nc['plain_step_ms']:.3f} ms "
-          f"unmeshed (median of 3 blocks); {secs:.1f} s")
-    check(nc["bit_equal"], "the NCCL-meshed graphed block differs from the "
-          "unmeshed one")
-    out["nccl"] = nc
-
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "4", "-m", "bart_tpu_torch.parallel.dryrun",
-         "--backend", "gloo", "--device", "cuda:0", "--timeout",
-         str(MESH_TIMEOUT)],
-        cwd=root, env={**os.environ, "PYTHONPATH": os.pathsep.join(
-            [root, os.environ.get("PYTHONPATH", "")])},
-        capture_output=True, text=True, timeout=MESH_TIMEOUT)
-    lines = [x for x in proc.stdout.splitlines() if ": OK" in x]
-    for x in lines:
-        print(f"# phase 10: dryrun: {x}")
-    check(proc.returncode == 0 and len(lines) == 3,
-          f"the dryrun failed ({proc.returncode}):\n{proc.stdout[-3000:]}"
-          f"\n{proc.stderr[-3000:]}")
-    out["dryrun_s"] = time.perf_counter() - t0
+    job = {**base, "backend": "nccl", "layouts": {"1x1": [1, 1]},
+           "cases": {"1x1": ["eclipse"]}, "data": {"eclipse": data.tolist()}}
+    recs, saved, secs = run_ranks(work, "nccl", job, 1)
+    out["nccl"] = mesh_layout_checks("phase 10, a world of one NCCL rank",
+                                     "1x1", 1, recs, saved, refs, smi,
+                                     blocks=blocks)
+    out["dryrun_s"] = torchrun_dryrun(
+        "phase 10", work, ["--backend", "gloo", "--device", "cuda:0"], "gloo")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"# phase 10 ({smi}): dryrun under torchrun (4 gloo ranks on the "
           f"card) {out['dryrun_s']:.1f} s; phase 10 {out['seconds']:.1f} s")
     return out
 
 
-def mesh_layout_checks(name, n_wn, recs, saved, refs, block_ref, secs,
-                       smi) -> dict:
-    """Phase 10's checks and lines for one mesh: each rank's collectives,
-    table bytes, kernels launched and kernels against their plain
-    versions; the gathered spectra and bands against the unsharded card
-    forward; with the block, the share of chains whose accept decisions
-    differ."""
-    tol = {"fused_eclipse": SPEC_RTOL[False], "fused_transit": OUT_RTOL,
-           "fused_eclipse_folded": SPEC_RTOL[True],
-           "fused_transit_folded": OUT_RTOL}
-    launches = [r["launches"] for r in recs]
-    for r, n in enumerate(launches):
-        check(all(v >= 1 for v in n.values()),
-              f"phase 10 {name} rank {r} did not launch every kernel: {n}")
-    res = {"launches": launches, "seconds": secs, "cases": {}}
-    for case in recs[0]["cases"]:
-        per = [r["cases"][case] for r in recs]
-        for r, c in enumerate(per):
-            check(c["collectives"] == 1,
-                  f"{name} {case} rank {r}: {c['collectives']} collectives")
-            check(c["on_mesh_device"], f"{name} {case}: {c['device']}")
-            check(c["held_bytes"] * n_wn == c["padded_bytes"],
-                  f"{name} {case} rank {r}: {c['held_bytes']} B x {n_wn} "
-                  f"!= {c['padded_bytes']} B")
-        band, spec, valid = refs[case]
-        n = spec.shape[1]
-        g_spec = saved[f"{case}/spectrum"][:, :n]
-        e_spec = float(np.max(np.abs(g_spec.astype(np.float64) - spec)
-                              / np.maximum(np.abs(spec), 1e-300)))
-        e_band = float(np.max(np.abs(saved[f"{case}/band"].astype(
-            np.float64) - band) / np.maximum(np.abs(band), 1e-300)))
-        check(np.array_equal(saved[f"{case}/valid"], valid),
-              f"{name} {case}: valid differs")
-        check(e_spec < MESH_SPEC_RTOL, f"{name} {case}: spectrum {e_spec}")
-        check(e_band < BAND_RTOL, f"{name} {case}: band {e_band}")
-        errs = {}
-        for c in per:
-            for k, (e, eb) in c.get("kernel_vs_plain", {}).items():
-                check(e < tol[k] and eb < BAND_RTOL,
-                      f"{name} {case}: {k} vs plain {e}, band {eb}")
-                errs[k] = max(errs.get(k, (0, 0))[0], e), max(
-                    errs.get(k, (0, 0))[1], eb)
-        fwd = max(c["forward_ms"] for c in per)
-        ar = max(c["all_reduce_ms"] for c in per)
-        res["cases"][case] = {"spectrum_rel": e_spec, "band_rel": e_band,
-                              "kernel_vs_plain": errs, "forward_ms": fwd,
-                              "all_reduce_ms": ar,
-                              "held_bytes": per[0]["held_bytes"],
-                              "full_bytes": per[0]["full_bytes"],
-                              "local_shape": [c["local_shape"] for c in per]}
-        kp = "; ".join(f"{k} vs plain {e:.2e} (bands {eb:.2e})"
-                       for k, (e, eb) in errs.items())
-        print(f"# phase 10 ({smi}): {name} {case}: gathered spectrum vs the "
-              f"unsharded card forward max rel {e_spec:.3e}, bands "
-              f"{e_band:.3e}; {kp or 'no fused kernel'}; forward "
-              f"{fwd:.2f} ms a rank (slowest), all-reduce {ar:.3f} ms "
-              f"({ar / fwd:.1%}); table {per[0]['held_bytes'] / 2**20:.2f} "
-              f"of {per[0]['full_bytes'] / 2**20:.2f} MiB a rank; local "
-              f"spectra {[c['local_shape'] for c in per]}")
-    if "block/positions" in saved:
-        ref_pb, ref_pos0 = block_ref
-        check(np.array_equal(saved["block/pos0"], ref_pos0),
-              f"{name}: the block's initial positions differ")
-        d_ref = accept_decisions(ref_pb, ref_pos0)
-        d = accept_decisions(saved["block/positions"], saved["block/pos0"])
-        flips = float(np.mean(np.any(d != d_ref, axis=0)))
-        res["block_flip_share"] = flips
-        print(f"# phase 10: {name}: {MESH_BLOCK_STEPS}-step snooker block of "
-              f"{MESH_CHAINS} chains (eager: gloo) against the unsharded eager "
-              f"block: accept decisions differ on {flips:.4f} of chains; "
-              f"accept {d.mean():.3f} (unsharded {d_ref.mean():.3f})")
-        check(flips <= MESH_FLIP_SHARE, f"{name}: {flips} of chains flipped")
-    res["check_s"] = max(sum(c.get("check_s", 0.0)
-                             for c in r["cases"].values()) for r in recs)
-    print(f"# phase 10: {name}: launches counted in each rank {launches}; "
-          f"{secs:.1f} s for the group, of which the kernel-vs-plain checks "
-          f"{res['check_s']:.1f} s (the slowest rank)")
-    return res
+def nccl4_devices() -> int:
+    """Phase 13's guard: NCCL4_WORLD ranks, one a card.  Raises, naming
+    the count it found, unless that many CUDA devices exist; there is no
+    other layout to fall back to."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < NCCL4_WORLD:
+        raise RuntimeError(
+            f"chip_smoke --nccl4 needs {NCCL4_WORLD} CUDA devices, one rank "
+            f"a card over NCCL; found {n}")
+    return NCCL4_WORLD
+
+
+def nccl4_job(files: dict, data: dict, truth_data) -> dict:
+    """The job of phase 13's ranks: the tables' files, NCCL on
+    cuda:LOCAL_RANK (no device named), every path on every mesh of
+    NCCL4_LAYOUTS with each path's data (the single-card forward's bands
+    at the truth) for its graphed blocks, the truth recovery on 2x2 with
+    its noisy data."""
+    return {**files, "backend": "nccl", "device": None,
+            "layouts": NCCL4_LAYOUTS,
+            "cases": {name: list(CASE_KERNEL) for name in NCCL4_LAYOUTS},
+            "nchains": MESH_CHAINS,
+            "data": {k: np.asarray(v).tolist() for k, v in data.items()},
+            "truth": NCCL4_LAYOUTS["2x2"],
+            "truth_data": [np.asarray(a).tolist() for a in truth_data]}
+
+
+def tables_on_cards(lines, wn_grid, t_grid, pressure, budget_bytes: float,
+                    devices: list):
+    """``build_opacity_grid`` of the CH4 ``lines`` with its temperature
+    rows shared out among ``devices``, one thread a device, all at once:
+    each builds a run of rows after the grid's first (which it drops
+    again: ``wing_cutoff`` reads the lowest temperature, so every part
+    cuts the line wings as one build does); the parts are put together
+    on devices[0]."""
+    import concurrent.futures
+    import contextlib
+
+    import torch
+
+    from bart_tpu_torch.device import resolve_device
+    from bart_tpu_torch.opacity.grid import OpacityGrid, build_opacity_grid
+
+    t_grid = np.asarray(t_grid, np.float64)
+    first = resolve_device(devices[0])
+
+    def part(dev, rows):
+        skip = int(rows[0] != 0)
+        cuda = torch.device(dev).type == "cuda"
+        with torch.cuda.device(dev) if cuda else contextlib.nullcontext():
+            g = build_opacity_grid(
+                {"CH4": lines}, wn_grid, t_grid[np.r_[0, rows][1 - skip:]],
+                pressure, budget_bytes=budget_bytes, device=dev,
+                dtype=torch.float32)
+            return g, g.sigma[:, skip:].to(first)
+
+    with concurrent.futures.ThreadPoolExecutor(len(devices)) as ex:
+        parts = list(ex.map(part, devices, np.array_split(
+            np.arange(len(t_grid)), len(devices))))
+    g = parts[0][0]
+    return OpacityGrid(species=g.species, t_grid=t_grid, pressure=g.pressure,
+                       wn_grid=g.wn_grid,
+                       sigma=torch.cat([s for _, s in parts], dim=1))
+
+
+def nccl4_phase(fused, smi: str) -> dict:
+    """Phase 13 (``--nccl4``): the port's multi-device path across
+    NCCL4_WORLD cards over NCCL, one rank a card.  The parent builds the
+    K = 1 table and the fine table once, on the cards at once
+    (``tables_on_cards``), saves them (the ranks load them on the host
+    and keep their shards), and runs the single-card references on card
+    0: each path's 512-chain forward, its bands at the truth and its
+    graphed block (times included).  Then one world of ranks runs (a)
+    the forwards and (b, c) the graphed blocks on every mesh
+    (``mesh_layout``) and (d) the truth recovery on 2x2; last, (e) the
+    dryrun under torchrun."""
+    import shutil
+
+    import torch
+
+    from bart_tpu_torch.demo import TRUTH, TRUTH_TRANSIT, demo_inputs
+    from bart_tpu_torch.device import resolve_device
+    from bart_tpu_torch.opacity.grid import save_grid
+    from bart_tpu_torch.utils.grids import folded_fine_grid
+
+    world = nccl4_devices()
+    t_phase = time.perf_counter()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    topo = [x for cmd in (["topo", "-m"], ["nvlink", "--status", "-i", "0"])
+            for x in subprocess.run(
+                ["nvidia-smi", *cmd], capture_output=True, text=True,
+                timeout=60).stdout.rstrip().splitlines()[:24]]
+    for x in cards:
+        print(f"# phase 13: card {x}")
+    for x in topo:
+        print(f"# phase 13: topo: {x}")
+    peer = [[int(i == j or torch.cuda.can_device_access_peer(i, j))
+             for j in range(world)] for i in range(world)]
+    print(f"# phase 13: peer access between the cards (CUDA): {peer}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "nccl4")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    files = {"grid": os.path.join(work, "grid.npz"),
+             "fine": os.path.join(work, "fine.npz")}
+    devices = [f"cuda:{i}" for i in range(world)]
+    dev = resolve_device(devices[0])
+    f32 = dict(device=dev, dtype=torch.float32)
+    inp = demo_inputs()
+    t0 = time.perf_counter()
+    grid = tables_on_cards(inp.lines, inp.wn, inp.t_grid, inp.pressure, 8e9,
+                           devices)
+    t1 = time.perf_counter()
+    fine = tables_on_cards(inp.lines, folded_fine_grid(inp.wn, FOLD_K),
+                           inp.t_grid, inp.pressure, 24e9, devices)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    save_grid(grid, files["grid"])
+    save_grid(fine, files["fine"])
+    print(f"# phase 13: on the {world} cards at once: the K = 1 table "
+          f"{tuple(grid.sigma.shape)} {t1 - t0:.1f} s, the fine table "
+          f"{tuple(fine.sigma.shape)} {t2 - t1:.1f} s (peak GiB a card "
+          f"{[round(torch.cuda.max_memory_allocated(d) / 2**30, 1) for d in devices]}"
+          f"), saved for the ranks in {time.perf_counter() - t2:.1f} s")
+
+    # the single-card references on card 0
+    refs, data, blocks = {}, {}, {}
+    models = mesh_models(inp, grid, fine, dev, list(CASE_KERNEL))
+    for case, m in models.items():
+        refs[case] = [x.cpu().numpy() for x in m(torch.tensor(
+            mesh_params(case, MESH_CHAINS), **f32))]
+        truth = TRUTH_TRANSIT if case.endswith("transit") else TRUTH
+        data[case] = m(torch.tensor(truth[None], **f32))[0][0].double()
+        data[case] = data[case].cpu().numpy()
+        blocks[case] = graphed_blocks(m, case, data[case], MESH_CHAINS)
+        check(blocks[case]["bit_equal"], f"{case}: the single-card graphed "
+              "block differs from the eager block")
+        print(f"# phase 13 ({smi}): {case}: single-card graphed "
+              f"{MESH_CHAINS}-chain step on card 0 "
+              f"{blocks[case]['step_ms']:.3f} ms (median of "
+              f"{MESH_TIMED_BLOCKS} blocks of {BLOCK}: "
+              f"{', '.join(f'{x:.3f}' for x in blocks[case]['step_rounds'])}"
+              f"), accept {blocks[case]['accept']:.3f}")
+    uncert = 0.03 * data["eclipse"]
+    noisy = data["eclipse"] + np.random.default_rng(42).normal(
+        0, 1, uncert.shape) * uncert
+    del models, m, grid, fine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"# phase 13: single-card references in "
+          f"{time.perf_counter() - t2:.1f} s; {world} ranks start")
+
+    recs, saved, secs = run_ranks(work, "ranks",
+                                  nccl4_job(files, data, (noisy, uncert)),
+                                  world, NCCL4_TIMEOUT)
+    check(all(r["backend"] == "nccl" for r in recs)
+          and [r["device"] for r in recs] == devices,
+          f"phase 13: ranks {[(r['backend'], r['device']) for r in recs]}")
+    out = {"ranks_s": secs, "layouts": {}}
+    for name, (_, n_wn) in NCCL4_LAYOUTS.items():
+        out["layouts"][name] = mesh_layout_checks(
+            "phase 13", name, n_wn, recs, saved, refs, smi, blocks=blocks)
+    tr = recs[0]["truth"]
+    check(all(r["truth"]["mean"] == tr["mean"] for r in recs),
+          "phase 13 (d): the ranks' posteriors differ")
+    written = {r: sorted(os.listdir(os.path.join(work, "ranks", "truth",
+                                                 f"rank{r}")))
+               for r in range(world)}
+    check(written[0] == ["MCMC.log", "checkpoint.npz", "checkpoint.npz.pos.dat",
+                         "output.npy"]
+          and not any(written[r] for r in range(1, world)),
+          f"phase 13 (d): files written per rank {written}")
+    out["truth"] = tr
+    print(f"# phase 13 ({smi}): (d) truth recovery on 2x2: {MESH_CHAINS} "
+          f"chains x {TRUTH_STEPS} graphed steps in {tr['seconds']:.2f} s "
+          f"({tr['ms_step']:.3f} ms a step, host statistics and the "
+          f"agreement checks included); pulls "
+          f"{np.array2string(np.asarray(tr['pulls']), precision=3)}, "
+          f"chi2/dof {tr['chi2_dof']:.3f}, split-Rhat "
+          f"{np.array2string(np.asarray(tr['split_rhat']), precision=4)}, "
+          f"accept {tr['accept']:.3f}; held on every rank; files only from "
+          f"rank 0 ({written[0]}); the ranks {secs:.1f} s")
+    out["dryrun_s"] = torchrun_dryrun("phase 13 (e)", work, [], "nccl")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 13 ({smi}): (e) dryrun under torchrun, {world} NCCL "
+          f"ranks, one a card: {out['dryrun_s']:.1f} s; phase 13 "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
+def nccl4_kernels(layouts: dict) -> list:
+    """The kernels line of phase 13: per kernel the contract's keys, the
+    times of the 2x2 mesh's slowest rank on its shard (bound of a 2x2
+    shard), ``launches`` the Python counts of every rank's forwards on
+    every mesh, and each mesh's times beside them."""
+    out = []
+    for name in REPLACES:
+        per = {lay: next(c for c in res["cases"].values()
+                         if c["kernel"] == name)
+               for lay, res in layouts.items()}
+        main = per["2x2"]
+        out.append(kernel_record(
+            name, max(c["kernel_abs"] for c in per.values()),
+            main["kernel_ms"], main["plain_ms"], main["bound"],
+            sum(sum(n[name] for n in res["launches"])
+                for res in layouts.values()),
+            launches_by_mesh={lay: [n[name] for n in res["launches"]]
+                              for lay, res in layouts.items()},
+            ms_by_mesh={lay: c["kernel_ms"] for lay, c in per.items()},
+            plain_ms_by_mesh={lay: c["plain_ms"] for lay, c in per.items()},
+            bound_ms_by_mesh={lay: c["bound"]["bound_ms"]
+                              for lay, c in per.items()}))
+    return out
 
 
 def main() -> int:
     import torch
 
+    if "--nccl4" in sys.argv[1:]:
+        nccl4_devices()              # raises without NCCL4_WORLD cards
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if sys.argv[1:2] == ["--phase10-rank"]:
-        job, rank, world, n_chain, backend = sys.argv[2:7]
-        return phase10_rank(job, int(rank), int(world), int(n_chain),
-                            backend)
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2])
     from bart_tpu_torch.demo import (DEMO_PARAMS, TRUTH, build_demo_model,
                                      demo_inputs, random_rows)
     from bart_tpu_torch.device import resolve_device
@@ -3016,6 +3533,16 @@ def main() -> int:
         for kernel, regs, spill in ptxas_summary(log):
             print(f"# phase 1: {name}.cu {kernel}: {regs} registers, "
                   f"{spill} B of spill stores and loads")
+
+    if "--nccl4" in sys.argv[1:]:
+        p13 = nccl4_phase(fused, smi.strip().splitlines()[0])
+        print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+              "start to the records")
+        print(json.dumps({"kernels": nccl4_kernels(p13["layouts"])}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # --- phase 2: kernel vs plain on random rows ----------------------
     inp_full = demo_inputs()
