@@ -202,7 +202,8 @@ def fine_structure(R: int, W: int, K: int, seed: int = 5) -> np.ndarray:
 
 def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cuda",
                      dtype: torch.dtype = torch.float32, grid=None,
-                     quadrature: str = "raygrid", budget_bytes: float = 2e9,
+                     quadrature: str = "raygrid", nquad: int = 8,
+                     budget_bytes: float = 2e9,
                      solution: str = "eclipse", cia: bool = False,
                      fold: int = 1, fold_adapt: float | None = 0.02,
                      fold_bf16: bool = False, pt_type: str = "line"):
@@ -214,7 +215,7 @@ def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cuda",
     H2-H2 CIA rows.  ``fold`` = K > 1 builds the folded model: the table
     on the K-times-finer folded_fine_grid(inp.wn, K), bands and outputs
     on ``inp.wn``; ``fold_adapt`` and ``fold_bf16`` as ForwardModel's.
-    ``pt_type`` picks the PT family (demo_params gives its parameters)."""
+    ``nquad`` is the expsum quadrature's term count.  ``pt_type`` picks the PT family (demo_params gives its parameters)."""
     from bart_tpu_torch.obs.bands import build_band_matrix
     from bart_tpu_torch.opacity.grid import build_opacity_grid
     from bart_tpu_torch.rt.forward import ForwardConfig, ForwardModel
@@ -235,7 +236,7 @@ def build_demo_model(inp: DemoInputs, *, device: str | torch.device = "cuda",
                                   dtype=dtype)
         kwargs = {**inp.config_kwargs, "solution": solution}
     return ForwardModel(
-        ForwardConfig(quadrature=quadrature,
+        ForwardConfig(quadrature=quadrature, nquad=nquad,
                       **{**kwargs, "pt_type": pt_type}),
         wn_grid=inp.wn, pressure=inp.pressure, species=inp.species,
         base_abundances=inp.base_q, opacity=grid, system=inp.system,

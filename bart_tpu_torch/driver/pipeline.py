@@ -282,7 +282,8 @@ class Pipeline:
                       atm=None):
         """Opacity grid build/reuse (BART.py:560-569), built on the
         device; ``osamp`` > 1 stores bin-averaged cross-sections."""
-        from bart_tpu_torch.opacity.grid import (build_opacity_grid,
+        from bart_tpu_torch.opacity.grid import (build_budget,
+                                                 build_opacity_grid,
                                                  load_grid, save_grid)
 
         cfg = self.cfg
@@ -296,17 +297,13 @@ class Pipeline:
         lines = {k: v for k, v in tli.lines.items()}
         t_grid = np.arange(cfg.tlow, cfg.thigh + cfg.tempdelt / 2,
                            cfg.tempdelt)
-        # the build's temporaries: an eighth of the card's memory (its
-        # peak is ~1.6x the budget), the function's default on the CPU
-        budget = (torch.cuda.get_device_properties(self.device).total_memory
-                  / 8 if self.device.type == "cuda" else 2e9)
         t0 = time.time()
         grid = build_opacity_grid(
             lines, wn, t_grid, pressure,
             spec=self._broadening(atm),
             nwidth=cfg.nwidth, ethresh=cfg.ethresh,
             q_tables=getattr(tli, "partition", None) or {},
-            budget_bytes=budget, osamp=cfg.osamp,
+            budget_bytes=build_budget(self.device), osamp=cfg.osamp,
             device=self.device, dtype=self.dtype,
         )
         save_grid(grid, path)

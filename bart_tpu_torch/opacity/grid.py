@@ -23,8 +23,8 @@ from bart_tpu_torch.opacity.extinction import (
     wing_cutoff,
 )
 
-__all__ = ["OpacityGrid", "build_opacity_grid", "interp_opacity",
-           "save_grid", "load_grid", "fine_bin_mask"]
+__all__ = ["OpacityGrid", "build_opacity_grid", "build_budget",
+           "interp_opacity", "save_grid", "load_grid", "fine_bin_mask"]
 
 
 def fine_bin_mask(sigma_fine: torch.Tensor, K: int, delta: float = 0.02,
@@ -169,6 +169,15 @@ def build_opacity_grid(
         wn_grid=np.asarray(wn_grid, np.float64),
         sigma=sigma.reshape(len(species), nT, nP, nW),
     )
+
+
+def build_budget(device: torch.device) -> float:
+    """The byte budget of a build's temporaries on ``device``: an eighth
+    of the card's memory (the build's peak is ~1.6x the budget), and
+    build_opacity_grid's default on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 8
+    return 2e9
 
 
 def interp_opacity(grid_sigma: torch.Tensor, t_grid_min: float,

@@ -118,7 +118,19 @@ smooth bins.  Phases:
      forward and all-reduce times; the truth recovery (phase 4c's) on
      2x2 with files from rank 0 alone; then the dryrun under torchrun on
      four NCCL ranks; its own kernels line (each kernel's ms per mesh)
-  6. with ``--trace`` only (after phase 10): a torch.profiler trace of a
+ 14. (after phase 10) the port's benchmark and cookbook: ``bench_torch.py``
+     in a subprocess on a cold table cache with ``BENCH_FOLD=0`` (its
+     JSON line with bench.py's keys and a finite rate above 0, its
+     transit and roofline lines, the K = 1 table built once and then
+     loaded, its kernels counted in its process), then the ``main`` of
+     examples/torch_demo/quickstart.py in this process (it must end in
+     ``quickstart OK`` and launch fused_eclipse); both wall times.  With
+     ``--bench`` only (after phase 2): the whole bench, the folded pair
+     included, twice in one call on one cache, cold and then warm (the
+     warm run loads both tables and builds neither), then ``entry()``'s
+     forward on a table built in this process and on the cached one,
+     for the bench's problem and entry's default one: equal bit for bit
+  6. with ``--trace`` only (after phase 14): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
      time and the five stages of the forward during which the device
@@ -126,9 +138,10 @@ smooth bins.  Phases:
 
 Each path's launch counts are zeroed just before its phase 3 (phases 7
 and 9, and each CLI run of 8 and 11: just before it; phases 10 and 13:
-in each rank, before its forwards) and read just after its phase 4
-(phases 7, 8, 9 and 11: at its end; phases 10 and 13: after the
-forwards): the wrappers count
+in each rank, before its forwards; phase 14: the bench's process starts
+from 0, the quickstart's counts are zeroed before it) and read just
+after its phase 4 (phases 7, 8, 9, 11 and 14: at its end; phases 10 and
+13: after the forwards): the wrappers count
 in Python, so
 they see the
 eager launches and each graph capture, never a replay.  The kernels'
@@ -151,6 +164,8 @@ exponentials at the special-function rate and its bytes at the HBM rate
                                       # 320-bin fine table, phase 10
     python3 chip_smoke.py --nccl4     # phases 0-1, then phase 13 (four
                                       # cards)
+    python3 chip_smoke.py --bench     # phases 0-2, then the bench cold
+                                      # and warm, and entry()
 """
 
 from __future__ import annotations
@@ -164,6 +179,10 @@ import sys
 import time
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from bart_tpu_torch.utils.roofline import (  # noqa: E402
+    eclipse_bound, transit_bound)
 
 # Kernel vs plain version, both float32, summing in other orders over
 # 100 layers.  Spectra: raygrid 1e-4 (measured ~2e-6); expsum 2e-4,
@@ -192,18 +211,6 @@ FOLD_MIN_DIFF = 1e-3
 # on the bands (the two differ by the sampling error folding removes)
 FOLD_K1_BAND_RTOL = 0.05
 
-# The card's peak rates for ``bound_ms`` (NVIDIA H100 SXM data sheet):
-# HBM3 bytes/s, float32 FLOP/s outside the tensor cores (an FMA is two),
-# and special-function results/s at the same clock as that float32 peak:
-# an SM has 16 special-function lanes beside 128 float32 lanes of 2 FLOP
-# (Hopper architecture white paper), so 1/16 of the FLOP rate.
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
-SFU_PS = F32_FLOPS / 16
-# dense tensor-core peaks of the same data sheet, FLOP/s; every
-# tensor-core contraction of the four kernels takes three passes (the
-# weights' three bfloat16 parts, or 3xTF32)
-TENSOR_FLOPS = {"bf16": 989e12, "tf32": 495e12}
-TENSOR_PASSES = 3
 #: the TPU kernel each wrapper's kernel replaces
 REPLACES = {"fused_eclipse": "bart_tpu/rt/fused.py:159",          # _kernel
             "fused_transit": "bart_tpu/rt/fused.py:341",          # _tkernel
@@ -304,57 +311,8 @@ EXOMOL_TRANS = "3 1 2.5e-2\n4 1 1.0e-3\n4 2 3.0e-2\n"
 EXOMOL_PF = "100 50.0\n296 107.1\n1000 300.0\n"
 
 
-def bound(fmas: float, tensor: list, exps: float, nbytes: float) -> dict:
-    """The least time the card could take for one launch, as the
-    kernels line's bound keys: the largest of the FMAs on the float32
-    pipes at the float32 peak, the FMAs on tensor cores (``tensor``:
-    [(what, type, FMAs)]) at their types' dense peaks times the passes
-    used, the exponentials at the special-function rate and the bytes at
-    the HBM rate; with the term that binds, the tensor cores' share of
-    all FMAs, their types and their ms."""
-    tensor_ms = sum(2e3 * TENSOR_PASSES * n / TENSOR_FLOPS[kind]
-                    for _, kind, n in tensor)
-    terms = {"fmas": 2e3 * fmas / F32_FLOPS, "tensor": tensor_ms,
-             "exponentials": 1e3 * exps / SFU_PS,
-             "bytes": 1e3 * nbytes / HBM_BPS}
-    term = max(terms, key=terms.get)
-    n_tensor = sum(n for _, _, n in tensor)
-    return {"bound_ms": terms[term],
-            "bound_by": "bytes" if term == "bytes" else "operations",
-            "bound_term": term, "tensor_fmas": n_tensor / (n_tensor + fmas),
-            "tensor_type": " + ".join(f"{kind} x {TENSOR_PASSES} passes "
-                                      f"({what})" for what, kind, _ in tensor),
-            "tensor_ms": tensor_ms}
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def eclipse_bound(R, L, F, C, nmu, powers, K, bf16, nbytes_in) -> dict:
-    """Bound of one eclipse launch, K = 1 or folded over F = W K fine
-    points: per (chain, layer, fine point) R FMAs for ext (the fill, on
-    tensor cores: bfloat16 on a bfloat16 fine table, else TF32), 4 for
-    the recurrence and the flux, nmu for the quadrature, and 1 (powers)
-    or nmu exponentials; one Planck exponential per (chain, layer, output
-    bin).  Bytes: every input as stored and the output, once each."""
-    pts = C * L * F
-    return bound(pts * (nmu + 4), [("fill", "bf16" if bf16 else "tf32",
-                                    pts * R)],
-                 pts * (1 if powers else nmu) + pts // K,
-                 nbytes_in + 4 * C * (F // K))
-
-
-def transit_bound(R, L, F, C, K, bf16, nbytes_in) -> dict:
-    """Bound of one transit launch, K = 1 or folded over F = W K fine
-    points: per (chain, fine point) L R FMAs for ext (the fill, on
-    tensor cores: bfloat16 on a bfloat16 fine table, else TF32), L (L +
-    1) / 2 for the triangle of slant paths (TF32 on tensor cores) and L
-    for the annulus sum, and L exponentials."""
-    pts = C * F
-    return bound(pts * L, [("fill", "bf16" if bf16 else "tf32", pts * L * R),
-                           ("slant", "tf32", pts * L * (L + 1) // 2)],
-                 pts * L, nbytes_in + 4 * C * (F // K))
 
 
 def kernel_record(name: str, max_abs_err: float, ms: float, plain_ms: float,
@@ -403,22 +361,14 @@ def cuda_ms(fn, nrep: int) -> float:
     return start.elapsed_time(stop) / nrep
 
 
-def serialized_ms(step, params, nrep: int, rounds: int = 3):
-    """bench.py's serialized timing: each call's input depends on the
-    last call's output and every round ends in a host read.  Returns
-    (best ms per call, per-round ms)."""
-    out = step(params)
-    float(out.sum())
-    times = []
-    for _ in range(rounds):
-        p = params
-        t0 = time.perf_counter()
-        for _ in range(nrep):
-            out = step(p)
-            p = params + 0.0 * out.sum()
-        float(out.sum())
-        times.append(1e3 * (time.perf_counter() - t0) / nrep)
-    return min(times), times
+def serialized_ms(fb, params, nrep: int, rounds: int = 3):
+    """bart_tpu_torch.bench.time_batched in ms: ``fb(params)`` returns
+    (bandflux, spectrum, valid).  Returns (best ms per call, per-round
+    ms)."""
+    from bart_tpu_torch.bench import time_batched
+
+    best, _, times = time_batched(fb, params, nrep, rounds)
+    return 1e3 * best, [1e3 * t for t in times]
 
 
 def mixed_share(tab, wrows, G) -> float:
@@ -569,7 +519,7 @@ def transit_times(fused, path: dict):
     k_ms = cuda_ms(lambda: fused.fused_transit(path["rtab"], rows[1], Gp,
                                                rows[3]), 20)
     p_ms = cuda_ms(lambda: fused.transit_plain(*rows), 5)
-    fwd = serialized_ms(lambda p: path["forward"](p)[0], path["params"], 20)
+    fwd = serialized_ms(path["forward"], path["params"], 20)
     return k_ms, p_ms, fwd
 
 
@@ -905,8 +855,7 @@ def folded_times(fused, path: dict) -> dict:
         k_ms=cuda_ms(lambda: kernels[0](tabk, *krows[True]), 5),
         p_ms=cuda_ms(lambda: plains[True](tabk, *rows[True]), 2),
         k1_ms=cuda_ms(lambda: kernels[1](tabs, *krows[False]), 10))
-    out["fwd"] = serialized_ms(lambda p: path["forward"](p)[0],
-                               path["params"], 5)
+    out["fwd"] = serialized_ms(path["forward"], path["params"], 5)
     for k, n in zip(kernels, counts):
         k.launches = n
     return out
@@ -1027,11 +976,11 @@ def step_phase(label: str, like, space, fm, params, kernels) -> dict:
         return min(times), times
 
     out = {"eager": block_ms(False), "graph": block_ms(True),
-           "fwd": serialized_ms(lambda p: fm(p)[0], params, 10)}
+           "fwd": serialized_ms(fm, params, 10)}
     gfwd = fm.graphed()
     check(torch.equal(gfwd(params)[0], fm(params)[0]),
           f"{label}: graphed forward differs from the eager forward")
-    out["gfwd"] = serialized_ms(lambda p: gfwd(p)[0], params, 10)
+    out["gfwd"] = serialized_ms(gfwd, params, 10)
     # the same number of graphed forwards, traced: the step's device work
     # less the forward's is the sampler's, the likelihood's and the draws';
     # the kernels' device time and the rest of the forward's come from
@@ -2134,8 +2083,8 @@ def onthefly_phase(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
             check(all(torch.equal(a, b) for a, b in
                       zip(gout, (band, spectrum, valid))),
                   f"{name}: graphed() on the fly differs from eager")
-            res["eager"] = serialized_ms(lambda p: fmo(p)[0], params, 1, 1)
-            res["graphed"] = serialized_ms(lambda p: g(p)[0], params, 1, 1)
+            res["eager"] = serialized_ms(fmo, params, 1, 1)
+            res["graphed"] = serialized_ms(g, params, 1, 1)
             timed = (f"; {res['graph_gib']:.2f} GiB with the capture; "
                      f"graphed = eager bit for bit; serialized eager "
                      f"{res['eager'][0]:.1f} ms, graphed "
@@ -3485,6 +3434,179 @@ def nccl4_kernels(layouts: dict) -> list:
     return out
 
 
+#: phase 14: the keys of bench.py's JSON line (bench.py:219-226), the
+#: limit of one bench run (cold, with the folded pair: the K = 1 table
+#: ~25 s and the fine table ~185 s of its 420 s budget) and the shapes
+#: of the bench's two tables
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "spread_pct"}
+BENCH_TIMEOUT = 900
+BENCH_TABLES = {"K = 1": "(1, 27, 100, 2501)", "fine": "(1, 27, 100, 80032)"}
+
+
+def bench_run(label: str, cache: str, fold: bool) -> dict:
+    """One run of ``bench_torch.py`` on the card in a subprocess, its
+    tables cached in ``cache``: the JSON line (checked: bench.py's keys,
+    a finite rate above 0), its stderr, its wall seconds, the tables it
+    built and loaded (shape -> list of "built"/"loaded") and the kernel
+    launches it counted in Python."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "BENCH_CACHE_DIR": cache,
+           "BENCH_FOLD": "1" if fold else "0"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(root,
+                                                        "bench_torch.py")],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines() + proc.stderr.splitlines():
+        print(f"# {label}: {ln.removeprefix('# ')}")
+    check(proc.returncode == 0, f"{label}: bench_torch.py exited "
+          f"{proc.returncode}")
+    line = json.loads(proc.stdout.splitlines()[0])
+    check(set(line) == BENCH_KEYS, f"{label}: keys {sorted(line)}")
+    check(np.isfinite(line["value"]) and line["value"] > 0,
+          f"{label}: value {line['value']}")
+    tables = {}
+    for shape, how in re.findall(r"table (\([\d, ]+\)) (built|loaded)",
+                                 proc.stderr):
+        tables.setdefault(shape, []).append(how)
+    counts = json.loads(re.search(r"kernel launches \(.*?\): (\{.*\})",
+                                  proc.stderr).group(1))
+    return dict(line=line, wall=wall, stderr=proc.stderr, tables=tables,
+                counts=counts)
+
+
+def phase14(fused, smi: str) -> dict:
+    """Phase 14: the port's bench (without the folded pair) and the
+    quickstart on the card.  The bench runs in a subprocess on a cold
+    cache; the quickstart in this process, its kernel launches counted
+    from 0."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "phase14")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    run = bench_run("phase 14 bench", work, fold=False)
+    for what in ("# transit: batch 512 in", "# roofline (eclipse",
+                 "# roofline (transit"):
+        check(what in run["stderr"], f"phase 14: no {what!r} line")
+    check(run["tables"] == {BENCH_TABLES["K = 1"]: ["built", "loaded"]},
+          f"phase 14: tables {run['tables']}")
+    check(run["counts"]["fused_eclipse"] > 0
+          and run["counts"]["fused_transit"] > 0,
+          f"phase 14: the bench launched {run['counts']}")
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart", os.path.join(root, "examples", "torch_demo",
+                                   "quickstart.py"))
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    for name in CASE_KERNEL.values():
+        getattr(fused, name).launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = quickstart.main([])
+    qs_wall = time.perf_counter() - t0
+    qs_counts = {name: getattr(fused, name).launches
+                 for name in CASE_KERNEL.values()}
+    for ln in out.getvalue().splitlines():
+        print(f"# phase 14 quickstart: {ln}")
+    check(rc == 0 and out.getvalue().splitlines()[-1] == "quickstart OK",
+          "phase 14: the quickstart did not end in 'quickstart OK'")
+    check(qs_counts["fused_eclipse"] > 0,
+          f"phase 14: the quickstart launched {qs_counts}")
+    print(f"# phase 14 ({smi}): bench {run['line']['value']} evals/s "
+          f"(spread {run['line']['spread_pct']}%), {run['wall']:.1f} s of "
+          f"wall time with its start; quickstart {qs_wall:.1f} s; Python "
+          f"launch counts: bench {run['counts']}, quickstart {qs_counts}")
+    return dict(bench=run, quickstart=dict(wall=qs_wall, counts=qs_counts))
+
+
+def bench_phase(smi: str) -> dict:
+    """``--bench``: the whole bench (the folded pair included) twice in
+    one call, on a cold cache and then on the warm one; the warm run must
+    load both tables and build neither.  Then ``entry()``'s forward on a
+    table built now and on the same problem's cache file, the bench's
+    problem and entry's default one: equal bit for bit."""
+    import logging
+    import shutil
+
+    import torch
+
+    from bart_tpu_torch.entry import entry
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "bench_cache")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    runs = {how: bench_run(f"--bench {how}", work, fold=True)
+            for how in ("cold", "warm")}
+    k1, fine = BENCH_TABLES["K = 1"], BENCH_TABLES["fine"]
+    check(runs["cold"]["tables"] == {k1: ["built", "loaded"],
+                                     fine: ["built", "loaded"]},
+          f"--bench cold: tables {runs['cold']['tables']}")
+    check(runs["warm"]["tables"] == {k1: ["loaded", "loaded"],
+                                     fine: ["loaded", "loaded"]},
+          f"--bench warm: tables {runs['warm']['tables']}")
+    for how, run in runs.items():
+        for geom in ("eclipse", "transit"):
+            check(f"# folded rtosamp=32 {geom}" in run["stderr"],
+                  f"--bench {how}: no folded {geom} line")
+        check(all(n > 0 for n in run["counts"].values()),
+              f"--bench {how}: the bench launched {run['counts']}")
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.msgs = []
+
+        def emit(self, record):
+            self.msgs.append(record.getMessage())
+
+    rec = Records()
+    logger = logging.getLogger("bart_tpu_torch.entry")
+    logger.addHandler(rec)
+    logger.setLevel(logging.INFO)
+    os.environ["BENCH_CACHE_DIR"] = work
+    out = {}
+    try:
+        for label, problem in (("bench's problem", dict(
+                nlayer=100, nwave=2501, nlines=30000)), ("default", {})):
+            rec.msgs.clear()
+            fn_new, (p,) = entry(**problem)                 # built now
+            bands_new = fn_new(p)
+            fn_a, _ = entry(cache=True, **problem)
+            bands_a = fn_a(p)
+            fn_b, _ = entry(cache=True, **problem)
+            bands_b = fn_b(p)
+            print(f"# --bench: entry() on the {label}: "
+                  + "; ".join(rec.msgs))
+            check(torch.equal(bands_new, bands_a)
+                  and torch.equal(bands_a, bands_b),
+                  f"--bench: entry()'s bands on the {label} differ between "
+                  "the built and the loaded table")
+            check(len(rec.msgs) == 3 and " built" in rec.msgs[0]
+                  and " loaded from " in rec.msgs[2],
+                  f"--bench: entry()'s tables on the {label}: {rec.msgs}")
+            out[label] = bands_new.cpu().numpy()
+            del fn_new, fn_a, fn_b
+            torch.cuda.empty_cache()
+    finally:
+        logger.removeHandler(rec)
+        del os.environ["BENCH_CACHE_DIR"]
+    print(f"# --bench ({smi}): cold {runs['cold']['line']['value']} / warm "
+          f"{runs['warm']['line']['value']} evals/s; wall time with the "
+          f"start: cold {runs['cold']['wall']:.1f} s, warm "
+          f"{runs['warm']['wall']:.1f} s; entry()'s bands equal bit for bit "
+          "on built and loaded tables")
+    return dict(runs=runs, entry=out)
+
+
 def main() -> int:
     import torch
 
@@ -3494,7 +3616,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(sys.argv[2])
     from bart_tpu_torch.demo import (DEMO_PARAMS, TRUTH, build_demo_model,
@@ -3585,6 +3706,12 @@ def main() -> int:
         return 0
     if "--cli" in sys.argv[1:]:
         cli_phase(fused, smi.strip())
+        return 0
+    if "--bench" in sys.argv[1:]:
+        bench_phase(smi.strip())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     if "--cli-fold" in sys.argv[1:]:
         p11 = cli_fold_phase(fused, f32, smi.strip())
@@ -3710,7 +3837,7 @@ def main() -> int:
         rtab, t["wn"], mu, muw, wrows, T_safe, drp, fm._powers), 20)
     p_ms = cuda_ms(lambda: fused.eclipse_plain(
         tab, t["wn"], mu, muw, wrows, T_safe, drp, fm._powers), 5)
-    fwd_ms, fwd_rounds = serialized_ms(lambda p: forward(p)[0], params, 20)
+    fwd_ms, fwd_rounds = serialized_ms(forward, params, 20)
     print(f"# phase 5 ({smi.strip()}): per {nchain}-chain batch: kernel "
           f"{k_ms:.3f} ms, eclipse_plain {p_ms:.3f} ms, forward "
           f"{fwd_ms:.3f} ms (rounds {', '.join(f'{x:.2f}' for x in fwd_rounds)})")
@@ -3749,6 +3876,10 @@ def main() -> int:
     # --- phase 10: the (chain, wn) mesh of ranks sharing the card ------
     torch.cuda.empty_cache()
     p10 = phase10(fused, fm, fpath["fm"].opacity, inp_full, smi.strip())
+
+    # --- phase 14: the bench and the quickstart -------------------------
+    torch.cuda.empty_cache()
+    p14 = phase14(fused, smi.strip())
 
     # --- phase 6 (--trace): where the forwards' wall time goes ---------
     if "--trace" in sys.argv[1:]:
@@ -3803,7 +3934,12 @@ def main() -> int:
             phase9_launches=p9["counts"].get(name, 0),
             # phase 10: the wrapper's count in each rank of each mesh
             phase10_launches={lay: [n[name] for n in r["launches"]]
-                              for lay, r in p10["layouts"].items()})
+                              for lay, r in p10["layouts"].items()},
+            # phase 14: the wrapper's count in the bench's process and in
+            # the quickstart
+            phase14_launches={
+                "bench": p14["bench"]["counts"][name],
+                "quickstart": p14["quickstart"]["counts"][name]})
 
     steps = {"eclipse": estep, "transit": tpath["step"],
              "folded_eclipse": fpath["step"],

@@ -604,7 +604,9 @@ def test_copy_equals_the_original(name):
 
 def test_no_module_of_the_port_imports_bart_tpu():
     pat = re.compile(r"^\s*(from|import)\s+bart_tpu(\s|\.)", re.M)
-    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        PORT.parent / name for name in ("chip_smoke.py", "bench_torch.py",
+                                        "examples/torch_demo/quickstart.py")]
     assert len(files) > 30
     for f in files:
         assert not pat.search(f.read_text()), f

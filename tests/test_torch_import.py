@@ -109,6 +109,17 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
                      device="cuda")
 
 
+def _quickstart():
+    """examples/torch_demo/quickstart.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart", REPO / "examples" / "torch_demo" / "quickstart.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _console_script():
     """The function pyproject.toml's ``bart-tpu-torch`` script runs."""
     import importlib
@@ -126,7 +137,8 @@ def _console_script():
     "load_checkpoint",
     "Likelihood", "contribution_functions", "transmittance",
     "band_average", "Pipeline", "cli.main", "bart-tpu-torch",
-    "init_distributed", "local_device", "dryrun.main"])
+    "init_distributed", "local_device", "dryrun.main", "build_problem",
+    "entry", "bench.main", "quickstart"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without ``device=`` and without a card, every entry point
     that creates tensors raises: none falls back to the CPU."""
@@ -135,6 +147,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     import warnings
 
     from bart_tpu_torch.demo import build_demo_model, demo_inputs
+    from bart_tpu_torch import bench, entry as entry_mod
     from bart_tpu_torch.driver import cli
     from bart_tpu_torch.driver.config import load_config
     from bart_tpu_torch.driver.pipeline import Pipeline
@@ -203,6 +216,11 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             f"file://{tmp_path}/rdzv", 1, 0),
         "local_device": lambda: local_device(),
         "dryrun.main": lambda: dryrun.main([]),
+        # the benchmark's problem, entry(), the benchmark, the cookbook
+        "build_problem": lambda: entry_mod.build_problem(4, 32, 10),
+        "entry": lambda: entry_mod.entry(nlayer=4, nwave=32, nlines=10),
+        "bench.main": lambda: bench.main(["--tiny"]),
+        "quickstart": lambda: _quickstart().main([]),
     }
     monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(RuntimeError, match="is_available"):
@@ -332,9 +350,10 @@ def test_graph_constructors_raise_without_a_card(entry, monkeypatch):
 
 
 def test_driver_imports_neither_matplotlib_nor_jax():
-    """The pipeline, the CLI and the best-fit module import without
+    """The pipeline, the CLI, the best-fit module, the benchmark's problem
+    (``entry``), the benchmark and its roofline accounting import without
     matplotlib (the card's machine has none: post/plots.py is imported by
-    the post stage only) and without jax."""
+    the post stage only) and without jax or bart_tpu."""
     proc = _run("""
         import sys
         import bart_tpu_torch.driver.pipeline
@@ -342,6 +361,9 @@ def test_driver_imports_neither_matplotlib_nor_jax():
         import bart_tpu_torch.driver.validate
         import bart_tpu_torch.post.bestfit
         import bart_tpu_torch.chem.tea
+        import bart_tpu_torch.entry
+        import bart_tpu_torch.bench
+        import bart_tpu_torch.utils.roofline
         bad = sorted(k for k in sys.modules if k.split(".")[0] in
                      ("matplotlib", "jax", "bart_tpu"))
         print("ok" if not bad else bad)
