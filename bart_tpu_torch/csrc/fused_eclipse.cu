@@ -32,13 +32,19 @@
 // 16-wavenumber m-tile x two 8-chain n-tiles, so a thread carries
 // (ext, tau, B, S, flux) of 8 (wavenumber, chain) pairs in registers,
 // fed from the accumulator fragments; two blocks fit an SM (128
-// registers a thread, 55 KB of shared memory at R = 27), so one computes
-// while the other waits at its barrier.  The table tile, the weights and
-// the chains' (C2 / T, drp / 2) of layer l + 3 are in flight (cp.async,
-// a ring of NSTAGE = 4; the two scalars through registers, loaded a
-// layer earlier still) while layer l is computed: one barrier per layer,
-// and a thread's copies differ from layer to layer by a constant offset
-// (no division in the loop).  With 32 chains a block the table is read
+// registers a thread, 55 KB of shared memory at R = 27, 110 KB at most),
+// so one computes while the other waits at its barrier.  The row axis
+// streams through a ring of NSTAGE = 4 stages in chunks of RCH = 64 rows:
+// a stage is (layer, chunk), the chunks of a layer add into the same
+// accumulators in the order of their rows, and the layer's recurrence
+// runs after its last chunk.  So shared memory does not grow with R, any
+// row count fits, and the fill sums the rows in the order one stage of
+// all Rp rows would (the same bits); at R <= RCH a layer is one stage.
+// The table tile, the weights and the chains' (C2 / T, drp / 2) of stage
+// s + 3 are in flight (cp.async; the two scalars through registers,
+// loaded a layer earlier still) while stage s is computed: one barrier a
+// stage, and a thread's copies differ from layer to layer by a constant
+// offset (no division in the loop).  With 32 chains a block the table is read
 // from L2 16 times per launch (0.43 GB at R = 27, L = 100, W = 2501; the
 // 4-chain blocks of the first version read it 128 times, 3.5 GB).
 // blockIdx.x walks the chain blocks, so the blocks resident at once
@@ -66,6 +72,7 @@
 #define NSTAGE 4     // layers in the shared-memory ring
 #define NTHREADS 256 // threads per block (8 warps)
 #define MAX_NMU 16   // quadrature nodes held in shared memory
+#define RCH 64       // table rows a stage holds: the chunk of the row axis
 
 // Timing aid (ablate_folded.py --k1): -DBART_ABLATE=<bits> builds the kernel
 // without 1 its global -> shared copies of the table and the weights, 2
@@ -88,7 +95,10 @@ namespace {
 static_assert(TILE_W % 16 == 0 && CB % 16 == 0 &&
                   NTHREADS == 32 * (TILE_W / 16) * (CB / 16),
               "the warp tiling: a warp per 16 wavenumbers x 16 chains");
-static_assert((NSTAGE & (NSTAGE - 1)) == 0, "the ring index is l & (NSTAGE - 1)");
+static_assert((NSTAGE & (NSTAGE - 1)) == 0, "the ring index is s & (NSTAGE - 1)");
+static_assert(RCH % 8 == 0 && CB * (RCH / 4) <= 2 * NTHREADS,
+              "a chunk is whole k-steps, its weights two 16-byte copies a "
+              "thread at most");
 
 // 2 h c^2 and h c / k of bart_tpu_torch.constants (cgs; the CPU tests
 // check these literals against the Python constants)
@@ -99,19 +109,21 @@ constexpr float kTauClamp = 88.0f;
 
 constexpr int kTS = TILE_W + 8;   // row stride of the table tile, in words
 
-// Words of one stage of the ring for Rp rows (a multiple of 8): the table
-// tile [Rp][kTS], the weights [CB][Rp + 4] and the chains' C2 / T and
-// drp / 2, [2][CB].  Every part is a multiple of 16 bytes.
-__host__ __device__ constexpr size_t stage_words(int Rp) {
-  return (size_t)Rp * kTS + (size_t)CB * (Rp + 4) + 2 * CB;
+// Words of one stage of the ring for a chunk of Rs rows (Rs = min(Rp,
+// RCH), a multiple of 8): the table tile [Rs][kTS], the weights
+// [CB][Rs + 4] and the chains' C2 / T and drp / 2, [2][CB].  Every part is
+// a multiple of 16 bytes.
+__host__ __device__ constexpr size_t stage_words(int Rs) {
+  return (size_t)Rs * kTS + (size_t)CB * (Rs + 4) + 2 * CB;
 }
-__host__ __device__ constexpr size_t smem_bytes(int Rp) {
-  return 4 * NSTAGE * stage_words(Rp);
+__host__ __device__ constexpr size_t smem_bytes(int Rs) {
+  return 4 * NSTAGE * stage_words(Rs);
 }
 
 // NMU > 0: the quadrature has exactly NMU nodes and its loops unroll;
-// NMU == 0: any 1..MAX_NMU nodes.
-template <bool POWERS, int NMU>
+// NMU == 0: any 1..MAX_NMU nodes.  CHUNKED (Rp > RCH): a layer is
+// ceil(Rp / RCH) stages of RCH rows; else one stage of all Rp rows.
+template <bool POWERS, int NMU, bool CHUNKED>
 __global__ void __launch_bounds__(NTHREADS, 512 / NTHREADS)
 fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
                      const float* __restrict__ wrows,   // [C, L, Rp]
@@ -128,9 +140,9 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
   float* ring = reinterpret_cast<float*>(smem4);
   __shared__ float minv_s[MAX_NMU], wmu_s[MAX_NMU];
 
-  const int WS = Rp + 4;             // row stride of the weights
-  const int KS = Rp / 8;             // k-steps of the fill
-  const size_t stage = stage_words(Rp);
+  const int Rs = CHUNKED ? RCH : Rp;     // rows a stage holds
+  const int WS = Rs + 4;                 // row stride of the weights
+  const size_t stage = stage_words(Rs);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -148,19 +160,23 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
   __syncthreads();
 #endif
 
-  // This thread's first two weight copies of a stage (task i = tid + j
-  // NTHREADS is 16 bytes q of chain cc), reckoned once: the divisions by a
-  // run-time row count stay out of the layer loop.
+  // Unchunked: this thread's weight copies of a stage (task i = tid + j
+  // NTHREADS is 16 bytes q of chain cc; CB Rp / 4 <= 2 NTHREADS tasks),
+  // reckoned once: the divisions by a run-time row count stay out of the
+  // layer loop.  Chunked: a chunk's RCH / 4 copies a chain divide by a
+  // constant.
   const int rq = Rp / 4, nwtask = CB * rq;
   int w_dst[2], w_src[2];
+  if (!CHUNKED) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = tid + j * NTHREADS;
-    const int q = i % rq, cc = i / rq;
-    const int c = c0 + cc;
-    w_dst[j] = cc * WS + 4 * q;
-    // -1: nothing to copy (beyond the tasks); -2: zero-fill (beyond C)
-    w_src[j] = i >= nwtask ? -1 : c >= C ? -2 : (int)((size_t)c * L * Rp + 4 * q);
+    for (int j = 0; j < 2; ++j) {
+      const int i = tid + j * NTHREADS;
+      const int q = i % rq, cc = i / rq;
+      const int c = c0 + cc;
+      w_dst[j] = cc * WS + 4 * q;
+      // -1: nothing to copy (beyond the tasks); -2: zero-fill (beyond C)
+      w_src[j] = i >= nwtask ? -1 : c >= C ? -2 : (int)((size_t)c * L * Rp + 4 * q);
+    }
   }
   // the chain whose (T, drp) this thread stages, a layer ahead of the copy
   const int ac = (tid < CB && c0 + tid < C) ? c0 + tid : -1;
@@ -172,39 +188,46 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
     }
   };
 
-  // stage ``l`` of the ring: the table tile tab[:, l, w0 : w0 + TILE_W]
-  // (rows R..Rp-1 and columns beyond Wp zero-filled), the weights of the
-  // block's chains (chains beyond C zero-filled) and their C2 / T, drp / 2
-  // from the registers load_aux(l) filled
-  auto copy_stage = [&](int l) {
-    float* tb = ring + (size_t)(l & (NSTAGE - 1)) * stage;
-    float* wb = tb + (size_t)Rp * kTS;
+  // stage ``s`` of the ring, rows r0 .. r0 + Rs - 1 of layer l: the table
+  // tile tab[r0 : r0 + Rs, l, w0 : w0 + TILE_W] (rows from R on and
+  // columns beyond Wp zero-filled), the weights of those rows of the
+  // block's chains (rows from Rp on and chains beyond C zero-filled) and
+  // their C2 / T, drp / 2 from the registers load_aux(l) filled
+  auto copy_stage = [&](int s, int l, int r0) {
+    float* tb = ring + (size_t)(s & (NSTAGE - 1)) * stage;
+    float* wb = tb + (size_t)Rs * kTS;
     if (tid < CB) {
       float* ax = wb + (size_t)CB * WS;
       ax[tid] = kC2 / a_T;
       ax[CB + tid] = 0.5f * a_dr;
     }
     if (BART_ABLATE & 1) return;
-    const float* src = tab + (size_t)l * Wp + w0;
-    for (int i = tid; i < Rp * (TILE_W / 4); i += NTHREADS) {
+    const float* src = tab + ((size_t)r0 * L + l) * Wp + w0;
+    for (int i = tid; i < Rs * (TILE_W / 4); i += NTHREADS) {
       const int r = i / (TILE_W / 4), q = i % (TILE_W / 4);
-      const bool ok = r < R && w0 + 4 * q < Wp;
+      const bool ok = r0 + r < R && w0 + 4 * q < Wp;
       cp_async16(tb + r * kTS + 4 * q,
                  ok ? src + (size_t)r * L * Wp + 4 * q : tab, ok);
     }
+    if (CHUNKED) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (w_src[j] != -1)
-        cp_async16(wb + w_dst[j],
-                   wrows + (w_src[j] < 0 ? 0 : w_src[j] + l * Rp),
-                   w_src[j] >= 0);
-    }
-    for (int i = tid + 2 * NTHREADS; i < nwtask; i += NTHREADS) {
-      const int q = i % rq, cc = i / rq;
-      const int c = c0 + cc;
-      const bool ok = c < C;
-      cp_async16(wb + cc * WS + 4 * q,
-                 ok ? wrows + ((size_t)c * L + l) * Rp + 4 * q : wrows, ok);
+      for (int j = 0; j < CB * (RCH / 4) / NTHREADS; ++j) {
+        const int i = tid + j * NTHREADS;
+        const int q = i % (RCH / 4), cc = i / (RCH / 4);
+        const int c = c0 + cc;
+        const bool ok = c < C && r0 + 4 * q < Rp;
+        cp_async16(wb + cc * WS + 4 * q,
+                   ok ? wrows + ((size_t)c * L + l) * Rp + r0 + 4 * q : wrows,
+                   ok);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (w_src[j] != -1)
+          cp_async16(wb + w_dst[j],
+                     wrows + (w_src[j] < 0 ? 0 : w_src[j] + l * Rp),
+                     w_src[j] >= 0);
+      }
     }
   };
 
@@ -222,31 +245,19 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
   for (int e = 0; e < 8; ++e)
     ext_p[e] = tau[e] = B_p[e] = S_p[e] = flux[e] = 0.0f;
 
-  for (int l = 0; l < NSTAGE - 1; ++l) {
-    load_aux(l);
-    if (l < L) copy_stage(l);
-    cp_async_commit();
-  }
-  load_aux(NSTAGE - 1);
-
-  for (int l = 0; l < L; ++l) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // stage l is there; every thread is done with l - 1
-    if (l + NSTAGE - 1 < L) copy_stage(l + NSTAGE - 1);
-    cp_async_commit();
-    load_aux(l + NSTAGE);
-
-    const float* tb = ring + (size_t)(l & (NSTAGE - 1)) * stage;
-    const float* wb = tb + (size_t)Rp * kTS;
-    const float* ax = wb + (size_t)CB * WS;
-
-    // ---- ext of layer l: three TF32 passes per 8 rows; the two small
-    // products and the big one in accumulators of their own --------------
-    float acc_s[2][4], acc_b[2][4];
+  // ---- ext of a layer: three TF32 passes per 8 rows; the two small
+  // products and the big one in accumulators of their own ---------------
+  float acc_s[2][4], acc_b[2][4];
+  auto clear = [&]() {
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc_s[nt][i] = acc_b[nt][i] = 0.0f;
+  };
+  // the KS k-steps of the rows staged in slot ``s``
+  auto fill = [&](int s, int KS) {
+    const float* tb = ring + (size_t)(s & (NSTAGE - 1)) * stage;
+    const float* wb = tb + (size_t)Rs * kTS;
     for (int ks = 0; ks < ((BART_ABLATE & 2) ? 0 : KS); ++ks) {
       // A: (wavenumber fw + g (+ 8), row 8 ks + t (+ 4))
       const float* ta = tb + (8 * ks + t) * kTS + fw + g;
@@ -267,8 +278,13 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
         mma_tf32(acc_b[nt], ab, bb);
       }
     }
+  };
 
-    // ---- recurrence, Planck, quadrature and flux on the fragments -------
+  // ---- recurrence, Planck, quadrature and flux of layer l on the
+  // fragments, with the chains' scalars staged in slot ``s`` -------------
+  auto layer_step = [&](int l, int s) {
+    const float* ax = ring + (size_t)(s & (NSTAGE - 1)) * stage +
+                      (size_t)Rs * kTS + (size_t)CB * WS;
     // C2 / T and drp / 2 of the thread's 4 chains, j = 2 nt + (i & 1)
     float c2T[4], hdr[4];
 #pragma unroll
@@ -330,6 +346,56 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
       B_p[e] = B[e];
       S_p[e] = S[e];
     }
+  };
+
+  if (!CHUNKED) {
+    // a stage a layer
+    for (int l = 0; l < NSTAGE - 1; ++l) {
+      load_aux(l);
+      if (l < L) copy_stage(l, l, 0);
+      cp_async_commit();
+    }
+    load_aux(NSTAGE - 1);
+
+    for (int l = 0; l < L; ++l) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();  // stage l is there; every thread is done with l - 1
+      if (l + NSTAGE - 1 < L) copy_stage(l + NSTAGE - 1, l + NSTAGE - 1, 0);
+      cp_async_commit();
+      load_aux(l + NSTAGE);
+      clear();
+      fill(l, Rp / 8);
+      layer_step(l, l);
+    }
+  } else {
+    // a stage a chunk; the last chunk of a layer takes the rest of its
+    // k-steps.  The next stage to copy is chunk ck of layer cl, and the
+    // registers of load_aux hold layer cl's.
+    const int nch = (Rp + RCH - 1) / RCH;
+    int cl = 0, ck = 0;
+    auto copy_next = [&](int s) {
+      copy_stage(s, cl, ck * RCH);
+      if (++ck == nch) {
+        ck = 0;
+        load_aux(++cl);
+      }
+    };
+    load_aux(0);
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+      if (cl < L) copy_next(s);
+      cp_async_commit();
+    }
+    for (int l = 0, s = 0; l < L; ++l) {
+      clear();
+      for (int k = 0; k < nch; ++k, ++s) {
+        cp_async_wait<NSTAGE - 2>();
+        __syncthreads();  // stage s is there; every thread is done with s - 1
+        if (cl < L) copy_next(s + NSTAGE - 1);
+        cp_async_commit();
+        fill(s, k < nch - 1 ? RCH / 8 : (Rp - (nch - 1) * RCH) / 8);
+      }
+      layer_step(l, s - 1);
+    }
   }
   cp_async_wait<0>();
 
@@ -343,7 +409,7 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
   }
 }
 
-template <bool POWERS, int NMU>
+template <bool POWERS, int NMU, bool CHUNKED>
 cudaError_t launch(const float* tab, const float* wrows, const float* T,
                    const float* drp, const float* wn, const float* minv,
                    const float* wmu, float* out, int R, int Rp, int L, int W,
@@ -352,14 +418,15 @@ cudaError_t launch(const float* tab, const float* wrows, const float* T,
   if (Rp % 8 != 0 || Rp < R || Wp % 4 != 0 || Wp < W || ntile > 65535 ||
       (long long)C * L * Rp >= (1ll << 31))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(Rp);
+  const size_t smem = smem_bytes(CHUNKED ? RCH : Rp);
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_eclipse_kernel<POWERS, NMU>,
+      fused_eclipse_kernel<POWERS, NMU, CHUNKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((C + CB - 1) / CB, ntile);
-  fused_eclipse_kernel<POWERS, NMU><<<grid, NTHREADS, smem, stream>>>(
-      tab, wrows, T, drp, wn, minv, wmu, out, R, Rp, L, W, Wp, C, nmu);
+  fused_eclipse_kernel<POWERS, NMU, CHUNKED>
+      <<<grid, NTHREADS, smem, stream>>>(tab, wrows, T, drp, wn, minv, wmu,
+                                         out, R, Rp, L, W, Wp, C, nmu);
   return cudaGetLastError();
 }
 
@@ -380,9 +447,12 @@ extern "C" int bart_fused_eclipse(const float* tab, const float* wrows,
     return (int)cudaErrorInvalidValue;
   // the quadratures in use get unrolled instances: expsum's 8 powers,
   // raygrid's 5 angles
-#define BART_K1(POWERS, NMU)                                                 \
-  launch<POWERS, NMU>(tab, wrows, T, drp, wn, minv, wmu, out, R, Rp, L, W,   \
-                      Wp, C, nmu, stream)
+#define BART_K1(POWERS, NMU)                                                \
+  (Rp > RCH ? launch<POWERS, NMU, true>(tab, wrows, T, drp, wn, minv, wmu,   \
+                                        out, R, Rp, L, W, Wp, C, nmu, stream) \
+            : launch<POWERS, NMU, false>(tab, wrows, T, drp, wn, minv, wmu,  \
+                                         out, R, Rp, L, W, Wp, C, nmu,       \
+                                         stream))
   const cudaError_t e =
       powers ? (nmu == 8 ? BART_K1(true, 8) : BART_K1(true, 0))
              : (nmu == 5 ? BART_K1(false, 5) : BART_K1(false, 0));

@@ -38,7 +38,7 @@
 //    float32 one; one pass would be 2^-11 off.  ldmatrix moves 16-bit
 //    elements, so A is read with plain 32-bit loads: the tile's row
 //    stride of MTILE_F + 8 words (8 mod 32) puts lane (g, t) on bank
-//    8 t + g, the weights' stride of Rp + 4 on bank 4 g + t (mod 32): no
+//    8 t + g, the weights' stride of Rs + 4 on bank 4 g + t (mod 32): no
 //    conflict.  The weights come as float32 and are split in registers:
 //    leaving their split out saves 0.4% of a launch (ablation bit 8),
 //    less than a split made once per launch could save, which would
@@ -50,12 +50,19 @@
 // accumulator fragments; two blocks fit an SM (128 registers a thread, no
 // spills; 49.7 KB of shared memory at R = 27 in bfloat16, 55.8 KB in
 // float32, 82.4 KB at R = 41), so one computes while the other waits at
-// its barrier.  The table tile and the weights of layer l + 3 are in
-// flight (cp.async, a ring of NSTAGE = 4) while layer l is computed: one
-// barrier per layer.  The Planck function depends on (chain, layer, bin)
-// only: during layer l the block's first threads evaluate it for layer
-// l + 1's CBM x MTILE_F / K pairs, one exponential each, and leave
-// 0.5 (B_l + B_{l+1}) in shared memory for after the next barrier.  The
+// its barrier.  The row axis streams through a ring of NSTAGE = 4 stages
+// in chunks of RCH = 64 rows: a stage is (layer, chunk), the chunks of a
+// layer add into the same accumulators in the order of their rows, and
+// the layer's recurrence runs after its last chunk, so shared memory does
+// not grow with R (100 KB in bfloat16, 109 KB in float32 at most, K = 32)
+// and the fill sums the rows in the order one stage of all Rp rows would
+// (the same bits); at R <= RCH a layer is one stage.  The table tile and
+// the weights of stage s + 3 are in flight (cp.async) while stage s is
+// computed: one barrier a stage.  The Planck function depends on (chain,
+// layer, bin) only: during layer l's first stage the block's first
+// threads evaluate it for layer l + 1's CBM x MTILE_F / K pairs, one
+// exponential each, and leave 0.5 (B_l + B_{l+1}) in shared memory for
+// after the next barrier.  The
 // mean over k goes through shared memory at the end (a bin's sub-samples
 // sit in different lanes, registers and, for K = 32, warps).  blockIdx.x
 // walks the chain blocks, so the blocks resident at once share a few
@@ -89,6 +96,7 @@
 #define CBM 32       // chains per block
 #define NSTAGE 4     // layers in the shared-memory ring
 #define MTHREADS 256 // threads per block (8 warps)
+#define RCH 64       // table rows a stage holds: the chunk of the row axis
 
 // Timing aid (ablate_folded.py): -DBART_ABLATE=<bits> builds the kernel
 // without 1 its global -> shared copies, 2 its tensor-core products, 4 its
@@ -118,22 +126,24 @@ constexpr float kTwoPi = 6.2831853071795865f;
 constexpr float kTauClamp = 88.0f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Shared memory, in bytes, for Rp rows, K sub-samples and a table of eb
-// bytes an element whose weights come in np parts of that type
-// (bfloat16: eb = 2, np = 3, Rp a multiple of 16; float32: eb = 4,
-// np = 1, Rp a multiple of 8): NSTAGE stages of the table tile
-// [Rp][MTILE_F + 8] and the weights [np][CBM][Rp + 16 / eb] (the
-// padding spreads the rows that one ldmatrix or one fragment load reads
-// over all banks), then the Planck means, two buffers [MTILE_F / K][CBM]
-// of float32.  The epilogue reuses the ring for [CBM][MTILE_F + 4] sums.
-__host__ __device__ constexpr size_t mma_stage_bytes(int Rp, int eb, int np) {
-  return eb * ((size_t)Rp * (MTILE_F + 8) + (size_t)np * CBM * (Rp + 16 / eb));
+// Shared memory, in bytes, for chunks of Rs = min(Rp, RCH) rows, K
+// sub-samples and a table of eb bytes an element whose weights come in
+// np parts of that type (bfloat16: eb = 2, np = 3, Rp a multiple of 16;
+// float32: eb = 4, np = 1, Rp a multiple of 8): NSTAGE stages of the
+// table tile [Rs][MTILE_F + 8] and the weights [np][CBM][Rs + 16 / eb]
+// (the padding spreads the rows that one ldmatrix or one fragment load
+// reads over all banks), then the Planck means, two buffers
+// [MTILE_F / K][CBM] of float32.  The epilogue reuses the ring for
+// [CBM][MTILE_F + 4] sums.
+__host__ __device__ constexpr size_t mma_stage_bytes(int Rs, int eb, int np) {
+  return eb * ((size_t)Rs * (MTILE_F + 8) + (size_t)np * CBM * (Rs + 16 / eb));
 }
-__host__ __device__ constexpr size_t mma_smem_bytes(int Rp, int K, int eb,
+__host__ __device__ constexpr size_t mma_smem_bytes(int Rs, int K, int eb,
                                                     int np) {
-  return NSTAGE * mma_stage_bytes(Rp, eb, np) +
+  return NSTAGE * mma_stage_bytes(Rs, eb, np) +
          2 * 4 * (size_t)(MTILE_F / K) * CBM;
 }
+static_assert(RCH % 16 == 0, "a chunk is whole k-steps of either table");
 static_assert(NSTAGE * mma_stage_bytes(16, 2, 3) >= 4 * CBM * (MTILE_F + 4) &&
                   NSTAGE * mma_stage_bytes(8, 4, 1) >= 4 * CBM * (MTILE_F + 4),
               "the epilogue's sums must fit the ring");
@@ -141,8 +151,9 @@ static_assert(NSTAGE * mma_stage_bytes(16, 2, 3) >= 4 * CBM * (MTILE_F + 4) &&
 // TabT: __nv_bfloat16 or float; the weights are staged in the same type
 // (bfloat16: split_bf16's three parts, lo, mid, hi; float32: as given).
 // NMU > 0: the quadrature has exactly NMU nodes and its loops unroll;
-// NMU == 0: any 1..MAX_NMU nodes.
-template <typename TabT, bool POWERS, int NMU>
+// NMU == 0: any 1..MAX_NMU nodes.  CHUNKED (Rp > RCH): a layer is
+// ceil(Rp / RCH) stages of RCH rows; else one stage of all Rp rows.
+template <typename TabT, bool POWERS, int NMU, bool CHUNKED>
 __global__ void __launch_bounds__(MTHREADS, 512 / MTHREADS)
 fused_eclipse_folded_mma_kernel(
     const TabT* __restrict__ tab,      // [R, L, Fp]
@@ -164,12 +175,12 @@ fused_eclipse_folded_mma_kernel(
   constexpr int PP = CBM * (MTILE_F / 2) / MTHREADS;  // Planck pairs a thread
   extern __shared__ float4 smem4[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
-  const size_t stage_bytes = mma_stage_bytes(Rp, sizeof(TabT), NP);
+  const int Rs = CHUNKED ? RCH : Rp;      // rows a stage holds
+  const size_t stage_bytes = mma_stage_bytes(Rs, sizeof(TabT), NP);
   float* bmid_s = reinterpret_cast<float*>(ring + NSTAGE * stage_bytes);
   __shared__ float minv_s[MAX_NMU], wmu_s[MAX_NMU], wn_s[MTILE_F / 2];
 
-  const int WS = Rp + EPC;           // row stride of the weights
-  const int KS = Rp / UR;            // k-steps of the fill
+  const int WS = Rs + EPC;           // row stride of the weights
   const int nb = MTILE_F / K;         // output bins of the block
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -187,53 +198,75 @@ fused_eclipse_folded_mma_kernel(
   }
   if (tid < nb) wn_s[tid] = f0 / K + tid < W ? wn[f0 / K + tid] : 1.0f;
 
-  // This thread's first two weight copies of a stage (task i = tid + j
-  // MTHREADS is 16 bytes q of part p, chain cc), reckoned once: the
-  // divisions by a run-time row count stay out of the layer loop.
+  // Unchunked: this thread's first two weight copies of a stage (task
+  // i = tid + j MTHREADS is 16 bytes q of part p, chain cc), reckoned
+  // once: the divisions by a run-time row count stay out of the layer
+  // loop.  Chunked: a chunk's RCH / EPC copies a chain divide by a
+  // constant.
   const int rq = Rp / EPC, nwtask = NP * CBM * rq;
   int w_dst[2], w_src[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = tid + j * MTHREADS;
-    const int q = i % rq, cc = (i / rq) % CBM, p = i / (rq * CBM);
-    const int c = c0 + cc;
-    w_dst[j] = (p * CBM + cc) * WS + EPC * q;
-    // -1: nothing to copy (beyond the tasks); -2: zero-fill (beyond C)
-    w_src[j] = i >= nwtask ? -1
-               : c >= C    ? -2
-                           : (int)(p * CLR + (size_t)c * L * Rp + EPC * q);
-  }
-
-  // stage ``l`` of the ring: the table tile tab[:, l, f0 : f0 + MTILE_F]
-  // (rows R..Rp-1 and columns beyond Fp zero-filled) and the weight
-  // parts of the block's chains (chains beyond C zero-filled)
-  auto copy_stage = [&](int l) {
-    if (BART_ABLATE & 1) return;
-    unsigned char* st = ring + (size_t)(l % NSTAGE) * stage_bytes;
-    TabT* tb = reinterpret_cast<TabT*>(st);
-    TabT* wb = tb + (size_t)Rp * TS;
-    for (int i = tid; i < Rp * (MTILE_F / EPC); i += MTHREADS) {
-      const int r = i / (MTILE_F / EPC), q = i % (MTILE_F / EPC);
-      const int f = f0 + EPC * q;
-      const bool ok = r < R && f < Fp;
-      cp_async16(tb + r * TS + EPC * q,
-                 ok ? tab + ((size_t)r * L + l) * Fp + f : tab, ok);
-    }
+  if (!CHUNKED) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      if (w_src[j] != -1)
-        cp_async16(wb + w_dst[j],
-                   wparts + (w_src[j] < 0 ? 0 : w_src[j] + l * Rp),
-                   w_src[j] >= 0);
-    }
-    for (int i = tid + 2 * MTHREADS; i < nwtask; i += MTHREADS) {
+      const int i = tid + j * MTHREADS;
       const int q = i % rq, cc = (i / rq) % CBM, p = i / (rq * CBM);
       const int c = c0 + cc;
-      const bool ok = c < C;
-      cp_async16(wb + (p * CBM + cc) * WS + EPC * q,
-                 ok ? wparts + p * CLR + ((size_t)c * L + l) * Rp + EPC * q
-                    : wparts,
-                 ok);
+      w_dst[j] = (p * CBM + cc) * WS + EPC * q;
+      // -1: nothing to copy (beyond the tasks); -2: zero-fill (beyond C)
+      w_src[j] = i >= nwtask ? -1
+                 : c >= C    ? -2
+                             : (int)(p * CLR + (size_t)c * L * Rp + EPC * q);
+    }
+  }
+
+  // stage ``s`` of the ring, rows r0 .. r0 + Rs - 1 of layer l: the table
+  // tile tab[r0 : r0 + Rs, l, f0 : f0 + MTILE_F] (rows from R on and
+  // columns beyond Fp zero-filled) and the weight parts of those rows of
+  // the block's chains (rows from Rp on and chains beyond C zero-filled)
+  auto copy_stage = [&](int s, int l, int r0) {
+    if (BART_ABLATE & 1) return;
+    unsigned char* st = ring + (size_t)(s % NSTAGE) * stage_bytes;
+    TabT* tb = reinterpret_cast<TabT*>(st);
+    TabT* wb = tb + (size_t)Rs * TS;
+    for (int i = tid; i < Rs * (MTILE_F / EPC); i += MTHREADS) {
+      const int r = i / (MTILE_F / EPC), q = i % (MTILE_F / EPC);
+      const int f = f0 + EPC * q;
+      const bool ok = r0 + r < R && f < Fp;
+      cp_async16(tb + r * TS + EPC * q,
+                 ok ? tab + ((size_t)(r0 + r) * L + l) * Fp + f : tab, ok);
+    }
+    if (CHUNKED) {
+      constexpr int FQ = RCH / EPC;          // 16-byte copies a chunk row
+      static_assert(NP * CBM * FQ % MTHREADS == 0, "whole copies a thread");
+#pragma unroll
+      for (int j = 0; j < NP * CBM * FQ / MTHREADS; ++j) {
+        const int i = tid + j * MTHREADS;
+        const int q = i % FQ, cc = (i / FQ) % CBM, p = i / (FQ * CBM);
+        const int c = c0 + cc;
+        const bool ok = c < C && r0 + EPC * q < Rp;
+        cp_async16(wb + (p * CBM + cc) * WS + EPC * q,
+                   ok ? wparts + p * CLR + ((size_t)c * L + l) * Rp + r0 +
+                            EPC * q
+                      : wparts,
+                   ok);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (w_src[j] != -1)
+          cp_async16(wb + w_dst[j],
+                     wparts + (w_src[j] < 0 ? 0 : w_src[j] + l * Rp),
+                     w_src[j] >= 0);
+      }
+      for (int i = tid + 2 * MTHREADS; i < nwtask; i += MTHREADS) {
+        const int q = i % rq, cc = (i / rq) % CBM, p = i / (rq * CBM);
+        const int c = c0 + cc;
+        const bool ok = c < C;
+        cp_async16(wb + (p * CBM + cc) * WS + EPC * q,
+                   ok ? wparts + p * CLR + ((size_t)c * L + l) * Rp + EPC * q
+                      : wparts,
+                   ok);
+      }
     }
   };
 
@@ -270,20 +303,9 @@ fused_eclipse_folded_mma_kernel(
     hdr_next[j] = (c < C) ? 0.5f * drp[(size_t)c * L] : 0.0f;
   }
 
-  for (int l = 0; l < NSTAGE - 1; ++l) {
-    if (l < L) copy_stage(l);
-    cp_async_commit();
-  }
-
-  for (int l = 0; l < L; ++l) {
-    const float* bm = bmid_s + (l & 1) * npair;   // 0.5 (B_{l-1} + B_l)
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // stage l and its Planck means are there; every
-                      // thread is done with stage l - 1
-    if (l + NSTAGE - 1 < L) copy_stage(l + NSTAGE - 1);
-    cp_async_commit();
-
-    // the Planck means of layer l + 1, for after the next barrier
+  // at a layer's first stage: the Planck means of layer l + 1, for after
+  // the next barrier, and the chains' layer step
+  auto layer_start = [&](int l) {
     if (l + 1 < L) {
       float* bn = bmid_s + ((l + 1) & 1) * npair;
 #pragma unroll
@@ -300,25 +322,29 @@ fused_eclipse_folded_mma_kernel(
         }
       }
     }
-
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       hdr[j] = hdr_next[j];
       const int c = c0 + ch + 8 * (j >> 1) + 2 * t + (j & 1);
       if (c < C && l + 1 < L) hdr_next[j] = 0.5f * drp[(size_t)c * L + l + 1];
     }
+  };
 
-    // ---- ext of layer l: per k-step three bfloat16 passes (the weight
-    // parts, smallest first, into acc) or three TF32 ones (the two small
-    // products into acc, the big one into accb) ---------------------------
-    const unsigned char* st = ring + (size_t)(l % NSTAGE) * stage_bytes;
-    const TabT* tb = reinterpret_cast<const TabT*>(st);
-    const TabT* wb = tb + (size_t)Rp * TS;
-    float acc[2][4], accb[2][4];
+  // ---- ext of a layer: per k-step three bfloat16 passes (the weight
+  // parts, smallest first, into acc) or three TF32 ones (the two small
+  // products into acc, the big one into accb) -----------------------------
+  float acc[2][4], accb[2][4];
+  auto clear = [&]() {
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[nt][i] = accb[nt][i] = 0.0f;
+  };
+  // the KS k-steps of the rows staged in slot ``s``
+  auto fill = [&](int s, int KS) {
+    const unsigned char* st = ring + (size_t)(s % NSTAGE) * stage_bytes;
+    const TabT* tb = reinterpret_cast<const TabT*>(st);
+    const TabT* wb = tb + (size_t)Rs * TS;
     for (int ks = 0; ks < ((BART_ABLATE & 2) ? 0 : KS); ++ks) {
       if constexpr (kBf16) {
         uint32_t a[4];
@@ -362,14 +388,18 @@ fused_eclipse_folded_mma_kernel(
         }
       }
     }
+  };
+
+  // ---- recurrence, quadrature and flux of layer l on the accumulator
+  // fragments ------------------------------------------------------------
+  auto layer_step = [&](int l) {
+    const float* bm = bmid_s + (l & 1) * npair;   // 0.5 (B_{l-1} + B_l)
     // ext of pair e = 4 nt + i; float32 table: the small products first
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (!kBf16) acc[nt][i] = acc[nt][i] + accb[nt][i];
-
-    // ---- recurrence, quadrature and flux on the accumulator fragments --
     float S[8];
     if (l > 0) {
 #pragma unroll
@@ -428,6 +458,54 @@ fused_eclipse_folded_mma_kernel(
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) S_p[e] = S[e];
+  };
+
+  if (!CHUNKED) {
+    // a stage a layer
+    for (int l = 0; l < NSTAGE - 1; ++l) {
+      if (l < L) copy_stage(l, l, 0);
+      cp_async_commit();
+    }
+    for (int l = 0; l < L; ++l) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();  // stage l and its Planck means are there; every
+                        // thread is done with stage l - 1
+      if (l + NSTAGE - 1 < L) copy_stage(l + NSTAGE - 1, l + NSTAGE - 1, 0);
+      cp_async_commit();
+      layer_start(l);
+      clear();
+      fill(l, Rp / UR);
+      layer_step(l);
+    }
+  } else {
+    // a stage a chunk; the last chunk of a layer takes the rest of its
+    // k-steps.  The next stage to copy is chunk ck of layer cl.
+    const int nch = (Rp + RCH - 1) / RCH;
+    int cl = 0, ck = 0;
+    auto copy_next = [&](int s) {
+      copy_stage(s, cl, ck * RCH);
+      if (++ck == nch) {
+        ck = 0;
+        ++cl;
+      }
+    };
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+      if (cl < L) copy_next(s);
+      cp_async_commit();
+    }
+    for (int l = 0, s = 0; l < L; ++l) {
+      clear();
+      for (int k = 0; k < nch; ++k, ++s) {
+        cp_async_wait<NSTAGE - 2>();
+        __syncthreads();  // stage s (and, at a layer's first, its Planck
+                          // means) is there; every thread is done with s - 1
+        if (cl < L) copy_next(s + NSTAGE - 1);
+        cp_async_commit();
+        if (k == 0) layer_start(l);
+        fill(s, k < nch - 1 ? RCH / UR : (Rp - (nch - 1) * RCH) / UR);
+      }
+      layer_step(l);
+    }
   }
 
   // ---- close with B_{L-1} S_{L-1}, then the mean over k ----------------
@@ -459,7 +537,7 @@ fused_eclipse_folded_mma_kernel(
   }
 }
 
-template <typename TabT, bool POWERS, int NMU>
+template <typename TabT, bool POWERS, int NMU, bool CHUNKED>
 cudaError_t launch_mma(const void* tab, const void* wparts, const float* T,
                        const float* drp, const float* wn, const float* minv,
                        const float* wmu, float* out, int R, int Rp, int L,
@@ -471,13 +549,14 @@ cudaError_t launch_mma(const void* tab, const void* wparts, const float* T,
   if (Rp % (kBf16 ? 16 : 8) != 0 || Rp < R || Fp % 8 != 0 ||
       ntile > 65535 || (long long)NP * C * L * Rp >= (1ll << 31))
     return cudaErrorInvalidValue;
-  const size_t smem = mma_smem_bytes(Rp, K, sizeof(TabT), NP);
+  const size_t smem =
+      mma_smem_bytes(CHUNKED ? RCH : Rp, K, sizeof(TabT), NP);
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU>,
+      fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((C + CBM - 1) / CBM, ntile);
-  fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU>
+  fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED>
       <<<grid, MTHREADS, smem, stream>>>(
           static_cast<const TabT*>(tab), static_cast<const TabT*>(wparts), T,
           drp, wn, minv, wmu, out, R, Rp, L, W, Fp, C, K, nmu);
@@ -492,9 +571,13 @@ cudaError_t launch_quad(const void* tab, const void* wparts, const float* T,
                         const float* wmu, float* out, int R, int Rp, int L,
                         int W, int Fp, int C, int K, int nmu, int powers,
                         cudaStream_t stream) {
-#define BART_MMA(POWERS, NMU)                                               \
-  launch_mma<TabT, POWERS, NMU>(tab, wparts, T, drp, wn, minv, wmu, out, R, \
-                                Rp, L, W, Fp, C, K, nmu, stream)
+#define BART_MMA(POWERS, NMU)                                                \
+  (Rp > RCH ? launch_mma<TabT, POWERS, NMU, true>(tab, wparts, T, drp, wn,   \
+                                                  minv, wmu, out, R, Rp, L,  \
+                                                  W, Fp, C, K, nmu, stream)  \
+            : launch_mma<TabT, POWERS, NMU, false>(tab, wparts, T, drp, wn,  \
+                                                   minv, wmu, out, R, Rp, L, \
+                                                   W, Fp, C, K, nmu, stream))
   return powers ? (nmu == 8 ? BART_MMA(true, 8) : BART_MMA(true, 0))
                 : (nmu == 5 ? BART_MMA(false, 5) : BART_MMA(false, 0));
 #undef BART_MMA

@@ -15,18 +15,22 @@
 // R = Rt rounded up to 16 (bfloat16 table) or 8 (float32 table, bf16 ==
 // 0); G in tiles [C, Lk / 8, Lm, 8] (tile s holds G[c, :, 8 s : 8 s + 8];
 // Lk, Lm = L rounded up to 8, 16; lower-triangular, zero padding).
-// Returns the cudaError_t of the launch.
+// Above 112 layers ext_g is the streamed kernel's scratch, nslot x 8 x Lk
+// x 32 float32 for nslot blocks (else unused).  Returns the cudaError_t
+// of the launch.
 extern "C" int bart_fused_transit_folded(const void* tab, const float* wrows,
                                          const float* G, const float* wgt,
-                                         float* out, int Rt, int R, int L,
-                                         int W, int Fp, int C, int K,
-                                         int bf16, cudaStream_t stream) {
+                                         float* out, float* ext_g, int Rt,
+                                         int R, int L, int W, int Fp, int C,
+                                         int K, int bf16, int nslot,
+                                         cudaStream_t stream) {
   if (K < 2 || K > 32 || (K & (K - 1)) != 0 || W < 1 ||
       (long long)W * K > Fp)
     return (int)cudaErrorInvalidValue;
-  return bf16 ? launch_transit_mma<__nv_bfloat16>(tab, wrows, G, wgt, out, Rt,
-                                                  R, L, W * K, Fp, C, K,
-                                                  stream)
-              : launch_transit_mma<float>(tab, wrows, G, wgt, out, Rt, R, L,
-                                          W * K, Fp, C, K, stream);
+  return bf16 ? launch_transit_mma<__nv_bfloat16>(tab, wrows, G, wgt, out,
+                                                  ext_g, Rt, R, L, W * K, Fp,
+                                                  C, K, nslot, stream)
+              : launch_transit_mma<float>(tab, wrows, G, wgt, out, ext_g, Rt,
+                                          R, L, W * K, Fp, C, K, nslot,
+                                          stream);
 }

@@ -61,6 +61,22 @@
 //  the room for the stages: ext_s rows by their layer, G rows by their
 //  row (conflict-free fragment loads, checked in the comments below).
 //
+// Many layers (L > 16 FT_MT = 112: the streamed variant, kStream).  Then
+// neither ext of all layers (1 KB a layer) fits shared memory nor tau of
+// all annuli a warp's registers.  The fill is the same, but writes ext to
+// a global scratch of the block's own [FT_CB][Lk][FT_W] (the launch is
+// persistent: one block an SM slot walks the (chain block, wavenumber
+// tile) items, so the scratch is nslot x L KB and stays in L2), and the
+// slant product runs in groups of at most FT_MT 16-row blocks of annuli:
+// per group the warp walks l up to the group's last row, streaming the
+// group's rows of the G tile and ext's 8 rows of the step through its two
+// shared-memory stages (cp.async), and adds the group's annuli into the
+// sum before the next group.  Every tau and every sum takes its terms in
+// the order the resident kernel takes them, so the results are those a
+// block with unbounded registers would give; shared memory is the
+// annulus weights, 32 bytes a layer, and the larger of the rings and the
+// stages (74 KB): any L up to 4,704 fits (4,960 on a float32 table).
+//
 // Bound on the H100.  Folded, per 512-chain batch at R = 41, L = 100,
 // 1,064 fine bins, K = 32: 71.5 G FMAs of fill (three bfloat16 passes:
 // 0.43 ms at the dense bfloat16 peak) and 88.0 G of slant triangle (three
@@ -94,7 +110,8 @@
 #define FT_CB 8      // chains per block, one warp each
 #define FT_NS 5      // units (one k-step of table rows of one layer) in a
                      // warp's ring (3 to 8 units time the same at K = 1)
-#define FT_MT 7      // 16-row blocks of tau a warp can hold: L <= 112
+#define FT_MT 7      // 16-row blocks of tau a warp holds: L <= 112 keeps
+                     // them all (above, the streamed variant's group)
 
 // Timing aid (ablate_folded.py, with --k1 for K = 1): -DBART_ABLATE=<bits>
 // builds the kernel without 1 its global -> shared copies, 2 its fill
@@ -149,6 +166,21 @@ __host__ __device__ constexpr size_t ft_smem_bytes(int L, int unit_bytes) {
   const size_t slant = ft_slant_bytes(L);
   return ft_ext_bytes(L) + (fill > slant ? fill : slant);
 }
+// The streamed variant: wgt_s [FT_CB][Lm] float32, then the larger of the
+// fill rings and the warps' two stages of a group's G rows
+// [16 FT_MT][kGS] and ext's rows of a step [8][kES], float32.
+__host__ __device__ constexpr size_t ft_wgt_bytes(int L) {
+  return 4 * (size_t)FT_CB * ((L + 15) & ~15);
+}
+__host__ __device__ constexpr size_t ft_stream_stage_words() {
+  return (size_t)16 * FT_MT * kGS + 8 * kES;
+}
+__host__ __device__ constexpr size_t ft_stream_smem_bytes(int L,
+                                                          int unit_bytes) {
+  const size_t fill = (size_t)FT_CB * FT_NS * unit_bytes;
+  const size_t slant = (size_t)FT_CB * 2 * ft_stream_stage_words() * 4;
+  return ft_wgt_bytes(L) + (fill > slant ? fill : slant);
+}
 
 // (x0, x1) -> the three bfloat16 parts of each, packed x0 low, x1 high
 // as a B fragment wants them: hi = bf16(x), mid = bf16(x - hi),
@@ -168,8 +200,10 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& lo,
 
 // TabT: __nv_bfloat16 or float.  tab holds Rt <= Rp rows (the rows
 // Rt..Rp-1 of wrows are zero padding); F of its Fp columns are in use, K
-// of them to an output bin.
-template <typename TabT>
+// of them to an output bin.  kStream: the variant for L > 16 FT_MT, whose
+// ext lives in ext_g, [gridDim.x][FT_CB][Lk][kES] float32 (nullptr
+// otherwise).
+template <typename TabT, bool kStream>
 __global__ void __launch_bounds__(32 * FT_CB, 1)
 fused_transit_mma_kernel(
     const TabT* __restrict__ tab,              // [Rt, L, Fp]
@@ -177,24 +211,37 @@ fused_transit_mma_kernel(
     const float* __restrict__ Gt,              // [C, Lk / 8, Lm, 8] tiles
     const float* __restrict__ wgt,             // [C, L]
     float* __restrict__ out,                   // [C, F / K]
+    float* __restrict__ ext_g,
     int Rt, int Rp, int L, int F, int Fp, int C, int K) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int NT = 32 * FT_CB;
   constexpr int UR = kBf16 ? 16 : 8;            // table rows of a unit
   constexpr int UB = kBf16 ? kUnitBytes : kUnitBytes32;
   const int Lk = (L + 7) & ~7, Lm = (L + 15) & ~15;
-  const int CS = Lk * kES + 4;       // chain stride of ext_s
+  const int CS = Lk * kES + (kStream ? 0 : 4);   // chain stride of ext
   const int KS = Rp / UR;
   extern __shared__ float4 smem4[];
   float* ext_s = reinterpret_cast<float*>(smem4);          // [FT_CB][CS]
-  float* wgt_s = ext_s + (size_t)FT_CB * CS;               // [FT_CB][Lm]
+  float* wgt_s = ext_s + (kStream ? 0 : (size_t)FT_CB * CS);  // [FT_CB][Lm]
   unsigned char* scr = reinterpret_cast<unsigned char*>(wgt_s + FT_CB * Lm);
+  // where the fill leaves ext: this block's scratch, or shared memory
+  float* ext = kStream ? ext_g + (size_t)blockIdx.x * FT_CB * CS : ext_s;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int c0 = ((BART_ABLATE & 8) ? blockIdx.y : blockIdx.x) * FT_CB;
-  const int w0 = ((BART_ABLATE & 8) ? blockIdx.x : blockIdx.y) * FT_W;
+  // the streamed variant walks the items (chain block, wavenumber tile),
+  // chain blocks fastest, as the resident one's grid does
+  const int ncb = (C + FT_CB - 1) / FT_CB;
+  const int nitem = kStream ? ncb * ((F + FT_W - 1) / FT_W) : 1;
+  for (int item = kStream ? (int)blockIdx.x : 0; item < nitem;
+       item += kStream ? (int)gridDim.x : 1) {
+  const int c0 = (kStream ? item % ncb
+                  : (BART_ABLATE & 8) ? blockIdx.y : blockIdx.x) * FT_CB;
+  const int w0 = (kStream ? item / ncb
+                  : (BART_ABLATE & 8) ? blockIdx.x : blockIdx.y) * FT_W;
+  if (kStream && item != (int)blockIdx.x)
+    __syncthreads();  // every warp is done with the previous item
 
   for (int i = tid; i < FT_CB * Lm; i += NT) {
     const int c = c0 + i / Lm, b = i % Lm;
@@ -317,7 +364,7 @@ fused_transit_mma_kernel(
       // fragment (wavenumber 16 m + g (+ 8), chains 2 t, 2 t + 1); parts
       // summed smallest first
       const int swz = 8 * (l & 3);
-      float* e = ext_s + (size_t)(2 * t) * CS + l * kES;
+      float* e = ext + (size_t)(2 * t) * CS + l * kES;
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         float v[4];
@@ -333,95 +380,120 @@ fused_transit_mma_kernel(
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // ext_s is complete and the fill rings are free
+  __syncthreads();  // ext is complete and the fill rings are free
 
   // ---- 2. slant optical depth and the annulus sum: warp = chain --------
   const int c = c0 + warp;
-  float* gbuf = reinterpret_cast<float*>(scr) + (size_t)warp * 2 * Lm * kGS;
   const int nks = Lk / 8, nmt = Lm / 16;
-  // step ks stages the tile G[c, b, 8 ks : 8 ks + 8] for the rows b of the
-  // 16-row blocks that reach the diagonal (b >= 16 (ks / 2)): one
-  // contiguous piece of Gt
-  auto copy_g = [&](int ks) {
-    if (BART_ABLATE & 1) return;
-    float* gb = gbuf + (size_t)(ks & 1) * Lm * kGS;
-    const int b_lo = 16 * (ks >> 1);
-    const float* src = Gt + (((size_t)c * nks + ks) * Lm + b_lo) * kGS;
-    const bool ok = c < C && !(BART_ABLATE & 128);
-    for (int i = lane; i < (Lm - b_lo) * 2; i += 32) {
-      const int b = b_lo + (i >> 1), h = (i & 1) ^ ((b >> 2) & 1);
-      cp_async16(gb + b * kGS + 4 * h, ok ? src + 4 * i : Gt, ok);
-    }
-  };
-
-  float tau[FT_MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < FT_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) tau[mt][nt][i] = 0.0f;
-
-  const float* ew = ext_s + (size_t)warp * CS;
+  // floats of a G stage: the resident kernel's holds the tile's rows
+  // [Lm][kGS]; the streamed one's a group's [16 FT_MT][kGS], then ext's
+  // rows of the step [8][kES]
+  const int GW = kStream ? (int)ft_stream_stage_words() : Lm * kGS;
+  float* gbuf = reinterpret_cast<float*>(scr) + (size_t)warp * 2 * GW;
+  const float* ew = ext + (size_t)warp * CS;      // the warp's chain's ext
   // the two 16-byte halves of this lane's rows g, g + 8 of a G stage
   const int h0 = 4 * ((g >> 2) & 1), h1 = 4 - h0;
-  copy_g(0);
-  cp_async_commit();
-  for (int ks = 0; ks < nks; ++ks) {
-    cp_async_wait<0>();
-    __syncwarp();  // step ks has landed; every lane is done with ks - 1
-    if (ks + 1 < nks) copy_g(ks + 1);
-    cp_async_commit();
-    const float* gb = gbuf + (size_t)(ks & 1) * Lm * kGS;
-    uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      // rows 8 ks + t and + 4 share (l & 3) == t
-      const int col = (8 * nt + g) ^ (8 * t);
-      split_tf32(ew[(8 * ks + t) * kES + col], bb[nt][0], bs[nt][0]);
-      split_tf32(ew[(8 * ks + t + 4) * kES + col], bb[nt][1], bs[nt][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < FT_MT; ++mt) {
-      if (mt >= (ks >> 1) && mt < nmt && !(BART_ABLATE & 16)) {
-        // rows 16 mt + g and + 8 share ((b >> 2) & 1)
-        const float* ga = gb + (16 * mt + g) * kGS + t;
-        uint32_t ab[4], as[4];
-        split_tf32(ga[h0], ab[0], as[0]);
-        split_tf32(ga[8 * kGS + h0], ab[1], as[1]);
-        split_tf32(ga[h1], ab[2], as[2]);
-        split_tf32(ga[8 * kGS + h1], ab[3], as[3]);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          mma_tf32(tau[mt][nt], as, bb[nt]);
-          mma_tf32(tau[mt][nt], ab, bs[nt]);
-          mma_tf32(tau[mt][nt], ab, bb[nt]);
-        }
-      }
-    }
-  }
-
   // col[2 nt + j]: the sum over this lane's rows b of wgt (1 - e^-tau) at
   // wavenumber 8 nt + 2 t + j
   float col[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) col[k] = 0.0f;
   const float* wg = wgt_s + warp * Lm;
+
+  // the annuli in groups of FT_MT 16-row blocks mt0 .. mt1 - 1 (one group
+  // in the resident kernel); a group takes the steps that reach its last
+  // row
+  for (int mt0 = 0; mt0 < (kStream ? nmt : 1); mt0 += FT_MT) {
+    const int mt1 = !kStream || nmt < mt0 + FT_MT ? nmt : mt0 + FT_MT;
+    const int nksg = kStream && 2 * mt1 < nks ? 2 * mt1 : nks;
+    // step ks stages the tile G[c, b, 8 ks : 8 ks + 8] for the rows b of
+    // the group's 16-row blocks that reach the diagonal (b >= 16 (ks / 2)):
+    // one contiguous piece of Gt; streamed, then ext's rows 8 ks .. 8 ks + 7
+    auto copy_g = [&](int ks) {
+      if (BART_ABLATE & 1) return;
+      float* gb = gbuf + (size_t)(ks & 1) * GW;
+      const int b_lo = 16 * ((ks >> 1) > mt0 ? (ks >> 1) : mt0);
+      const float* src = Gt + (((size_t)c * nks + ks) * Lm + b_lo) * kGS;
+      const bool ok = c < C && !(BART_ABLATE & 128);
+      for (int i = lane; i < (16 * mt1 - b_lo) * 2; i += 32) {
+        const int b = b_lo + (i >> 1), h = (i & 1) ^ ((b >> 2) & 1);
+        cp_async16(gb + (b - 16 * mt0) * kGS + 4 * h, ok ? src + 4 * i : Gt,
+                   ok);
+      }
+      if (kStream) {
+        float* es = gb + 16 * FT_MT * kGS;
+        for (int i = lane; i < 2 * kES; i += 32)
+          cp_async16(es + 4 * i, ew + (size_t)8 * ks * kES + 4 * i, true);
+      }
+    };
+
+    float tau[FT_MT][4][4];
 #pragma unroll
-  for (int mt = 0; mt < FT_MT; ++mt) {
-    if (mt < nmt) {
-      const float w_lo = wg[16 * mt + g], w_hi = wg[16 * mt + g + 8];
+    for (int mt = 0; mt < FT_MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tau[mt][nt][i] = 0.0f;
+
+    if (kStream) __syncwarp();  // every lane is done with the last group
+    copy_g(0);
+    cp_async_commit();
+    for (int ks = 0; ks < nksg; ++ks) {
+      cp_async_wait<0>();
+      __syncwarp();  // step ks has landed; every lane is done with ks - 1
+      if (ks + 1 < nksg) copy_g(ks + 1);
+      cp_async_commit();
+      const float* gb = gbuf + (size_t)(ks & 1) * GW;
+      // ext's rows 8 ks .. 8 ks + 7: in the stage, or in ext_s
+      const float* er =
+          kStream ? gb + 16 * FT_MT * kGS : ew + (size_t)8 * ks * kES;
+      uint32_t bb[4][2], bs[4][2];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
+        // rows 8 ks + t and + 4 share (l & 3) == t
+        const int cw = (8 * nt + g) ^ (8 * t);
+        split_tf32(er[t * kES + cw], bb[nt][0], bs[nt][0]);
+        split_tf32(er[(t + 4) * kES + cw], bb[nt][1], bs[nt][1]);
+      }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+      for (int mt = 0; mt < FT_MT; ++mt) {
+        const int m = mt0 + mt;
+        if (m >= (ks >> 1) && m < mt1 && !(BART_ABLATE & 16)) {
+          // rows 16 m + g and + 8 share ((b >> 2) & 1)
+          const float* ga = gb + (16 * mt + g) * kGS + t;
+          uint32_t ab[4], as[4];
+          split_tf32(ga[h0], ab[0], as[0]);
+          split_tf32(ga[8 * kGS + h0], ab[1], as[1]);
+          split_tf32(ga[h1], ab[2], as[2]);
+          split_tf32(ga[8 * kGS + h1], ab[3], as[3]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_tf32(tau[mt][nt], as, bb[nt]);
+            mma_tf32(tau[mt][nt], ab, bs[nt]);
+            mma_tf32(tau[mt][nt], ab, bb[nt]);
+          }
+        }
+      }
+    }
+
+    // the group's annuli into the sums, block by block
+#pragma unroll
+    for (int mt = 0; mt < FT_MT; ++mt) {
+      const int m = mt0 + mt;
+      if (m < mt1) {
+        const float w_lo = wg[16 * m + g], w_hi = wg[16 * m + g + 8];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
 #if BART_ABLATE & 4
-          const float a = fminf(tau[mt][nt][i], kTauClamp);
+            const float a = fminf(tau[mt][nt][i], kTauClamp);
 #else
-          const float a = 1.0f - expf(-fminf(tau[mt][nt][i], kTauClamp));
+            const float a = 1.0f - expf(-fminf(tau[mt][nt][i], kTauClamp));
 #endif
-          col[2 * nt + (i & 1)] =
-              fmaf((i & 2) ? w_hi : w_lo, a, col[2 * nt + (i & 1)]);
+            col[2 * nt + (i & 1)] =
+                fmaf((i & 2) ? w_hi : w_lo, a, col[2 * nt + (i & 1)]);
+          }
         }
       }
     }
@@ -445,33 +517,51 @@ fused_transit_mma_kernel(
     const int w = w0 + lane * K;
     if (w < F && c < C) out[(size_t)c * (F / K) + w / K] = v / (float)K;
   }
+  }  // item
 }
 
 // Launch on ``stream``; returns the cudaError_t of the launch.  Rp is Rt
 // rounded up to the rows of a unit (16 for a bfloat16 table, 8 for a
-// float32 one); Fp a multiple of 16 bytes of TabT.
+// float32 one); Fp a multiple of 16 bytes of TabT.  Up to 16 FT_MT layers
+// the resident kernel runs, one block an item; above, the streamed one on
+// min(items, nslot) blocks, with ext_g [nslot][FT_CB][Lk][kES] float32.
 template <typename TabT>
 int launch_transit_mma(const void* tab, const float* wrows, const float* Gt,
-                       const float* wgt, float* out, int Rt, int Rp, int L,
-                       int F, int Fp, int C, int K, cudaStream_t stream) {
+                       const float* wgt, float* out, float* ext_g, int Rt,
+                       int Rp, int L, int F, int Fp, int C, int K, int nslot,
+                       cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
+  constexpr int UB = kBf16 ? kUnitBytes : kUnitBytes32;
   const int ntile = (F + FT_W - 1) / FT_W;
+  const int ncb = (C + FT_CB - 1) / FT_CB;
+  const bool stream_ext = L > 16 * FT_MT;
   if (Rt < 1 || Rp < Rt || Rp % (kBf16 ? 16 : 8) != 0 || L < 1 ||
-      L > 16 * FT_MT || Fp % (16 / (int)sizeof(TabT)) != 0 || F < 1 ||
-      F > Fp || K < 1 || K > 32 || (K & (K - 1)) != 0 || F % K != 0 ||
-      C < 1 || ntile > 65535)
+      Fp % (16 / (int)sizeof(TabT)) != 0 || F < 1 || F > Fp || K < 1 ||
+      K > 32 || (K & (K - 1)) != 0 || F % K != 0 || C < 1 ||
+      ntile > 65535 || (stream_ext && (ext_g == nullptr || nslot < 1)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ft_smem_bytes(L, kBf16 ? kUnitBytes : kUnitBytes32);
+  const TabT* t = static_cast<const TabT*>(tab);
+  if (!stream_ext) {
+    const size_t smem = ft_smem_bytes(L, UB);
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_transit_mma_kernel<TabT, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((BART_ABLATE & 8) ? ntile : ncb,
+                    (BART_ABLATE & 8) ? ncb : ntile);
+    fused_transit_mma_kernel<TabT, false><<<grid, 32 * FT_CB, smem, stream>>>(
+        t, wrows, Gt, wgt, out, nullptr, Rt, Rp, L, F, Fp, C, K);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = ft_stream_smem_bytes(L, UB);
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_transit_mma_kernel<TabT>,
+      fused_transit_mma_kernel<TabT, true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int ncb = (C + FT_CB - 1) / FT_CB;
-  const dim3 grid((BART_ABLATE & 8) ? ntile : ncb,
-                  (BART_ABLATE & 8) ? ncb : ntile);
-  fused_transit_mma_kernel<TabT><<<grid, 32 * FT_CB, smem, stream>>>(
-      static_cast<const TabT*>(tab), wrows, Gt, wgt, out, Rt, Rp, L, F, Fp, C,
-      K);
+  const long long nitem = (long long)ncb * ntile;
+  const int nblock = nitem < nslot ? (int)nitem : nslot;
+  fused_transit_mma_kernel<TabT, true><<<nblock, 32 * FT_CB, smem, stream>>>(
+      t, wrows, Gt, wgt, out, ext_g, Rt, Rp, L, F, Fp, C, K);
   return (int)cudaGetLastError();
 }
 

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import re
@@ -76,14 +77,17 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
-# fused_eclipse.cu: TILE_W, CB, NSTAGE, NTHREADS, MAX_NMU (the tests check
-# the source)
+# fused_eclipse.cu: TILE_W, CB, NSTAGE, NTHREADS, MAX_NMU, RCH (the tests
+# check the source)
 _MAX_NMU = 16          # the kernel keeps the quadrature in shared memory
 _TILE_W, _CB, _NSTAGE, _NTHREADS = 64, 32, 4, 256
+#: table rows a stage of either eclipse kernel's ring holds: the row axis
+#: streams through the ring in chunks of this many rows (RCH)
+_RCH = 64
 # fused_eclipse_folded.cu: MTILE_F, CBM, NSTAGE, MTHREADS
 _F_MTILE_F, _F_CBM, _F_NSTAGE, _F_MTHREADS = 64, 32, 4, 256
 # fused_transit_mma.cuh (the K = 1 and the folded transit kernel): FT_W,
-# FT_CB, FT_NS, FT_MT
+# FT_CB, FT_NS, FT_MT; above 16 FT_MT layers its streamed variant runs
 _FT_W, _FT_CB, _FT_NS, _FT_MT = 32, 8, 5, 7
 #: the tensor-core kernels pad the row axis to the depth of one product:
 #: 16 rows in bfloat16, 8 in TF32
@@ -101,9 +105,9 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 #: (pointers, ints, the stream); the source is csrc/<name>.cu
 _KERNELS = {
     "fused_eclipse": [_VP] * 8 + [_CI] * 8 + [_VP],
-    "fused_transit": [_VP] * 5 + [_CI] * 6 + [_VP],
+    "fused_transit": [_VP] * 6 + [_CI] * 7 + [_VP],
     "fused_eclipse_folded": [_VP] * 8 + [_CI] * 10 + [_VP],
-    "fused_transit_folded": [_VP] * 5 + [_CI] * 8 + [_VP],
+    "fused_transit_folded": [_VP] * 6 + [_CI] * 9 + [_VP],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -541,11 +545,12 @@ def _rows32(fn: str, tab, dev: torch.device) -> tuple[torch.Tensor, int]:
 
 def _eclipse_smem(R: int) -> int:
     """Bytes of dynamic shared memory a block of the K = 1 eclipse kernel
-    needs (as its launcher counts them): NSTAGE stages of the table tile
-    [Rp][TILE_W + 8], the weights [CB][Rp + 4] and the chains' two
-    scalars [2][CB], in float32; Rp = R rounded up to 8."""
-    Rp = -(-R // _MMA_K32) * _MMA_K32
-    return 4 * _NSTAGE * (Rp * (_TILE_W + 8) + _CB * (Rp + 4) + 2 * _CB)
+    needs (as its launcher counts them): NSTAGE stages of a chunk of Rs
+    rows, the table tile [Rs][TILE_W + 8], the weights [CB][Rs + 4] and
+    the chains' two scalars [2][CB], in float32; Rs = min(Rp, RCH), Rp =
+    R rounded up to 8.  Any R fits: the rows stream through the ring."""
+    Rs = min(-(-R // _MMA_K32) * _MMA_K32, _RCH)
+    return 4 * _NSTAGE * (Rs * (_TILE_W + 8) + _CB * (Rs + 4) + 2 * _CB)
 
 
 def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
@@ -587,10 +592,6 @@ def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
     if min(R, L, C) < 1:
         raise ValueError("fused_eclipse: empty row, layer or chain axis")
     Rp = -(-R // _MMA_K32) * _MMA_K32
-    smem = _eclipse_smem(R)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_eclipse: {R} rows need {smem} B of shared "
-                         f"memory, more than a block has ({_SMEM_LIMIT})")
     if -(-W // _TILE_W) > _MAX_GRID_Y:
         raise ValueError(f"fused_eclipse: {W} wavenumbers exceed the "
                          f"grid's {_MAX_GRID_Y * _TILE_W}")
@@ -631,32 +632,63 @@ fused_eclipse.launches = 0
 
 def _transit_mma_smem(L: int, bf16: bool) -> int:
     """Bytes of shared memory a block of the transit kernel needs (as its
-    launcher counts them): ext for all layers [FT_CB][Lk FT_W + 4] and
-    the annulus weights [FT_CB][Lm] in float32, then the larger of the
-    warps' fill rings (FT_NS units each; a bfloat16 table's unit: 16
-    table rows [16][FT_W + 8] in bfloat16 and weights [FT_CB][24] in
-    float32; a float32 table's: [8][FT_W + 8] and [FT_CB][12] in float32)
-    and their G stages (2 x [Lm][8] float32 each).  The row count does
-    not enter."""
+    launcher counts them).  Up to 16 FT_MT layers (the resident kernel):
+    ext for all layers [FT_CB][Lk FT_W + 4] and the annulus weights
+    [FT_CB][Lm] in float32, then the larger of the warps' fill rings
+    (FT_NS units each; a bfloat16 table's unit: 16 table rows
+    [16][FT_W + 8] in bfloat16 and weights [FT_CB][24] in float32; a
+    float32 table's: [8][FT_W + 8] and [FT_CB][12] in float32) and their
+    G stages (2 x [Lm][8] float32 each).  Above (the streamed variant,
+    ext in a global scratch): the annulus weights, then the larger of the
+    fill rings and the warps' two stages of a group's G rows
+    [16 FT_MT][8] and a step's ext rows [8][FT_W], float32.  The row
+    count does not enter."""
     Lk, Lm = -(-L // 8) * 8, -(-L // 16) * 16
     unit = (2 * 16 * (_FT_W + 8) + 4 * _FT_CB * 24 if bf16
             else 4 * 8 * (_FT_W + 8) + 4 * _FT_CB * 12)
     fill = _FT_CB * _FT_NS * unit
+    if _transit_streamed(L):
+        slant = _FT_CB * 2 * (16 * _FT_MT * 8 + 8 * _FT_W) * 4
+        return 4 * _FT_CB * Lm + max(fill, slant)
     slant = _FT_CB * 2 * Lm * 8 * 4
     return 4 * (_FT_CB * (Lk * _FT_W + 4) + _FT_CB * Lm) + max(fill, slant)
 
 
+def _transit_streamed(L: int) -> bool:
+    """Whether L layers take the transit kernel's streamed variant."""
+    return L > 16 * _FT_MT
+
+
 def _check_transit_fit(fn: str, L: int, F: int, bf16: bool) -> None:
     """Raise if L layers or F (fine) wavenumbers exceed what a block or
-    the grid of the transit kernel holds."""
+    the grid of the transit kernel holds (the annulus weights bound L at
+    4,704 on a bfloat16 table, 4,960 on a float32 one)."""
     smem = _transit_mma_smem(L, bf16)
-    if smem > _SMEM_LIMIT or L > 16 * _FT_MT:
-        raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory "
-                         f"and {-(-L // 16)} register blocks, more than a "
-                         f"block has ({_SMEM_LIMIT}, {_FT_MT})")
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory, "
+                         f"more than a block has ({_SMEM_LIMIT})")
     if -(-F // _FT_W) > _MAX_GRID_Y:
         raise ValueError(f"{fn}: {F} wavenumbers exceed the grid's "
                          f"{_MAX_GRID_Y * _FT_W}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _ext_scratch(L: int, C: int, F: int, dev: torch.device):
+    """(scratch, nslot) of the streamed transit variant: one block an SM
+    walks the (chain block, wavenumber tile) items, each with its own
+    [FT_CB][Lk][FT_W] float32 of ext; (None, 0) for the resident kernel."""
+    if not _transit_streamed(L):
+        return None, 0
+    items = -(-C // _FT_CB) * -(-F // _FT_W)
+    nslot = min(items, _sm_count(dev.index if dev.index is not None
+                                 else torch.cuda.current_device()))
+    Lk = -(-L // 8) * 8
+    return torch.empty(nslot * _FT_CB * Lk * _FT_W, dtype=torch.float32,
+                       device=dev), nslot
 
 
 def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
@@ -705,12 +737,16 @@ def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
     wgt32 = wgt.to(f32).contiguous()
     out = torch.empty((C, W), dtype=f32, device=dev)
 
+    scratch, nslot = _ext_scratch(L, C, W, dev)
+
     lib = load_kernel(fn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bart_fused_transit(
             tab32.data_ptr(), wrows32.data_ptr(), Gt.data_ptr(),
-            wgt32.data_ptr(), out.data_ptr(), R, Rp, L, W, Wp, C, stream)
+            wgt32.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            R, Rp, L, W, Wp, C, nslot, stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
     fused_transit.launches += 1
@@ -725,13 +761,15 @@ fused_transit.launches = 0
 
 def _eclipse_folded_smem(R: int, K: int, bf16: bool) -> int:
     """Bytes of dynamic shared memory a block of the folded eclipse
-    kernel needs (as its launcher counts them): NSTAGE stages of the
-    table tile [Rp][MTILE_F + 8] and the weights, then two buffers of
-    Planck means [MTILE_F / K][CBM] in float32.  bfloat16: the weights'
-    three parts [3][CBM][Rp + 8] in bfloat16, Rp = R rounded up to 16;
-    float32: [CBM][Rp + 4] in float32, Rp = R rounded up to 8."""
+    kernel needs (as its launcher counts them): NSTAGE stages of a chunk
+    of Rs = min(Rp, RCH) rows, the table tile [Rs][MTILE_F + 8] and the
+    weights, then two buffers of Planck means [MTILE_F / K][CBM] in
+    float32.  bfloat16: the weights' three parts [3][CBM][Rs + 8] in
+    bfloat16, Rp = R rounded up to 16; float32: [CBM][Rs + 4] in float32,
+    Rp = R rounded up to 8.  Any R fits: the rows stream through the
+    ring."""
     eb, parts, depth = (2, 3, _MMA_K) if bf16 else (4, 1, _MMA_K32)
-    Rp = -(-R // depth) * depth
+    Rp = min(-(-R // depth) * depth, _RCH)
     stage = eb * (Rp * (_F_MTILE_F + 8) + parts * _F_CBM * (Rp + 16 // eb))
     return _F_NSTAGE * stage + 2 * 4 * (_F_MTILE_F // K) * _F_CBM
 
@@ -801,10 +839,6 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
                          f"1..{_MAX_NMU}")
     if min(R, L, C) < 1:
         raise ValueError(f"{fn}: empty row, layer or chain axis")
-    smem = _eclipse_folded_smem(R, K, bool(bf16))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{fn}: {R} rows need {smem} B of shared memory, "
-                         f"more than a block has ({_SMEM_LIMIT})")
     if -(-W * K // _F_MTILE_F) > _MAX_GRID_Y:
         raise ValueError(f"{fn}: {W * K} fine wavenumbers exceed the grid's "
                          f"{_MAX_GRID_Y * _F_MTILE_F}")
@@ -893,13 +927,16 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     wgt32 = wgt.to(f32).contiguous()
     out = torch.empty((C, W), dtype=f32, device=dev)
 
+    scratch, nslot = _ext_scratch(L, C, W * K, dev)
+
     lib = load_kernel(fn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bart_fused_transit_folded(
             ft.tab.data_ptr(), wrows32.data_ptr(), Gt.data_ptr(),
-            wgt32.data_ptr(), out.data_ptr(), R, Rk, L, W, Fp, C, K, bf16,
-            stream)
+            wgt32.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            R, Rk, L, W, Fp, C, K, bf16, nslot, stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
     fused_transit_folded.launches += 1

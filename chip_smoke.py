@@ -24,7 +24,11 @@ smooth bins.  Phases:
      shape and a ragged one (eclipse: both quadratures; transit: rows
      whose slant tau crosses unity inside the atmosphere; folded: float32
      and bfloat16 tables with narrow features inside the bins, and the
-     result must differ from the K = 1 result on the bin-mean table)
+     result must differ from the K = 1 result on the bin-mean table); 2b:
+     at full width past the old ceilings, the eclipse kernels at 122, 137,
+     226 and 512 rows (both quadratures; both folded instances) and the
+     transit kernels at 113 and 200 layers on 226 rows (K = 1 and folded
+     on both table types), each timed beside its plain version
   3. the port's own opacity build on the card, then one 512-chain
      forward batch through ForwardModel.batched() per geometry; folded:
      the fine build, the fine share of bins, a forward per geometry held
@@ -118,6 +122,18 @@ smooth bins.  Phases:
      forward and all-reduce times; the truth recovery (phase 4c's) on
      2x2 with files from rank 0 alone; then the dryrun under torchrun on
      four NCCL ranks; its own kernels line (each kernel's ms per mesh)
+ 15. with ``--flagship`` only (after phase 1): the JAX package's flagship,
+     the 4-molecule WASP-12b eclipse retrieval (100 layers x 2,491 wn x
+     80,000 lines at nwidth 60, 4 x 27 + 14 = 122 rows), through
+     examples/torch_demo/run_wasp12b.py on its K = 1 twin cfg with every
+     check of the original at its bound; phase 4b on its likelihood at
+     512 chains (graphed = eager bit for bit, timed); the kernel on those
+     chains' rows against its plain version; then ``--justSpectrum`` of
+     the twin at tempdelt = 50 (226 rows) and of transit.cfg at 150
+     layers through the CLI, each held against the plain versions.  With
+     ``--flagship-fold`` only: the same on the folded twin (``--fold``:
+     rtosamp = 32, expsum, bfloat16 fine tables, the cfgs' default split
+     of the bins: both eclipse kernels) without the spectra
  14. (after phase 10) the port's benchmark and cookbook: ``bench_torch.py``
      in a subprocess on a cold table cache with ``BENCH_FOLD=0`` (its
      JSON line with bench.py's keys and a finite rate above 0, its
@@ -166,6 +182,8 @@ exponentials at the special-function rate and its bytes at the HBM rate
                                       # cards)
     python3 chip_smoke.py --bench     # phases 0-2, then the bench cold
                                       # and warm, and entry()
+    python3 chip_smoke.py --flagship  # phases 0-1, then phase 15 (K = 1)
+    python3 chip_smoke.py --flagship-fold   # phases 0-1, phase 15 folded
 """
 
 from __future__ import annotations
@@ -221,13 +239,13 @@ REPLACES = {"fused_eclipse": "bart_tpu/rt/fused.py:159",          # _kernel
 #: steps of a block in phase 4b (timed with one host read a block)
 BLOCK = 10
 #: the name of each wrapper's kernel among a trace's device events (the
-#: folded paths' fine tables are bfloat16, so the float32 instance of the
-#: transit template is the K = 1 launch)
+#: folded paths' fine tables are bfloat16, so the float32 instances of the
+#: transit template, resident or streamed, are the K = 1 launches)
 TRACE_KERNEL = {"fused_eclipse": r"fused_eclipse_kernel",
-                "fused_transit": r"fused_transit_mma_kernel<float>",
+                "fused_transit": r"fused_transit_mma_kernel<float,",
                 "fused_eclipse_folded": r"fused_eclipse_folded_\w+_kernel",
                 "fused_transit_folded":
-                    r"fused_transit_mma_kernel<__nv_bfloat16>"}
+                    r"fused_transit_mma_kernel<__nv_bfloat16,"}
 #: phase 4c: steps, burn-in and block of the truth-recovery retrieval
 #: (512 chains from uniform starts; tests/test_end_to_end.py runs 8 x
 #: 6,000).  3,000 steps with 1,500 of burn-in held three criteria but not
@@ -608,6 +626,155 @@ def folded_kernels_vs_plain(fused, filters, f32: dict, quads: dict) -> dict:
             del ref64
         del tab, wrows, G, wgt, fine, ft, ft64
     return max_abs
+
+
+#: phase 2b: the row counts at which the eclipse kernels (which stream the
+#: row axis through their ring in chunks of 64 rows) and the layer counts
+#: at which the transit kernels (whose streamed variant takes L > 112) are
+#: held against their plain versions at full width: the flagship's 122
+#: rows (4 molecules x 27 T-nodes + 14 CIA T-nodes), 137 (a second CIA
+#: table and Rayleigh), 226 (the flagship at tempdelt = 50), 512; and the
+#: transit kernels at 113 and 200 layers on 226 rows
+MANY_ROWS, MANY_LAYERS, MANY_LAYER_ROWS = (122, 137, 226, 512), (113, 200), 226
+#: phase 2b: the K = 1 width (the flagship's 910-3400 cm-1 at 1 cm-1) and
+#: the folded bins (phase 2's) of its random rows
+MANY_W, MANY_FOLD_W = 2491, 1125
+
+
+def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
+    """Phase 2b: every kernel against its plain version on random rows at
+    full width beyond the eclipse kernels' old 136/160-row ceiling (the
+    four row counts of MANY_ROWS; fused_eclipse in both quadratures, both
+    instances of fused_eclipse_folded) and the transit kernels' old
+    112-layer one (MANY_LAYERS, at MANY_LAYER_ROWS rows; K = 1 and folded
+    on float32 and bfloat16 tables), each timed beside its plain version
+    and its bound.  The eclipse weights are scaled by 27 / R so that tau
+    crosses unity inside the atmosphere at every R, as at phase 2's 27
+    rows.  Returns each kernel's list of records (the kernels line's
+    ``many_rows``)."""
+    import torch
+
+    from bart_tpu_torch.demo import (fine_structure, random_rows,
+                                     random_transit_rows)
+    from bart_tpu_torch.obs.bands import band_integrate, build_band_matrix
+
+    out = {n: [] for n in REPLACES}
+    t_phase = time.perf_counter()
+
+    def run(name, what, kernel, plain, rtol, bands, bnd, nrep):
+        wrapper = getattr(fused, name)
+        n0 = wrapper.launches
+        got = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        e, e_band = rel_err(got, ref), rel_err(band_integrate(bands, got),
+                                               band_integrate(bands, ref))
+        ms = cuda_ms(kernel, nrep)
+        p_ms = cuda_ms(plain, 1)
+        rec = dict(what=what, max_abs_err=abs_err(got, ref), max_rel_err=e,
+                   band_rel_err=e_band, ms=ms, plain_ms=p_ms,
+                   launches=wrapper.launches - n0,
+                   bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                   bound_term=bnd["bound_term"])
+        out[name].append(rec)
+        print(f"# phase 2b: {name} {what}: max rel err {e:.3e}, band "
+              f"{e_band:.3e}, max abs {rec['max_abs_err']:.3e}; kernel "
+              f"{ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms ({bnd['bound_term']})")
+        check(bool(torch.isfinite(got).all()), f"{name} {what}: non-finite")
+        check(e < rtol, f"{name} {what}: rel err {e}")
+        check(e_band < BAND_RTOL, f"{name} {what}: band rel err {e_band}")
+
+    L, C, K = 100, 512, FOLD_K
+    for R in MANY_ROWS:
+        # ---- K = 1 eclipse, both quadratures
+        tab, wn, wrows, T, drp = (torch.tensor(a, **f32) for a in
+                                  random_rows(R, L, MANY_W, C, seed=7))
+        wrows *= 27.0 / R
+        bands = build_band_matrix(wn.cpu().numpy(), filters,
+                                  device=f32["device"], dtype=torch.float32)
+        rt = fused.rows_table(tab)
+        for quad, ((mu, muw), powers) in quads.items():
+            rest = [torch.tensor(mu, **f32), torch.tensor(muw, **f32), wrows,
+                    T, drp]
+            run("fused_eclipse", f"R={R} L={L} W={MANY_W} C={C} {quad}",
+                lambda: fused.fused_eclipse(rt, wn, *rest, powers),
+                lambda: fused.eclipse_plain(tab, wn, *rest, powers),
+                SPEC_RTOL[powers], bands,
+                eclipse_bound(R, L, MANY_W, C, len(mu), powers, 1, False,
+                              nbytes(tab, wn, *rest)), 5)
+        del tab, wrows, rt
+        # ---- folded eclipse, both instances (expsum, the fold cfgs')
+        W = MANY_FOLD_W
+        tab, wn, wrows, T, drp = (torch.tensor(a, **f32) for a in
+                                  random_rows(R, L, W, C, seed=7))
+        wrows *= 27.0 / R
+        bands = build_band_matrix(wn.cpu().numpy(), filters,
+                                  device=f32["device"], dtype=torch.float32)
+        factor = torch.tensor(fine_structure(R, W, K), **f32)
+        fine = (tab[..., None] * factor).reshape(R, L, W * K)
+        del tab, factor
+        (mu, muw), powers = quads["expsum"]
+        rest = [torch.tensor(mu, **f32), torch.tensor(muw, **f32), wrows, T,
+                drp]
+        for tdt in (torch.bfloat16, torch.float32):
+            ft = fused.folded_table(fine, K, tdt)
+            run("fused_eclipse_folded",
+                f"R={R} L={L} W={W} x {K} C={C} {str(tdt)[6:]} expsum",
+                lambda: fused.fused_eclipse_folded(ft, wn, *rest, powers),
+                lambda: fused.eclipse_folded_plain(ft, wn, *rest, powers),
+                SPEC_RTOL[powers], bands,
+                eclipse_bound(R, L, W * K, C, len(mu), powers, K,
+                              tdt == torch.bfloat16, nbytes(ft.tab, wn, *rest)),
+                3)
+            del ft
+        del fine, wrows
+        torch.cuda.empty_cache()
+
+    R = MANY_LAYER_ROWS
+    for L in MANY_LAYERS:
+        # ---- K = 1 transit, then folded on both table types
+        for W, Kt in ((MANY_W, 1), (MANY_FOLD_W, K)):
+            tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                                  random_transit_rows(R, L, W, C, seed=7)[:4])
+            nc = min(C, 16)
+            mixed = mixed_share(tab, wrows[:nc], G[:nc])
+            check(mixed >= MIXED_SHARE,
+                  f"saturated transit problem at L={L} ({mixed})")
+            bands = build_band_matrix(np.linspace(2500.0, 5000.0, W), filters,
+                                      device=f32["device"],
+                                      dtype=torch.float32)
+            Gp = fused.prepare_slant(G)
+            if Kt == 1:
+                rt = fused.rows_table(tab)
+                run("fused_transit", f"R={R} L={L} W={W} C={C}",
+                    lambda: fused.fused_transit(rt, wrows, Gp, wgt),
+                    lambda: fused.transit_plain(tab, wrows, G, wgt),
+                    OUT_RTOL, bands,
+                    transit_bound(R, L, W, C, 1, False,
+                                  nbytes(tab, wrows, G, wgt)), 5)
+                del rt, tab
+            else:
+                factor = torch.tensor(fine_structure(R, W, Kt), **f32)
+                fine = (tab[..., None] * factor).reshape(R, L, W * Kt)
+                del tab, factor
+                for tdt in (torch.bfloat16, torch.float32):
+                    ft = fused.folded_table(fine, Kt, tdt)
+                    run("fused_transit_folded",
+                        f"R={R} L={L} W={W} x {Kt} C={C} {str(tdt)[6:]}",
+                        lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt),
+                        lambda: fused.transit_folded_plain(ft, wrows, G, wgt),
+                        OUT_RTOL, bands,
+                        transit_bound(R, L, W * Kt, C, Kt,
+                                      tdt == torch.bfloat16,
+                                      nbytes(ft.tab, wrows, G, wgt)), 2)
+                    del ft
+                del fine
+            del wrows, G, Gp, wgt
+            torch.cuda.empty_cache()
+    print(f"# phase 2b: {sum(map(len, out.values()))} many-row and "
+          f"many-layer checks in {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def ptxas_summary(log: str):
@@ -1968,6 +2135,227 @@ def cli_fold_phase(fused, f32: dict, smi: str) -> dict:
     print(f"# phase 11 ({smi}): {time.perf_counter() - t_phase:.1f} s for "
           "the phase")
     return out
+
+
+#: phase 15 (--flagship, --flagship-fold): the chains of the flagship's
+#: graphed step (phase 4b on the runner's own likelihood) and their spread
+#: around the truth on the free parameters; the flagship's rows (4
+#: molecules x 27 T-nodes + 14 CIA T-nodes) and those at tempdelt = 50;
+#: the transit cfg's layers past the old ceiling
+FLAGSHIP_CHAINS, FLAGSHIP_SPREAD = 512, 0.005
+FLAGSHIP_ROWS, FLAGSHIP_ROWS_50, TRANSIT_LAYERS = 122, 226, 150
+
+
+def plain_forward_kernels(fused):
+    """A context in which the forward's four kernel calls (rt.forward's
+    names) run the plain versions on the same tensors: the reference a
+    --justSpectrum is held against."""
+    import contextlib
+
+    from bart_tpu_torch.rt import forward
+
+    def rows(t):
+        return fused._plain_rows(t)
+
+    def slant(G):
+        return G.plain() if isinstance(G, fused.SlantMatrix) else G
+
+    plain = {
+        "fused_eclipse": lambda tab, *a, **k: fused.eclipse_plain(
+            rows(tab), *a, **k),
+        "fused_eclipse_folded": fused.eclipse_folded_plain,
+        "fused_transit": lambda tab, w, G, g: fused.transit_plain(
+            rows(tab), w, slant(G), g),
+        "fused_transit_folded": lambda ft, w, G, g: fused.transit_folded_plain(
+            ft, w, slant(G), g)}
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {n: getattr(forward, n) for n in plain}
+        try:
+            for n, f in plain.items():
+                setattr(forward, n, f)
+            yield
+        finally:
+            for n, f in saved.items():
+                setattr(forward, n, f)
+    return ctx()
+
+
+def spectrum_vs_plain(fused, label: str, cfg_path: str, loc: str, over: dict,
+                      kernels, rows_expected: int, layers: int,
+                      device: str = "cuda") -> dict:
+    """``--justSpectrum`` of the cfg through the CLI (the kernels counted),
+    then its model in this process: the spectrum of the atm file's
+    profiles through the kernels against the same through the plain
+    versions (rt.forward's names patched), and the CLI's file against the
+    in-process spectrum.  Returns the run, the errors and the shapes."""
+    import torch
+
+    from bart_tpu_torch import constants as const
+    from bart_tpu_torch.io.atm import read_atm
+    from bart_tpu_torch.io.spectrum import read_spectrum
+
+    dev = torch.device(device)
+    argv = ["-c", cfg_path, "--loc_dir", loc, "--justSpectrum", "--device",
+            device]
+    for k, v in over.items():
+        argv += [f"--{k}", str(v)]
+    run = cli_run(argv, kernels)
+    cfg, fm = cli_model(cfg_path, loc, dev, **{k: str(v)
+                                               for k, v in over.items()})
+    atm = read_atm(os.path.join(loc, "atmosphere.atm"))
+    rad = (None if atm.radius is None
+           else atm.radius[None] * const.KM_TO_CM)
+    prof = (atm.temperature[None], atm.abundances[None], rad)
+    n = [k.launches for k in kernels]
+    got = fm.spectrum_from_profiles(*prof)[0].double()
+    with plain_forward_kernels(fused):
+        ref = fm.spectrum_from_profiles(*prof)[0].double()
+    torch.cuda.synchronize()
+    for k, c in zip(kernels, n):
+        k.launches = c                         # comparisons do not count
+    _, spec_file = read_spectrum(os.path.join(loc, cfg.outspec), wn=True)
+    spec_file = torch.as_tensor(np.asarray(spec_file))
+    rt = fm.tables["tab"]
+    R, L = int(rt.tab.shape[0]), int(rt.tab.shape[1])
+    e = rel_err(got, ref)
+    e_file = rel_err(spec_file, got.cpu())
+    powers = getattr(fm, "_powers", False)
+    rtol = OUT_RTOL if fm.config.solution == "transit" else SPEC_RTOL[powers]
+    print(f"# {label}: --justSpectrum {argv[1:]}: {R} rows x {L} layers x "
+          f"{got.shape[0]} wn in {run['seconds']:.2f} s (stages "
+          + ", ".join(f"{k} {v} s" for k, v in run["stages"].items())
+          + f"); launches {run['counts']}; kernels vs plain versions on the "
+          f"atm file's profiles: max rel err {e:.3e}; the CLI's file vs "
+          f"the in-process spectrum {e_file:.3e}")
+    check((R, L) == (rows_expected, layers),
+          f"{label}: the model has {R} rows x {L} layers, expected "
+          f"{rows_expected} x {layers}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite spectrum")
+    check(any(c > 0 for c in run["counts"].values()),
+          f"{label}: --justSpectrum launched no kernel")
+    check(e < rtol, f"{label}: kernels vs plain rel err {e}")
+    # the CLI's run took the profiles before it wrote the atm file, whose
+    # radii and T carry 3 and 2 decimals (phase 8's tolerance)
+    check(e_file < CLI_SPEC_RTOL,
+          f"{label}: the CLI's file vs in-process {e_file}")
+    return dict(run=run, rel=e, file_rel=e_file, R=R, L=L,
+                abs=abs_err(got, ref))
+
+
+def flagship_run(fused, label: str, fold: bool, work: str, smi: str) -> dict:
+    """Phase 15's core: examples/torch_demo/run_wasp12b.py (``--fold``)
+    in this process with every check of the original at its bound (exit
+    code 0), its kernel launched; then phase 4b on its own likelihood at
+    FLAGSHIP_CHAINS chains around the truth (the graphed step equal to
+    the eager one bit for bit, timed), and each kernel of its forward on
+    those chains' rows against its plain version."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples", "torch_demo"))
+    import run_wasp12b
+
+    # the folded twin splits its bins (the cfgs' default rtadapt): the
+    # folded kernel on the fine ones, the K = 1 kernel on the smooth ones
+    kernels = ([fused.fused_eclipse_folded, fused.fused_eclipse] if fold
+               else [fused.fused_eclipse])
+    for k in kernels:
+        k.launches = 0                       # the flagship path starts here
+    loc = os.path.join(work, "wasp12b_fold" if fold else "wasp12b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, st = run_wasp12b.run(["--outdir", loc, "--device", "cuda"]
+                             + (["--fold"] if fold else []))
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    fm, like, space = st["fm"], st["like"], st["space"]
+    print(f"# {label}: run_wasp12b.py{' --fold' if fold else ''}: exit "
+          f"{rc} in {took:.1f} s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB); "
+          f"{json.dumps(st['timing'])}; launches counted in Python "
+          f"{ {k.__name__: k.launches for k in kernels} }")
+    check(rc == 0, f"{label}: run_wasp12b.py failed: {st['failures']}")
+    check(all(k.launches > 0 for k in kernels),
+          f"{label}: the retrieval did not launch each of "
+          f"{[k.__name__ for k in kernels]}")
+
+    # phase 4b on the flagship's likelihood
+    rng = np.random.default_rng(3)
+    truth = np.asarray(run_wasp12b.load_config(
+        run_wasp12b.FOLD_CFG if fold else run_wasp12b.CFG).params, np.float64)
+    free = np.zeros(len(truth), bool)
+    free[space.ifree] = True
+    params = torch.tensor(np.tile(truth, (FLAGSHIP_CHAINS, 1))
+                          + rng.normal(0, FLAGSHIP_SPREAD,
+                                       (FLAGSHIP_CHAINS, len(truth))) * free,
+                          dtype=torch.float32, device=torch.device("cuda"))
+    step = step_phase(label, like, space, fm, params, kernels)
+    print_steps(label, step, smi)
+    launches = {k.__name__: k.launches for k in kernels}   # it ends here
+    kern = fold_path_kernels(fused, fm, params)
+    for name, x in kern.items():
+        print(f"# {label}: {name} on the flagship's rows (R={x['R']}, "
+              f"{x['W']} bins x {x['K']}, {FLAGSHIP_CHAINS} chains): max rel "
+              f"err {x['rel']:.3e}, max abs {x['abs']:.3e}; {x['ms']:.3f} ms, "
+              f"plain {x['plain_ms']:.3f} ms, bound "
+              f"{x['bound']['bound_ms']:.3f} ms ({x['bound']['bound_term']})")
+        check(x["R"] == FLAGSHIP_ROWS,
+              f"{label}: {x['R']} rows, expected {FLAGSHIP_ROWS}")
+    return dict(timing=st["timing"], seconds=took, step=step, kern=kern,
+                launches=launches)
+
+
+def flagship_phase(fused, smi: str, fold: bool) -> dict:
+    """Phase 15: ``--flagship`` (K = 1) or ``--flagship-fold`` (folded):
+    flagship_run, then (K = 1 only) the --justSpectrum of the twin at
+    tempdelt = 50 (226 rows) and of transit.cfg at 150 layers, each
+    against the plain versions."""
+    label = "phase 15" + (" fold" if fold else "")
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bart_tpu_torch", "build", "flagship")
+    os.makedirs(work, exist_ok=True)
+    out = flagship_run(fused, label, fold, work, smi)
+    if not fold:
+        demo = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "torch_demo")
+        out["spec50"] = spectrum_vs_plain(
+            fused, f"{label} (tempdelt 50)",
+            os.path.join(demo, "wasp12b_eclipse.cfg"),
+            os.path.join(work, "wasp12b_t50"), {"tempdelt": 50},
+            [fused.fused_eclipse], FLAGSHIP_ROWS_50, 100)
+        out["transit150"] = spectrum_vs_plain(
+            fused, f"{label} (transit, {TRANSIT_LAYERS} layers)",
+            os.path.join(demo, "transit.cfg"),
+            os.path.join(work, "transit_l150"),
+            {"n_layers": TRANSIT_LAYERS}, [fused.fused_transit], 27 + 14,
+            TRANSIT_LAYERS)
+    print(f"# {label} ({smi}): {time.perf_counter() - t_phase:.1f} s for "
+          "the phase")
+    return out
+
+
+def flagship_kernels(p15: dict) -> list:
+    """The kernels line of phase 15: the flagship kernel on its own rows
+    (launches: the trace of a replayed block of phase 4b), with the
+    --justSpectrum checks beside it (K = 1)."""
+    recs = []
+    for name, x in p15["kern"].items():
+        more = dict(python_launches=p15["launches"][name], R=x["R"],
+                    W=x["W"],
+                    K=x["K"], max_rel_err=x["rel"])
+        for key in ("spec50", "transit150"):
+            if key in p15:
+                y = p15[key]
+                more[key] = dict(R=y["R"], L=y["L"], max_rel_err=y["rel"],
+                                 max_abs_err=y["abs"],
+                                 launches=y["run"]["counts"])
+        recs.append(kernel_record(name, x["abs"], x["ms"], x["plain_ms"],
+                                  x["bound"],
+                                  p15["step"]["counts"].get(name, 0), **more))
+    return recs
 
 
 def cli_fold_kernels(p11: dict) -> list:
@@ -3655,6 +4043,16 @@ def main() -> int:
             print(f"# phase 1: {name}.cu {kernel}: {regs} registers, "
                   f"{spill} B of spill stores and loads")
 
+    if {"--flagship", "--flagship-fold"} & set(sys.argv[1:]):
+        p15 = flagship_phase(fused, smi.strip().splitlines()[0],
+                             "--flagship-fold" in sys.argv[1:])
+        print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+              "start to the records")
+        print(json.dumps({"kernels": flagship_kernels(p15)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--nccl4" in sys.argv[1:]:
         p13 = nccl4_phase(fused, smi.strip().splitlines()[0])
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
@@ -3701,6 +4099,7 @@ def main() -> int:
         del tab, wrows
     t_max_abs = transit_kernel_vs_plain(fused, inp_full.filters, f32)
     f_max_abs = folded_kernels_vs_plain(fused, inp_full.filters, f32, quads)
+    many = many_rows_phase(fused, inp_full.filters, f32, quads)
     if "--kernels" in sys.argv[1:]:
         kernel_times(fused, f32, quads)
         return 0
@@ -3939,7 +4338,9 @@ def main() -> int:
             # the quickstart
             phase14_launches={
                 "bench": p14["bench"]["counts"][name],
-                "quickstart": p14["quickstart"]["counts"][name]})
+                "quickstart": p14["quickstart"]["counts"][name]},
+            # phase 2b: random rows beyond the old row and layer ceilings
+            many_rows=many[name])
 
     steps = {"eclipse": estep, "transit": tpath["step"],
              "folded_eclipse": fpath["step"],

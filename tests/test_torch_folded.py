@@ -347,7 +347,11 @@ def test_folded_kernel_source_constants_match_python():
     assert fused._MMA_K == 16 and "mma_bf16(" in src and "mma_bf16(" in tsrc
     assert fused._MMA_K32 == 8 and "mma_tf32(" in src and "mma_tf32(" in tsrc
     assert len(re.findall(r"__global__", src)) == 1
-    assert "template <typename TabT, bool POWERS, int NMU>" in src
+    # one kernel template: table type, quadrature and whether the row
+    # axis streams through the ring in chunks of RCH rows
+    assert ("template <typename TabT, bool POWERS, int NMU, bool CHUNKED>"
+            in src)
+    assert re.search(r"#define RCH (\d+)", src).group(1) == str(fused._RCH)
     assert set(fused._KERNELS) == {p.stem for p in fused._CSRC.glob("*.cu")}
     # every sub-sample count the wrappers let through is a lane group
     assert all(32 % k == 0 and fused._F_MTILE_F % k == 0
@@ -410,10 +414,15 @@ def test_transit_folded_kernel_matches_plain_on_card(cuda_device, k,
 _RAGGED_ECLIPSE = [(16, 23, 15, 17, 4), (48, 23, 17, 33, 4),
                    (16, 23, 31, 17, 4), (48, 23, 33, 33, 4),
                    (19, 23, 75, 6, 16), (27, 9, 7, 33, 16),
-                   (33, 12, 9, 17, 16)]
+                   (33, 12, 9, 17, 16),
+                   # past the old row ceiling: chunks of 64 rows, the
+                   # last one short
+                   (226, 23, 17, 33, 4), (137, 12, 9, 17, 32)]
 _RAGGED_TRANSIT = [(16, 23, 7, 17, 4), (48, 23, 9, 33, 4),
                    (41, 23, 75, 6, 16), (17, 100, 5, 9, 32),
-                   (33, 104, 3, 17, 16)]
+                   (33, 104, 3, 17, 16),
+                   # past the old layer ceiling: the streamed variant
+                   (17, 113, 5, 9, 32), (226, 130, 7, 17, 4)]
 
 
 @pytest.mark.gpu
@@ -497,9 +506,20 @@ def test_folded_kernels_raise_on_what_they_do_not_take(cuda_device):
     odd = fused.FoldedTable(_t(np.ones((5, 9, 16)), F32, cuda_device), 3, 5)
     with pytest.raises(ValueError, match="K = 3"):
         fused.fused_eclipse_folded(odd, *rest)
+    # past the resident kernel's 112 layers: the streamed variant takes
+    # them; the annulus weights' shared memory caps L at 4,704
     for L, table_dtype in ((200, F32), (200, BF16), (113, BF16)):
         tfine, targs = _transit((3, L, 8, 2), 4)
-        with pytest.raises(ValueError, match="shared memory"):
-            fused.fused_transit_folded(
-                _ft(tfine, 4, F32, table_dtype, cuda_device),
-                *[_t(a, F32, cuda_device) for a in targs[1:]])
+        ft = _ft(tfine, 4, F32, table_dtype, cuda_device)
+        targs = [_t(a, F32, cuda_device) for a in targs[1:]]
+        np.testing.assert_allclose(
+            fused.fused_transit_folded(ft, *targs).cpu().numpy(),
+            fused.transit_folded_plain(ft, *targs).cpu().numpy(), rtol=1e-5)
+    L = 4800
+    ft = fused.folded_table(torch.ones(1, L, 32, dtype=F32,
+                                       device=cuda_device), 4, BF16)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.fused_transit_folded(
+            ft, torch.ones(2, L, 1, dtype=F32, device=cuda_device),
+            torch.zeros(2, L, L, dtype=F32, device=cuda_device),
+            torch.ones(2, L, dtype=F32, device=cuda_device))

@@ -109,12 +109,12 @@ def test_forward_model_on_cuda_without_card_raises(monkeypatch):
                      device="cuda")
 
 
-def _quickstart():
-    """examples/torch_demo/quickstart.py as a module."""
+def _example(name: str = "quickstart"):
+    """examples/torch_demo/<name>.py as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "quickstart", REPO / "examples" / "torch_demo" / "quickstart.py")
+        name, REPO / "examples" / "torch_demo" / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -138,7 +138,7 @@ def _console_script():
     "Likelihood", "contribution_functions", "transmittance",
     "band_average", "Pipeline", "cli.main", "bart-tpu-torch",
     "init_distributed", "local_device", "dryrun.main", "build_problem",
-    "entry", "bench.main", "quickstart"])
+    "entry", "bench.main", "quickstart", "run_wasp12b"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     """Called without ``device=`` and without a card, every entry point
     that creates tensors raises: none falls back to the CPU."""
@@ -220,11 +220,49 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "build_problem": lambda: entry_mod.build_problem(4, 32, 10),
         "entry": lambda: entry_mod.entry(nlayer=4, nwave=32, nlines=10),
         "bench.main": lambda: bench.main(["--tiny"]),
-        "quickstart": lambda: _quickstart().main([]),
+        "quickstart": lambda: _example().main([]),
+        # the flagship's runner: its --device defaults to the card
+        "run_wasp12b": lambda: _example("run_wasp12b").main(["--short"]),
     }
     monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
+
+
+def test_flagship_scripts_import_without_jax():
+    """examples/torch_demo/run_wasp12b.py and make_inputs.py import and
+    parse their arguments with jax and bart_tpu blocked, and the port's
+    config reads the flagship twins they name."""
+    proc = _run("""
+        import importlib.util, sys, warnings
+        sys.modules["jax"] = None
+        sys.modules["bart_tpu"] = None
+        mods = {}
+        for name in ("run_wasp12b", "make_inputs"):
+            spec = importlib.util.spec_from_file_location(
+                name, f"examples/torch_demo/{name}.py")
+            mods[name] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mods[name])
+        runner = mods["run_wasp12b"]
+        for argv in (["--help"], ["--fold", "--help"]):
+            try:
+                runner.main(argv)
+            except SystemExit as e:
+                assert e.code == 0
+        from bart_tpu_torch.driver.config import load_config
+        for path in (runner.CFG, runner.FOLD_CFG):
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                cfg = load_config(path)
+            assert cfg.molfit == ["H2O", "CO2", "CO", "CH4"]
+            assert len(cfg.filters) == 4 and cfg.nwidth == 60
+        assert load_config(runner.FOLD_CFG).fold_K == 32
+        assert not any(k == "jax" or k.startswith("jax.")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+        """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_graphs_and_run_mcmc_import_and_run_without_jax(tmp_path):

@@ -78,29 +78,36 @@ def _t(a, dtype=F64):
 # ---------------------------------------------------------------------
 # (a) the kernels' arithmetic, emulated
 
-def _ext_3xtf32(tab32, wrows32, passes=3):
+def _ext_3xtf32(tab32, wrows32, passes=3, chunk=None):
     """ext [C, L, W] as the kernels' fill forms it: table and weights
     split into big + small, small x big + big x small in one float32
     accumulator and big x big in another, added at the end.  ``passes``
-    = 2 leaves out the table's small part, 1 both."""
+    = 2 leaves out the table's small part, 1 both.  ``chunk``: the rows
+    in the eclipse kernel's chunked order, the accumulators carried from
+    chunk to chunk of that many rows."""
     tb, ts = fused.split_tf32(tab32)
     wb, ws = fused.split_tf32(wrows32)
 
     def mm(w, t):
         return torch.einsum("clr,rlw->clw", w, t)
 
-    small = torch.zeros(())
-    if passes >= 2:
-        small = mm(ws, tb)
-    if passes >= 3:
-        small = small + mm(wb, ts)
-    return small + mm(wb, tb)
+    R = tab32.shape[0]
+    small = big = torch.zeros(())
+    for r0 in range(0, R, chunk or R):
+        rows = slice(r0, r0 + (chunk or R))
+        if passes >= 2:
+            small = small + mm(ws[..., rows], tb[rows])
+        if passes >= 3:
+            small = small + mm(wb[..., rows], ts[rows])
+        big = big + mm(wb[..., rows], tb[rows])
+    return small + big
 
 
-def _emulated_eclipse(tab32, wn, mu, muw, wrows32, T, drp, powers, passes=3):
+def _emulated_eclipse(tab32, wn, mu, muw, wrows32, T, drp, powers, passes=3,
+                      chunk=None):
     """eclipse_plain with the emulated fill; the recurrence, Planck, the
     quadrature and the flux in float64."""
-    ext = _ext_3xtf32(tab32, wrows32, passes).double()
+    ext = _ext_3xtf32(tab32, wrows32, passes, chunk).double()
     seg = 0.5 * (ext[:, :-1] + ext[:, 1:]) * drp[:, 1:, None]
     tau = torch.cat([torch.zeros_like(ext[:, :1]),
                      torch.cumsum(seg, dim=1)], dim=1)
@@ -185,6 +192,45 @@ def test_emulated_transit_agrees_with_bart_tpu(jx):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=EMU_RTOL)
 
 
+#: past the eclipse kernels' old ceiling: 226 rows (the flagship at
+#: tempdelt = 50) in chunks of RCH rows; the transit kernels' at 130
+#: layers (its streamed variant: the slant product in groups of 16 FT_MT
+#: annuli, each tau summed over the layers as the resident kernel sums it)
+MANY_ECLIPSE, MANY_TRANSIT = (226, 23, 40, 5), (12, 130, 40, 5)
+
+
+@pytest.mark.parametrize("quad", ["raygrid", "expsum"])
+def test_emulated_eclipse_in_the_chunked_order_at_226_rows(quad):
+    (mu, muw), powers = QUADS[quad]
+    tab, wn, wrows, T, drp = random_rows(*MANY_ECLIPSE)
+    wrows = wrows * 27.0 / MANY_ECLIPSE[0]     # tau of order one inside
+    tab32, wrows32 = _t(tab, F32), _t(wrows, F32)
+    rest = [_t(wn), _t(mu), _t(muw), wrows32.double(), _t(T), _t(drp)]
+    got = _emulated_eclipse(tab32, *rest[:3], wrows32, *rest[4:], powers,
+                            chunk=fused._RCH)
+    ref = fused.eclipse_plain(tab32.double(), *rest, powers=powers)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=EMU_RTOL)
+    ext64 = torch.einsum("clr,rlw->clw", wrows32.double(), tab32.double())
+    np.testing.assert_allclose(
+        _ext_3xtf32(tab32, wrows32, chunk=fused._RCH).numpy(),
+        ext64.numpy(), rtol=3e-6)
+    # four chunks, the last one 40 rows (226 rounded up to 232, less 192)
+    assert -(-MANY_ECLIPSE[0] // fused._RCH) == 4
+
+
+def test_emulated_transit_at_130_layers():
+    tab, wrows, G, wgt, _ = random_transit_rows(*MANY_TRANSIT)
+    tab32, wrows32, G32 = _t(tab, F32), _t(wrows, F32), _t(G, F32)
+    got = _emulated_transit(tab32, wrows32, G32, _t(wgt))
+    ref = fused.transit_plain(tab32.double(), wrows32.double(), G32.double(),
+                              _t(wgt))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=EMU_RTOL)
+    tau = torch.bmm(G32.double(), torch.einsum(
+        "clr,rlw->clw", wrows32.double(), tab32.double()))
+    assert float(((tau > 0.1) & (tau < 10.0)).double().mean()) > 0.2
+    assert fused._transit_streamed(MANY_TRANSIT[1])
+
+
 @pytest.mark.parametrize("passes", [1, 2])
 def test_a_pass_fewer_would_not_hold_the_tolerance(passes):
     """The check can fail: without the table's small part (two passes)
@@ -224,29 +270,37 @@ def test_eclipse_source_constants_and_smem_match_python():
     for macro, value in (("TILE_W", fused._TILE_W), ("CB", fused._CB),
                          ("NSTAGE", fused._NSTAGE),
                          ("NTHREADS", fused._NTHREADS),
-                         ("MAX_NMU", fused._MAX_NMU)):
+                         ("MAX_NMU", fused._MAX_NMU), ("RCH", fused._RCH)):
         assert env[macro] == value
     assert '#include "hopper.cuh"' in src and "mma_tf32(" in src
     assert "extern \"C\" int bart_fused_eclipse(" in src
     env["kTS"] = eval(re.search(r"constexpr int kTS = ([^;]+);", src).group(1),
                       {"__builtins__": {}}, env)
     assert env["kTS"] == fused._TILE_W + 8
-    for R in (27, 41, 18, 1, 8, 48, 100):
-        Rp = -(-R // 8) * 8
-        env["stage_words"] = lambda rp: _cxx_return(
-            src, "stage_words", {**env, "Rp": rp})
-        want = _cxx_return(src, "smem_bytes", {**env, "Rp": Rp})
+    env["stage_words"] = lambda rs: _cxx_return(
+        src, "stage_words", {**env, "Rs": rs})
+    for R in (27, 41, 18, 1, 8, 48, 100, 122, 137, 226, 512):
+        # a stage holds a chunk of min(Rp, RCH) rows
+        Rs = min(-(-R // 8) * 8, env["RCH"])
+        want = _cxx_return(src, "smem_bytes", {**env, "Rs": Rs})
         assert fused._eclipse_smem(R) == want
         # lane (g, t) of a fragment load -> bank 8 t + g of the table tile
-        # and (Rp + 4) g + t of the weights: all different
+        # and (Rs + 4) g + t of the weights: all different
         g, t = np.divmod(np.arange(32), 4)
         assert len(set((env["kTS"] * t + g) % 32)) == 32
-        assert len(set(((Rp + 4) * g + t) % 32)) == 32
+        assert len(set(((Rs + 4) * g + t) % 32)) == 32
+    # the pinned sizes at the full-width shapes: unchanged by the chunks
     assert fused._eclipse_smem(27) == 56320
-    # two blocks of the full-width shapes fit an SM's 227 KB
-    assert 2 * fused._eclipse_smem(41) <= fused._SMEM_LIMIT
-    assert fused._eclipse_smem(136) <= fused._SMEM_LIMIT < \
-        fused._eclipse_smem(144)
+    assert fused._eclipse_smem(41) == 82944
+    # a layer's chunks: the last one takes the rest of the k-steps, and a
+    # full chunk's weights are two 16-byte copies a thread
+    assert env["RCH"] % 8 == 0
+    assert env["CB"] * env["RCH"] // 4 <= 2 * env["NTHREADS"]
+    # two blocks of every row count fit an SM's 228 KB (1 KB of it
+    # reserved a block): shared memory no longer grows with R
+    for R in range(1, 513):
+        assert 2 * (fused._eclipse_smem(R) + 1024) <= 233472
+    assert fused._eclipse_smem(512) == fused._eclipse_smem(64) == 109568
     # a warp per 16 wavenumbers x 16 chains
     assert fused._NTHREADS == 32 * (fused._TILE_W // 16) * (fused._CB // 16)
 
@@ -432,7 +486,8 @@ CARD_SHAPES = [(18, 23, 300, 6), (16, 23, 63, 17), (48, 23, 65, 33),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("quad", ["raygrid", "expsum"])
-@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("shape", CARD_SHAPES + [(226, 23, 300, 17),
+                                                 (137, 30, 65, 33)])
 def test_eclipse_kernel_matches_plain_on_card(cuda_device, quad, shape):
     (mu, muw), powers = QUADS[quad]
     tab, wn, wrows, T, drp = (_t(a, F32).to(cuda_device)
@@ -471,7 +526,9 @@ def test_eclipse_kernel_takes_any_quadrature_size(cuda_device, nmu):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", CARD_SHAPES[:4] + [(9, 5, 129, 31)])
+@pytest.mark.parametrize("shape", CARD_SHAPES[:4] + [(9, 5, 129, 31),
+                                                     (20, 130, 65, 17),
+                                                     (226, 113, 40, 9)])
 def test_transit_kernel_matches_plain_on_card(cuda_device, shape):
     tab, wrows, G, wgt = (_t(a, F32).to(cuda_device)
                           for a in random_transit_rows(*shape)[:4])

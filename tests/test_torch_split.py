@@ -133,31 +133,41 @@ def test_split_tf32_is_within_two_to_the_minus_21():
 # ---------------------------------------------------------------------
 # (b) the kernels' arithmetic, emulated
 
-def _emulated_ext(ft, wrows32, k):
+def _emulated_ext(ft, wrows32, k, chunk=None):
     """ext [C, L, W] of sub-sample k as the tensor-core fill forms it.
     bfloat16 table: the three bfloat16 parts times the table, summed in
     float32, smallest part first.  float32 table: 3xTF32, the two small
-    products summed, then the big one added, all in float32."""
+    products summed, then the big one added, all in float32.  ``chunk``:
+    the rows in the kernel's chunked order, the accumulators carried from
+    chunk to chunk of that many rows."""
     tab = ft.bins()[..., k].float()
+    R = tab.shape[0]
+
+    def mm(w, t, rows):
+        return torch.einsum("clr,rlw->clw", w[..., rows], t[rows])
+
+    chunks = [slice(r0, r0 + (chunk or R)) for r0 in range(0, R, chunk or R)]
     if ft.tab.dtype == F32:
         tb, ts = fused.split_tf32(tab)
         wb, ws = fused.split_tf32(wrows32)
-        small = (torch.einsum("clr,rlw->clw", wb, ts)
-                 + torch.einsum("clr,rlw->clw", ws, tb))
-        return small + torch.einsum("clr,rlw->clw", wb, tb)
-    ext = None
-    for part in fused.split_bf16(wrows32):
-        term = torch.einsum("clr,rlw->clw", part.float(), tab)
-        ext = term if ext is None else ext + term
+        small = big = 0.0
+        for rows in chunks:
+            small = small + mm(wb, ts, rows) + mm(ws, tb, rows)
+            big = big + mm(wb, tb, rows)
+        return small + big
+    ext = 0.0
+    for rows in chunks:
+        for part in fused.split_bf16(wrows32):
+            ext = ext + mm(part.float(), tab, rows)
     return ext
 
 
-def _emulated_eclipse(ft, wn, mu, muw, wrows32, T, drp, powers):
+def _emulated_eclipse(ft, wn, mu, muw, wrows32, T, drp, powers, chunk=None):
     """eclipse_folded_plain with the emulated fill; the recurrence, the
     quadrature and the flux in float64."""
     sbar = 0.0
     for k in range(ft.K):
-        ext = _emulated_ext(ft, wrows32, k).double()
+        ext = _emulated_ext(ft, wrows32, k, chunk).double()
         seg = 0.5 * (ext[:, :-1] + ext[:, 1:]) * drp[:, 1:, None]
         tau = torch.cat([torch.zeros_like(ext[:, :1]),
                          torch.cumsum(seg, dim=1)], dim=1)
@@ -182,9 +192,10 @@ def _emulated_transit(ft, wrows32, G32, wgt):
     return torch.bmm(wgt[:, None, :], abar / ft.K)[:, 0]
 
 
-def _eclipse_case(quad, table_dtype=BF16):
+def _eclipse_case(quad, table_dtype=BF16, shape=SHAPE):
     (mu, muw), powers = QUADS[quad]
-    tab, wn, wrows, T, drp = random_rows(*SHAPE)
+    tab, wn, wrows, T, drp = random_rows(*shape)
+    wrows = wrows * min(1.0, 27.0 / shape[0])   # tau of order one inside
     if table_dtype == BF16:
         ft, ft64 = _bf16_table(_fine(tab))
     else:
@@ -251,6 +262,37 @@ def test_emulated_tf32_fill_of_a_float32_table_agrees_with_bart_tpu(jx, quad):
     got = _emulated_eclipse(ft, *rest[:3], wrows32, *rest[4:], powers)
     # tests/test_torch_folded.py's float32 tolerance for the eclipse
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-5)
+
+
+#: past the folded eclipse kernel's old 136/160-row ceiling (226 rows in
+#: chunks of RCH) and the folded transit kernel's 112 layers
+MANY_ROWS, MANY_LAYERS = (226, 23, 20, 5), (12, 130, 20, 5)
+
+
+@pytest.mark.parametrize("table_dtype", [BF16, F32])
+def test_emulated_folded_eclipse_in_the_chunked_order_at_226_rows(
+        table_dtype):
+    ft, ft64, wrows32, rest, powers = _eclipse_case("expsum", table_dtype,
+                                                    MANY_ROWS)
+    got = _emulated_eclipse(ft, *rest[:3], wrows32, *rest[4:], powers,
+                            chunk=fused._RCH)
+    ref = fused.eclipse_folded_plain(ft64, *rest, powers=powers)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6)
+    ext = _emulated_ext(ft, wrows32, 3, chunk=fused._RCH)
+    ext64 = torch.einsum("clr,rlw->clw", wrows32.double(),
+                         ft64.bins()[..., 3])
+    np.testing.assert_allclose(ext.numpy(), ext64.numpy(), rtol=2e-6)
+
+
+def test_emulated_folded_transit_at_130_layers():
+    ft, ft64, wrows32, G32, wgt = _transit_case(MANY_LAYERS)
+    got = _emulated_transit(ft, wrows32, G32, wgt)
+    ref = fused.transit_folded_plain(ft64, wrows32.double(), G32.double(),
+                                     wgt)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6)
+    tau = torch.bmm(G32.double(), torch.einsum(
+        "clr,rlw->clw", wrows32.double(), ft64.bins()[..., 0]))
+    assert float(((tau > 0.1) & (tau < 10.0)).double().mean()) > 0.2
 
 
 def test_one_tf32_pass_would_not_hold_the_tolerance():
@@ -330,22 +372,35 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
     assert set(env) >= {"MTILE_F", "CBM", "NSTAGE", "MTHREADS", "MAX_NMU"}
     for macro, value in (("MTILE_F", fused._F_MTILE_F), ("CBM", fused._F_CBM),
                          ("NSTAGE", fused._F_NSTAGE),
-                         ("MTHREADS", fused._F_MTHREADS)):
+                         ("MTHREADS", fused._F_MTHREADS), ("RCH", fused._RCH)):
         assert env[macro] == value
     # the float32-pipe kernel's tile is gone
     assert not {"TILE_F", "TY", "CPT"} & set(env)
     assert '#include "hopper.cuh"' in src
-    env["mma_stage_bytes"] = lambda rp, eb, np_: _cxx_return(
-        src, "mma_stage_bytes", {**env, "Rp": rp, "eb": eb, "np": np_})
+    env["mma_stage_bytes"] = lambda rs, eb, np_: _cxx_return(
+        src, "mma_stage_bytes", {**env, "Rs": rs, "eb": eb, "np": np_})
     for bf16, eb, parts, depth in ((True, 2, 3, 16), (False, 4, 1, 8)):
-        for R, k in ((27, 32), (19, 2), (16, 4), (48, 8), (41, 16)):
-            Rp = -(-R // depth) * depth
+        for R, k in ((27, 32), (19, 2), (16, 4), (48, 8), (41, 16),
+                     (122, 32), (137, 32), (226, 32), (512, 32), (226, 4)):
+            # a stage holds a chunk of min(Rp, RCH) rows
+            Rs = min(-(-R // depth) * depth, env["RCH"])
             want = _cxx_return(src, "mma_smem_bytes",
-                               {**env, "Rp": Rp, "K": k, "eb": eb,
+                               {**env, "Rs": Rs, "K": k, "eb": eb,
                                 "np": parts})
             assert fused._eclipse_folded_smem(R, k, bf16) == want
             # two blocks an SM (228 KB, 1 KB of it reserved a block)
             assert 2 * (want + 1024) <= 233472
+        # every row count fits a block: shared memory stops growing at a
+        # chunk of RCH rows (the float32 table's K = 2 alone takes one
+        # block an SM)
+        for R in range(1, 513):
+            for k in fused._FOLD_K:
+                assert fused._eclipse_folded_smem(R, k, bf16) \
+                    <= fused._SMEM_LIMIT
+            assert fused._eclipse_folded_smem(R, 32, bf16) \
+                == fused._eclipse_folded_smem(min(R, 64), 32, bf16)
+    # a chunk is whole k-steps of either table
+    assert env["RCH"] % 16 == 0
     assert fused._eclipse_folded_smem(27, 32, True) == 49664
     # float32: 4 stages of [32][72] + [32][36] words, the Planck means
     assert fused._eclipse_folded_smem(27, 32, False) == 55808
@@ -359,8 +414,8 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
     # weights (stride Rp + 4): 32 different banks for every Rp
     g, t = np.divmod(np.arange(32), 4)
     assert len(set(((fused._F_MTILE_F + 8) * t + g) % 32)) == 32
-    for Rp in range(8, 129, 8):
-        assert len(set(((Rp + 4) * g + t) % 32)) == 32
+    for Rs in range(8, env["RCH"] + 1, 8):
+        assert len(set(((Rs + 4) * g + t) % 32)) == 32
     # every sub-sample count divides the fine tile, and the Planck pairs
     # of a block fit the threads' registers (PP per thread)
     assert all(fused._F_MTILE_F % k == 0 for k in fused._FOLD_K)
@@ -393,22 +448,36 @@ def test_transit_mma_source_constants_and_smem_match_python():
                     + max(env["FT_CB"] * env["FT_NS"] * env[unit],
                           _cxx_return(src, "ft_slant_bytes", {**env, "L": L})))
             assert fused._transit_mma_smem(L, bf16) == want
+            assert not fused._transit_streamed(L)
+    # the streamed variant (L > 16 FT_MT): the annulus weights, then the
+    # larger of the fill rings and two stages a warp of a group's G rows
+    # and a step's ext rows
+    stage = _cxx_return(src, "ft_stream_stage_words", env)
+    assert stage == 16 * env["FT_MT"] * env["kGS"] + 8 * env["kES"]
+    for L in (113, 130, 150, 200, 400):
+        for bf16, unit in ((True, "kUnitBytes"), (False, "kUnitBytes32")):
+            want = (_cxx_return(src, "ft_wgt_bytes", {**env, "L": L})
+                    + max(env["FT_CB"] * env["FT_NS"] * env[unit],
+                          env["FT_CB"] * 2 * stage * 4))
+            assert fused._transit_mma_smem(L, bf16) == want
+            assert fused._transit_streamed(L)
     assert fused._transit_mma_smem(100, True) == 192128
     assert fused._transit_mma_smem(100, False) == 176768
     assert all(fused._FT_W % k == 0 for k in fused._FOLD_K)
 
 
 def test_limits_the_wrappers_raise_on():
-    # L beyond the shared-memory cap of the tensor-core transit kernel
-    # (tau's registers cap it at 16 FT_MT layers before shared memory does)
+    # every layer count up to 400 (and well beyond: the annulus weights
+    # bound the streamed variant at 4,704 layers, 4,960 on a float32
+    # table) fits the transit kernels, and the fine axis is what the grid
+    # bounds
     for bf16 in (True, False):
-        assert fused._transit_mma_smem(16 * fused._FT_MT, bf16) \
-            <= fused._SMEM_LIMIT < fused._transit_mma_smem(200, bf16)
-        fused._check_transit_fit("fn", 16 * fused._FT_MT, 80032, bf16)
-        with pytest.raises(ValueError, match="register blocks"):
-            fused._check_transit_fit("fn", 16 * fused._FT_MT + 1, 300, bf16)
+        for L in range(1, 401):
+            assert fused._transit_mma_smem(L, bf16) <= fused._SMEM_LIMIT
+            fused._check_transit_fit("fn", L, 80032, bf16)
+        fused._check_transit_fit("fn", 4000, 300, bf16)
         with pytest.raises(ValueError, match="shared memory"):
-            fused._check_transit_fit("fn", 200, 300, bf16)
+            fused._check_transit_fit("fn", 8000, 300, bf16)
         with pytest.raises(ValueError, match="exceed the grid"):
             fused._check_transit_fit("fn", 100, 32 * 65535 + 1, bf16)
     # K outside _FOLD_K, a table that is not folded_table's

@@ -236,12 +236,20 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
 
 @pytest.mark.gpu
 def test_kernel_raises_beyond_shared_memory(cuda_device):
-    ts = [t.to(cuda_device) for t in
-          _torch(random_transit_rows(3, 200, 40, 2)[:4], torch.float32)]
+    # 113 and 200 layers (past the resident kernel's 112) take the
+    # streamed variant and match the plain version
+    for L in (113, 200):
+        ts = [t.to(cuda_device) for t in
+              _torch(random_transit_rows(3, L, 40, 2)[:4], torch.float32)]
+        np.testing.assert_allclose(fused.fused_transit(*ts).cpu().numpy(),
+                                   fused.transit_plain(*ts).cpu().numpy(),
+                                   rtol=1e-5)
+    # the annulus weights' shared memory caps L near 4,960 on a float32
+    # table
+    L = 5200
+    f32 = dict(dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
-        fused.fused_transit(*ts)
-    # tau's register fragments cap L before shared memory does
-    ts = [t.to(cuda_device) for t in
-          _torch(random_transit_rows(3, 113, 40, 2)[:4], torch.float32)]
-    with pytest.raises(ValueError, match="register blocks"):
-        fused.fused_transit(*ts)
+        fused.fused_transit(torch.ones(1, L, 8, **f32),
+                            torch.ones(2, L, 1, **f32),
+                            torch.zeros(2, L, L, **f32),
+                            torch.ones(2, L, **f32))
