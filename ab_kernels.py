@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Hold the four kernels of this tree against those of another checkout
+(the parent commit) on one CUDA card: the same outputs bit for bit, and
+their times side by side.
+
+Each version runs in a process of its own (its own sources, its own
+build under its own ``bart_tpu_torch/build/``), in the order parent,
+change, change, parent, on the same random rows (demo.random_rows and
+random_transit_rows, seed 7; fine_structure inside the bins) at the
+full-width shapes of chip_smoke.py's phase 2: 512 chains, 100 layers;
+``fused_eclipse`` at R = 27 x 2,501 (raygrid 5 and expsum 8 nodes),
+``fused_transit`` at R = 41 x 2,501, ``fused_eclipse_folded`` (R = 27)
+and ``fused_transit_folded`` (R = 41) at 1,125 bins x K for K in 2, 4,
+8, 16, 32 on bfloat16 tables (eclipse: expsum; at K = 32 also raygrid
+and float32 tables).  Every output is compared bit for bit across the
+four runs; each case's ms (CUDA events, mean over the launches after a
+warm-up) is printed per run, with the change's best against the
+parent's best.
+
+    python3 ab_kernels.py <parent root>     # e.g. build/parent
+    git archive HEAD bart_tpu_torch | tar -x -C build/parent   # to make it
+
+Exit code 1 when any output differs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FOLD_KS = (2, 4, 8, 16, 32)
+
+
+def cases(root: str, out_npz: str) -> None:
+    """One version's run: its outputs into ``out_npz``, its ms as one JSON
+    line on stdout."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    from bart_tpu_torch.demo import (fine_structure, random_rows,
+                                     random_transit_rows)
+    from bart_tpu_torch.rt import fused
+    from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
+
+    assert fused.__file__.startswith(os.path.abspath(root)), fused.__file__
+    fused.build_kernels()
+    f32 = dict(dtype=torch.float32, device="cuda")
+    C, L, W1, WF = 512, 100, 2501, 1125
+    quads = {"raygrid": (raygrid_weights([0.0, 20.0, 40.0, 60.0, 80.0]),
+                         False),
+             "expsum": (expsum_weights(8), True)}
+    outs, ms = {}, {}
+
+    def timed(name, fn, nrep):
+        outs[name] = fn().cpu().numpy()
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(nrep):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(stop) / nrep
+
+    def q(quad):
+        (mu, muw), powers = quads[quad]
+        return torch.tensor(mu, **f32), torch.tensor(muw, **f32), powers
+
+    def fine(tab, K):
+        R, _, W = tab.shape
+        factor = torch.tensor(fine_structure(R, W, K), **f32)
+        return (tab[..., None] * factor).reshape(R, L, W * K)
+
+    # K = 1
+    tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
+                              for a in random_rows(27, L, W1, C, seed=7))
+    rt = fused.rows_table(tab)
+    for quad in quads:
+        mu, muw, powers = q(quad)
+        timed(f"fused_eclipse {quad}", lambda: fused.fused_eclipse(
+            rt, wn, mu, muw, wrows, T, drp, powers), 20)
+    tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                          random_transit_rows(41, L, W1, C, seed=7)[:4])
+    rt, Gp = fused.rows_table(tab), fused.prepare_slant(G)
+    timed("fused_transit", lambda: fused.fused_transit(rt, wrows, Gp, wgt),
+          20)
+    del tab, rt
+    # folded
+    tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
+                              for a in random_rows(27, L, WF, C, seed=7))
+    for K in FOLD_KS:
+        fn = fine(tab, K)
+        for tdt, quad in ([(torch.bfloat16, "expsum")]
+                          + ([(torch.bfloat16, "raygrid"),
+                              (torch.float32, "expsum"),
+                              (torch.float32, "raygrid")] if K == 32 else [])):
+            ft = fused.folded_table(fn, K, tdt)
+            mu, muw, powers = q(quad)
+            timed(f"fused_eclipse_folded K={K} {str(tdt)[6:]} {quad}",
+                  lambda: fused.fused_eclipse_folded(ft, wn, mu, muw, wrows,
+                                                     T, drp, powers), 5)
+        del fn, ft
+    tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                          random_transit_rows(41, L, WF, C, seed=7)[:4])
+    Gp = fused.prepare_slant(G)
+    for K in FOLD_KS:
+        fn = fine(tab, K)
+        for tdt in [torch.bfloat16] + ([torch.float32] if K == 32 else []):
+            ft = fused.folded_table(fn, K, tdt)
+            timed(f"fused_transit_folded K={K} {str(tdt)[6:]}",
+                  lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt), 5)
+        del fn, ft
+    np.savez(out_npz, **outs)
+    print(json.dumps({"ms": ms, "card": torch.cuda.get_device_name(0)}))
+
+
+def main() -> int:
+    import numpy as np
+
+    if sys.argv[1:2] == ["--one"]:
+        cases(sys.argv[2], sys.argv[3])
+        return 0
+    parent = os.path.abspath(sys.argv[1])
+    work = os.path.join(HERE, "build", "ab_kernels")
+    os.makedirs(work, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    runs = []
+    for i, (label, root) in enumerate((("parent", parent), ("change", HERE),
+                                       ("change", HERE),
+                                       ("parent", parent))):
+        npz = os.path.join(work, f"run{i}_{label}.npz")
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--one", root, npz], capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return 2
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append((label, rec["ms"], dict(np.load(npz))))
+        print(f"# ab_kernels: run {i} ({label}) done", flush=True)
+    names = list(runs[0][1])
+    same = True
+    for name in names:
+        outs = [r[2][name] for r in runs]
+        eq = all(np.array_equal(outs[0], o) for o in outs[1:])
+        same &= eq
+        ms = [r[1][name] for r in runs]
+        best_p, best_c = min(ms[0], ms[3]), min(ms[1], ms[2])
+        bits = "equal" if eq else "DIFFER"
+        print(f"# ab_kernels ({smi}): {name}: bits {bits}; ms parent "
+              f"{ms[0]:.3f}, change {ms[1]:.3f}, change {ms[2]:.3f}, parent "
+              f"{ms[3]:.3f}; change/parent (best) {best_c / best_p:.4f}")
+    print(json.dumps({"same_bits": same, "cases": len(names),
+                      "ms": {n: [r[1][n] for r in runs] for n in names}}))
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -48,7 +48,9 @@
 // from L2 16 times per launch (0.43 GB at R = 27, L = 100, W = 2501; the
 // 4-chain blocks of the first version read it 128 times, 3.5 GB).
 // blockIdx.x walks the chain blocks, so the blocks resident at once
-// share a few table tiles.
+// share a few table tiles.  Any number of quadrature nodes: the unrolled
+// instances (raygrid's 5, expsum's 8) hold them in shared memory, the
+// runtime-count one reads any count through the read-only cache.
 //
 // Bound on the H100.  Per 512-chain batch at R = 27, L = 100, W = 2501:
 // 128 M (chain, layer, wavenumber) points, each 27 FMAs of fill (three
@@ -71,7 +73,6 @@
 #define CB 32        // chains per block
 #define NSTAGE 4     // layers in the shared-memory ring
 #define NTHREADS 256 // threads per block (8 warps)
-#define MAX_NMU 16   // quadrature nodes held in shared memory
 #define RCH 64       // table rows a stage holds: the chunk of the row axis
 
 // Timing aid (ablate_folded.py --k1): -DBART_ABLATE=<bits> builds the kernel
@@ -120,8 +121,9 @@ __host__ __device__ constexpr size_t smem_bytes(int Rs) {
   return 4 * NSTAGE * stage_words(Rs);
 }
 
-// NMU > 0: the quadrature has exactly NMU nodes and its loops unroll;
-// NMU == 0: any 1..MAX_NMU nodes.  CHUNKED (Rp > RCH): a layer is
+// NMU > 0: the quadrature has exactly NMU nodes, held in shared memory,
+// and its loops unroll; NMU == 0: any number of nodes, read through the
+// read-only cache (no bound but the loop's length).  CHUNKED (Rp > RCH): a layer is
 // ceil(Rp / RCH) stages of RCH rows; else one stage of all Rp rows.
 template <bool POWERS, int NMU, bool CHUNKED>
 __global__ void __launch_bounds__(NTHREADS, 512 / NTHREADS)
@@ -138,7 +140,11 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
   const int nmu = NMU ? NMU : nmu_any;
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
-  __shared__ float minv_s[MAX_NMU], wmu_s[MAX_NMU];
+  __shared__ float minv_s[NMU ? NMU : 1], wmu_s[NMU ? NMU : 1];
+  // quadrature node q: NMU > 0 from shared memory, else from the
+  // read-only cache
+  auto wmu_q = [&](int q) { return NMU ? wmu_s[q] : __ldg(wmu + q); };
+  auto minv_q = [&](int q) { return NMU ? minv_s[q] : __ldg(minv + q); };
 
   const int Rs = CHUNKED ? RCH : Rp;     // rows a stage holds
   const int WS = Rs + 4;                 // row stride of the weights
@@ -151,7 +157,7 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
   const int c0 = blockIdx.x * CB;
   const int w0 = blockIdx.y * TILE_W;
 
-  if (tid < nmu) {
+  if (NMU && tid < NMU) {
     minv_s[tid] = minv[tid];
     wmu_s[tid] = wmu[tid];
   }
@@ -315,11 +321,11 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         u[e] = BART_EXPF(-fminf(tau[e], kTauClamp));
-        S[e] = wmu_s[nmu - 1];
+        S[e] = wmu_q(nmu - 1);
       }
 #pragma unroll
       for (int q = nmu - 2; q >= 0; --q) {
-        const float aq = wmu_s[q];
+        const float aq = wmu_q(q);
 #pragma unroll
         for (int e = 0; e < 8; ++e) S[e] = fmaf(u[e], S[e], aq);
       }
@@ -334,7 +340,7 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
       }
 #pragma unroll
       for (int q = 0; q < nmu; ++q) {
-        const float aq = wmu_s[q], mq = minv_s[q];
+        const float aq = wmu_q(q), mq = minv_q(q);
 #pragma unroll
         for (int e = 0; e < 8; ++e) S[e] = S[e] + aq * BART_EXPF(tc[e] * mq);
       }
@@ -435,15 +441,16 @@ cudaError_t launch(const float* tab, const float* wrows, const float* T,
 // Plain C entry point (bound with ctypes).  tab [R, L, Wp] is the table
 // with its wavenumber axis zero-padded to Wp, W rounded up to 4 (16
 // bytes: bart_tpu_torch.rt.fused.rows_table); wrows [C, L, Rp] the
-// weights zero-padded to Rp rows, R rounded up to 8.  Returns the
-// cudaError_t of the launch: 0 when the kernel was queued on ``stream``.
+// weights zero-padded to Rp rows, R rounded up to 8; nmu >= 1 quadrature
+// nodes.  Returns the cudaError_t of the launch: 0 when the kernel was
+// queued on ``stream``.
 extern "C" int bart_fused_eclipse(const float* tab, const float* wrows,
                                   const float* T, const float* drp,
                                   const float* wn, const float* minv,
                                   const float* wmu, float* out, int R, int Rp,
                                   int L, int W, int Wp, int C, int nmu,
                                   int powers, cudaStream_t stream) {
-  if (nmu < 1 || nmu > MAX_NMU || R < 1 || L < 1 || W < 1 || C < 1)
+  if (nmu < 1 || R < 1 || L < 1 || W < 1 || C < 1)
     return (int)cudaErrorInvalidValue;
   // the quadratures in use get unrolled instances: expsum's 8 powers,
   // raygrid's 5 angles

@@ -16,7 +16,8 @@
 // and out[c, b] = 2 pi mean_k (F_f + B_{L-1} S_{L-1}).  B is taken at the
 // bin centre, so the flux is linear in S and the mean over k of the
 // per-fine-point flux equals the flux of the k-averaged source function
-// that the plain version and the TPU kernel form.
+// that the plain version and the TPU kernel form.  Any K >= 2 and any
+// number of quadrature nodes.
 //
 // Design: one kernel, a template on the table's type, the fill on
 // tensor cores.  Per layer the fill is the product [MTILE_F fine points
@@ -60,13 +61,26 @@
 // the weights of stage s + 3 are in flight (cp.async) while stage s is
 // computed: one barrier a stage.  The Planck function depends on (chain,
 // layer, bin) only: during layer l's first stage the block's first
-// threads evaluate it for layer l + 1's CBM x MTILE_F / K pairs, one
-// exponential each, and leave 0.5 (B_l + B_{l+1}) in shared memory for
-// after the next barrier.  The
-// mean over k goes through shared memory at the end (a bin's sub-samples
-// sit in different lanes, registers and, for K = 32, warps).  blockIdx.x
-// walks the chain blocks, so the blocks resident at once share a few
-// table tiles and the table leaves HBM once.
+// threads evaluate it for layer l + 1's CBM x nb pairs (nb the bins the
+// tile touches, at most fold_bins(K) <= MTILE_F / 2), one exponential
+// each, and leave 0.5 (B_l + B_{l+1}) in shared memory for after the next
+// barrier.  The sum over k goes through shared memory at the end (a
+// bin's sub-samples sit in different lanes, registers and warps).  For K
+// a power of two up to 32, which divides the tile, a bin's K sub-samples
+// are K neighbouring lanes of the sums and a butterfly adds them.  The
+// tiles stay aligned to fine points for any other K (the cp.async copies
+// need 16-byte-aligned sources, which a tile starting at b K would not
+// have for odd K), so a bin may straddle two tiles (K < 64) or span
+// several (K > 64): a thread a (bin, chain) adds the bin's sub-samples in
+// the tile in the order of their fine points, writes a bin that lies in
+// the tile, and leaves the sum of a cut bin in a scratch [C][ntile][2]
+// that a second launch adds in tile order (fold_straddle.cuh; no
+// atomics, so a graph replay repeats an eager launch bit for bit).  The
+// quadrature: the unrolled instances (raygrid's 5 nodes, expsum's 8) hold
+// the nodes in shared memory, the runtime-count one reads any number
+// through the read-only cache.  blockIdx.x walks the chain blocks, so the
+// blocks resident at once share a few table tiles and the table leaves
+// HBM once.
 //
 // Bound on the H100.  Per 512-chain batch at R = 27, L = 100, 1,064 fine
 // bins, K = 32: 47 G FMAs of fill (three passes: 0.29 ms at the dense
@@ -89,9 +103,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "fold_straddle.cuh"
 #include "hopper.cuh"
 
-#define MAX_NMU 16   // quadrature nodes held in shared memory
 #define MTILE_F 64   // fine points per block
 #define CBM 32       // chains per block
 #define NSTAGE 4     // layers in the shared-memory ring
@@ -126,6 +140,13 @@ constexpr float kTwoPi = 6.2831853071795865f;
 constexpr float kTauClamp = 88.0f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// The most output bins a tile of MTILE_F fine points touches: MTILE_F / K
+// where K divides the tile (the tiles start on bin boundaries), else
+// (MTILE_F - 1) / K + 2 (a bin cut at each end); at most MTILE_F / 2.
+__host__ __device__ constexpr int fold_bins(int K) {
+  return MTILE_F % K == 0 ? MTILE_F / K : (MTILE_F - 1) / K + 2;
+}
+
 // Shared memory, in bytes, for chunks of Rs = min(Rp, RCH) rows, K
 // sub-samples and a table of eb bytes an element whose weights come in
 // np parts of that type (bfloat16: eb = 2, np = 3, Rp a multiple of 16;
@@ -133,7 +154,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // table tile [Rs][MTILE_F + 8] and the weights [np][CBM][Rs + 16 / eb]
 // (the padding spreads the rows that one ldmatrix or one fragment load
 // reads over all banks), then the Planck means, two buffers
-// [MTILE_F / K][CBM] of float32.  The epilogue reuses the ring for
+// [fold_bins(K)][CBM] of float32.  The epilogue reuses the ring for
 // [CBM][MTILE_F + 4] sums.
 __host__ __device__ constexpr size_t mma_stage_bytes(int Rs, int eb, int np) {
   return eb * ((size_t)Rs * (MTILE_F + 8) + (size_t)np * CBM * (Rs + 16 / eb));
@@ -141,7 +162,7 @@ __host__ __device__ constexpr size_t mma_stage_bytes(int Rs, int eb, int np) {
 __host__ __device__ constexpr size_t mma_smem_bytes(int Rs, int K, int eb,
                                                     int np) {
   return NSTAGE * mma_stage_bytes(Rs, eb, np) +
-         2 * 4 * (size_t)(MTILE_F / K) * CBM;
+         2 * 4 * (size_t)fold_bins(K) * CBM;
 }
 static_assert(RCH % 16 == 0, "a chunk is whole k-steps of either table");
 static_assert(NSTAGE * mma_stage_bytes(16, 2, 3) >= 4 * CBM * (MTILE_F + 4) &&
@@ -150,10 +171,18 @@ static_assert(NSTAGE * mma_stage_bytes(16, 2, 3) >= 4 * CBM * (MTILE_F + 4) &&
 
 // TabT: __nv_bfloat16 or float; the weights are staged in the same type
 // (bfloat16: split_bf16's three parts, lo, mid, hi; float32: as given).
-// NMU > 0: the quadrature has exactly NMU nodes and its loops unroll;
-// NMU == 0: any 1..MAX_NMU nodes.  CHUNKED (Rp > RCH): a layer is
-// ceil(Rp / RCH) stages of RCH rows; else one stage of all Rp rows.
-template <typename TabT, bool POWERS, int NMU, bool CHUNKED>
+// NMU > 0: the quadrature has exactly NMU nodes, held in shared memory,
+// and its loops unroll; NMU == 0: any number of nodes, read through the
+// read-only cache (no bound but the loop's length).  CHUNKED (Rp > RCH):
+// a layer is ceil(Rp / RCH) stages of RCH rows; else one stage of all Rp
+// rows.  LANES (K a power of two up to 32): a bin's sub-samples are K
+// neighbouring lanes of the sums, added by a butterfly; else any K, each
+// bin summed in fine-point order and the bins the tile cuts left in
+// ``part``.  Two instances, not a branch: both epilogues in one kernel
+// cost the unchunked instances up to 72 B of spill stores and loads at
+// the 128-register cap (ptxas for sm_90a); this way the powers of two
+// keep their code, bits and times.
+template <typename TabT, bool POWERS, int NMU, bool CHUNKED, bool LANES>
 __global__ void __launch_bounds__(MTHREADS, 512 / MTHREADS)
 fused_eclipse_folded_mma_kernel(
     const TabT* __restrict__ tab,      // [R, L, Fp]
@@ -164,6 +193,7 @@ fused_eclipse_folded_mma_kernel(
     const float* __restrict__ minv,    // [nmu]
     const float* __restrict__ wmu,     // [nmu]
     float* __restrict__ out,           // [C, W]
+    float* __restrict__ part,          // [C, ntile, 2] (straddling K)
     int R, int Rp, int L, int W, int Fp, int C, int K, int nmu_any) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int EPC = 16 / sizeof(TabT);  // elements per 16-byte copy
@@ -178,10 +208,18 @@ fused_eclipse_folded_mma_kernel(
   const int Rs = CHUNKED ? RCH : Rp;      // rows a stage holds
   const size_t stage_bytes = mma_stage_bytes(Rs, sizeof(TabT), NP);
   float* bmid_s = reinterpret_cast<float*>(ring + NSTAGE * stage_bytes);
-  __shared__ float minv_s[MAX_NMU], wmu_s[MAX_NMU], wn_s[MTILE_F / 2];
+  __shared__ float minv_s[NMU ? NMU : 1], wmu_s[NMU ? NMU : 1];
+  __shared__ float wn_s[MTILE_F / 2];
+  // the tile's first bin, read back by the epilogue (LANES false), so
+  // that no register holds it through the layer loop, whose live values
+  // fill the 128-register cap
+  __shared__ int b0_s;
+  // quadrature node q: NMU > 0 from shared memory, else from the
+  // read-only cache
+  auto wmu_q = [&](int q) { return NMU ? wmu_s[q] : __ldg(wmu + q); };
+  auto minv_q = [&](int q) { return NMU ? minv_s[q] : __ldg(minv + q); };
 
   const int WS = Rs + EPC;           // row stride of the weights
-  const int nb = MTILE_F / K;         // output bins of the block
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -191,12 +229,18 @@ fused_eclipse_folded_mma_kernel(
   const int c0 = blockIdx.x * CBM;
   const int f0 = blockIdx.y * MTILE_F;
   const size_t CLR = (size_t)C * L * Rp;
+  // the output bins the tile touches, b0 .. b0 + nb - 1 (those from W on
+  // are padding): K divides MTILE_F, then nb = MTILE_F / K; else the
+  // tile's first and last bins may be cut (fold_straddle.cuh)
+  const int b0 = f0 / K;
+  const int nb = LANES ? MTILE_F / K : (f0 + MTILE_F - 1) / K - b0 + 1;
 
-  if (tid < nmu) {
+  if (NMU && tid < NMU) {
     minv_s[tid] = minv[tid];
     wmu_s[tid] = wmu[tid];
   }
-  if (tid < nb) wn_s[tid] = f0 / K + tid < W ? wn[f0 / K + tid] : 1.0f;
+  if (tid < nb) wn_s[tid] = b0 + tid < W ? wn[b0 + tid] : 1.0f;
+  if (!LANES && tid == 0) b0_s = b0;
 
   // Unchunked: this thread's first two weight copies of a stage (task
   // i = tid + j MTHREADS is 16 bytes q of part p, chain cc), reckoned
@@ -270,18 +314,18 @@ fused_eclipse_folded_mma_kernel(
     }
   };
 
-  // The Planck pairs (chain c0 + p % CBM, bin f0 / K + p / CBM), p <
-  // CBM nb: thread tid takes the pairs p = tid + j MTHREADS, so with few
-  // pairs (K = 32: CBM 4) only the first warps spend instructions on
-  // them.  pl_T holds T of the layer whose B comes next; the bins'
-  // wavenumbers are read from wn_s in the layer loop, not held in
-  // registers, which the float32 table's fill needs.
+  // The Planck pairs (chain c0 + p % CBM, bin b0 + p / CBM), p < CBM nb
+  // <= CBM MTILE_F / 2: thread tid takes the pairs p = tid + j MTHREADS,
+  // so with few pairs (K = 32: CBM 4) only the first warps spend
+  // instructions on them.  pl_T holds T of the layer whose B comes next;
+  // the bins' wavenumbers are read from wn_s in the layer loop, not held
+  // in registers, which the float32 table's fill needs.
   const int npair = CBM * nb;
   float pl_prev[PP], pl_T[PP];
 #pragma unroll
   for (int j = 0; j < PP; ++j) {
     const int p = tid + j * MTHREADS;
-    const int bin = f0 / K + p / CBM, c = c0 + p % CBM;
+    const int bin = b0 + p / CBM, c = c0 + p % CBM;
     const float wnv = (p < npair && bin < W) ? wn[bin] : 1.0f;
     const float T0 = (p < npair && c < C) ? T[(size_t)c * L] : 1000.0f;
     pl_prev[j] = kC1 * (wnv * wnv * wnv) / expm1f(kC2 * wnv / T0);  // layer 0
@@ -293,7 +337,9 @@ fused_eclipse_folded_mma_kernel(
   float ext_p[8], tau[8], S_p[8], flux[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) ext_p[e] = tau[e] = S_p[e] = flux[e] = 0.0f;
-  const int bin_lo = (fw + g) / K, bin_hi = (fw + g + 8) / K;
+  // the bins (relative to b0) of the thread's two fine points
+  const int bin_lo = LANES ? (fw + g) / K : (f0 + fw + g) / K - b0;
+  const int bin_hi = LANES ? (fw + g + 8) / K : (f0 + fw + g + 8) / K - b0;
   // half the layer step of the thread's 4 chains, a layer ahead
   float hdr[4], hdr_next[4];
 #pragma unroll
@@ -417,11 +463,11 @@ fused_eclipse_folded_mma_kernel(
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         u[e] = BART_EXPF(-fminf(tau[e], kTauClamp));
-        S[e] = wmu_s[nmu - 1];
+        S[e] = wmu_q(nmu - 1);
       }
 #pragma unroll
       for (int q = nmu - 2; q >= 0; --q) {
-        const float aq = wmu_s[q];
+        const float aq = wmu_q(q);
 #pragma unroll
         for (int e = 0; e < 8; ++e) S[e] = fmaf(u[e], S[e], aq);
       }
@@ -436,7 +482,7 @@ fused_eclipse_folded_mma_kernel(
       }
 #pragma unroll
       for (int q = 0; q < nmu; ++q) {
-        const float aq = wmu_s[q], mq = minv_s[q];
+        const float aq = wmu_q(q), mq = minv_q(q);
 #pragma unroll
         for (int e = 0; e < 8; ++e) S[e] = S[e] + aq * BART_EXPF(tc[e] * mq);
       }
@@ -508,7 +554,7 @@ fused_eclipse_folded_mma_kernel(
     }
   }
 
-  // ---- close with B_{L-1} S_{L-1}, then the mean over k ----------------
+  // ---- close with B_{L-1} S_{L-1}, then the sum over k ----------------
   cp_async_wait<0>();
   __syncthreads();  // every thread is done with the ring and the means
 #pragma unroll
@@ -527,40 +573,84 @@ fused_eclipse_folded_mma_kernel(
   }
   __syncthreads();
   const float scale = kTwoPi / (float)K;
-  for (int i = tid; i < CBM * MTILE_F; i += MTHREADS) {
-    const int cc = i / MTILE_F, fl = i % MTILE_F;
-    float v = v_s[cc * VS + fl];
-    for (int o = K >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-    const int c = c0 + cc, f = f0 + fl;
-    if ((fl & (K - 1)) == 0 && f < F && c < C)
-      out[(size_t)c * W + f / K] = scale * v;
+  if constexpr (LANES) {
+    // a bin's sub-samples are K neighbouring lanes: a butterfly
+    for (int i = tid; i < CBM * MTILE_F; i += MTHREADS) {
+      const int cc = i / MTILE_F, fl = i % MTILE_F;
+      float v = v_s[cc * VS + fl];
+      for (int o = K >> 1; o > 0; o >>= 1)
+        v += __shfl_xor_sync(kFullMask, v, o);
+      const int c = c0 + cc, f = f0 + fl;
+      if ((fl & (K - 1)) == 0 && f < F && c < C)
+        out[(size_t)c * W + f / K] = scale * v;
+    }
+  } else {
+    // any other K: a thread a (bin, chain) sums the bin's sub-samples in
+    // this tile in the order of their fine points; a bin cut by the tile
+    // leaves its sum in part for the second launch (fold_straddle.cuh)
+    const int fe = f0 + MTILE_F, b0e = b0_s;
+    for (int i = tid; i < npair; i += MTHREADS) {
+      const int j = i / CBM, cc = i % CBM;
+      const int b = b0e + j, c = c0 + cc;
+      if (b >= W || c >= C) continue;
+      const int lo = max(b * K, f0), hi = min((b + 1) * K, fe);
+      float v = 0.0f;
+      for (int f = lo; f < hi; ++f) v += v_s[cc * VS + f - f0];
+      if (b * K >= f0 && (b + 1) * K <= fe)
+        out[(size_t)c * W + b] = scale * v;
+      else
+        part[((size_t)c * gridDim.y + blockIdx.y) * 2 + ((b + 1) * K > fe)] =
+            v;
+    }
   }
 }
 
-template <typename TabT, bool POWERS, int NMU, bool CHUNKED>
+template <typename TabT, bool POWERS, int NMU, bool CHUNKED, bool LANES>
 cudaError_t launch_mma(const void* tab, const void* wparts, const float* T,
                        const float* drp, const float* wn, const float* minv,
-                       const float* wmu, float* out, int R, int Rp, int L,
-                       int W, int Fp, int C, int K, int nmu,
+                       const float* wmu, float* out, float* part, int R,
+                       int Rp, int L, int W, int Fp, int C, int K, int nmu,
                        cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int NP = kBf16 ? 3 : 1;
   const int ntile = (W * K + MTILE_F - 1) / MTILE_F;
+  const bool straddles = fold_straddles<MTILE_F>(K);
   if (Rp % (kBf16 ? 16 : 8) != 0 || Rp < R || Fp % 8 != 0 ||
-      ntile > 65535 || (long long)NP * C * L * Rp >= (1ll << 31))
+      ntile > 65535 || (long long)NP * C * L * Rp >= (1ll << 31) ||
+      (straddles && part == nullptr))
     return cudaErrorInvalidValue;
   const size_t smem =
       mma_smem_bytes(CHUNKED ? RCH : Rp, K, sizeof(TabT), NP);
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED>,
+      fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED, LANES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((C + CBM - 1) / CBM, ntile);
-  fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED>
+  fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED, LANES>
       <<<grid, MTHREADS, smem, stream>>>(
           static_cast<const TabT*>(tab), static_cast<const TabT*>(wparts), T,
-          drp, wn, minv, wmu, out, R, Rp, L, W, Fp, C, K, nmu);
-  return cudaGetLastError();
+          drp, wn, minv, wmu, out, part, R, Rp, L, W, Fp, C, K, nmu);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess || !straddles) return e2;
+  return launch_fold_straddle<MTILE_F>(part, out, C, W, K, ntile,
+                                       kTwoPi / (float)K, 1.0f, stream);
+}
+
+// the row chunks (CHUNKED) and the epilogue (LANES) of one quadrature
+template <typename TabT, bool POWERS, int NMU>
+cudaError_t launch_rows(const void* tab, const void* wparts, const float* T,
+                        const float* drp, const float* wn, const float* minv,
+                        const float* wmu, float* out, float* part, int R,
+                        int Rp, int L, int W, int Fp, int C, int K, int nmu,
+                        cudaStream_t stream) {
+  const bool lanes = K <= 32 && (K & (K - 1)) == 0;
+#define BART_MMA(CHUNKED, LANES)                                              \
+  launch_mma<TabT, POWERS, NMU, CHUNKED, LANES>(tab, wparts, T, drp, wn,      \
+                                                minv, wmu, out, part, R, Rp,  \
+                                                L, W, Fp, C, K, nmu, stream)
+  return Rp > RCH ? (lanes ? BART_MMA(true, true) : BART_MMA(true, false))
+                  : (lanes ? BART_MMA(false, true) : BART_MMA(false, false));
+#undef BART_MMA
 }
 
 // the quadratures in use get unrolled instances: expsum's 8 powers,
@@ -568,44 +658,44 @@ cudaError_t launch_mma(const void* tab, const void* wparts, const float* T,
 template <typename TabT>
 cudaError_t launch_quad(const void* tab, const void* wparts, const float* T,
                         const float* drp, const float* wn, const float* minv,
-                        const float* wmu, float* out, int R, int Rp, int L,
-                        int W, int Fp, int C, int K, int nmu, int powers,
-                        cudaStream_t stream) {
-#define BART_MMA(POWERS, NMU)                                                \
-  (Rp > RCH ? launch_mma<TabT, POWERS, NMU, true>(tab, wparts, T, drp, wn,   \
-                                                  minv, wmu, out, R, Rp, L,  \
-                                                  W, Fp, C, K, nmu, stream)  \
-            : launch_mma<TabT, POWERS, NMU, false>(tab, wparts, T, drp, wn,  \
-                                                   minv, wmu, out, R, Rp, L, \
-                                                   W, Fp, C, K, nmu, stream))
-  return powers ? (nmu == 8 ? BART_MMA(true, 8) : BART_MMA(true, 0))
-                : (nmu == 5 ? BART_MMA(false, 5) : BART_MMA(false, 0));
-#undef BART_MMA
+                        const float* wmu, float* out, float* part, int R,
+                        int Rp, int L, int W, int Fp, int C, int K, int nmu,
+                        int powers, cudaStream_t stream) {
+#define BART_Q(POWERS, NMU)                                                   \
+  launch_rows<TabT, POWERS, NMU>(tab, wparts, T, drp, wn, minv, wmu, out,     \
+                                 part, R, Rp, L, W, Fp, C, K, nmu, stream)
+  return powers ? (nmu == 8 ? BART_Q(true, 8) : BART_Q(true, 0))
+                : (nmu == 5 ? BART_Q(false, 5) : BART_Q(false, 0));
+#undef BART_Q
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  tab [R, L, Fp] is the
 // bin-major fine table whose first W K columns are in use, Fp a multiple
-// of 8; K is a power of two in 2..32.  The weights w as the kernel reads
-// them, zero-padded to Rp rows: for a bfloat16 table (bf16 != 0) the
-// three bfloat16 parts [3, C, L, Rp], smallest first, Rp = R rounded up
-// to 16; for a float32 table [C, L, Rp] float32, Rp = R rounded up to 8.
-// Returns the cudaError_t of the launch: 0 when the kernel was queued on
-// ``stream``.
+// of 8; K >= 2 sub-samples a bin, nmu >= 1 quadrature nodes.  The
+// weights w as the kernel reads them, zero-padded to Rp rows: for a
+// bfloat16 table (bf16 != 0) the three bfloat16 parts [3, C, L, Rp],
+// smallest first, Rp = R rounded up to 16; for a float32 table
+// [C, L, Rp] float32, Rp = R rounded up to 8.  part: where K does not
+// divide the 64-point tile, the straddling bins' partial sums,
+// [C, ceil(W K / 64), 2] float32 (fold_straddle.cuh; else unused, may be
+// null).  Returns the cudaError_t of the launches: 0 when the kernel
+// (and, for a straddling K, the second launch that adds the partial
+// sums) was queued on ``stream``.
 extern "C" int bart_fused_eclipse_folded(
     const void* tab, const void* w, const float* T, const float* drp,
-    const float* wn, const float* minv, const float* wmu, float* out, int R,
-    int Rp, int L, int W, int Fp, int C, int K, int nmu, int powers,
-    int bf16, cudaStream_t stream) {
-  if (nmu < 1 || nmu > MAX_NMU || R < 1 || L < 1 || W < 1 || C < 1 || K < 2 ||
-      K > 32 || (K & (K - 1)) != 0 || (long long)W * K > Fp)
+    const float* wn, const float* minv, const float* wmu, float* out,
+    float* part, int R, int Rp, int L, int W, int Fp, int C, int K, int nmu,
+    int powers, int bf16, cudaStream_t stream) {
+  if (nmu < 1 || R < 1 || L < 1 || W < 1 || C < 1 || K < 2 ||
+      (long long)W * K > Fp)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e =
-      bf16 ? launch_quad<__nv_bfloat16>(tab, w, T, drp, wn, minv, wmu, out, R,
-                                        Rp, L, W, Fp, C, K, nmu, powers,
-                                        stream)
-           : launch_quad<float>(tab, w, T, drp, wn, minv, wmu, out, R, Rp, L,
-                                W, Fp, C, K, nmu, powers, stream);
+      bf16 ? launch_quad<__nv_bfloat16>(tab, w, T, drp, wn, minv, wmu, out,
+                                        part, R, Rp, L, W, Fp, C, K, nmu,
+                                        powers, stream)
+           : launch_quad<float>(tab, w, T, drp, wn, minv, wmu, out, part, R,
+                                Rp, L, W, Fp, C, K, nmu, powers, stream);
   return (int)e;
 }

@@ -19,6 +19,6 @@ extern "C" int bart_fused_transit(const float* tab, const float* wrows,
                                   float* out, float* ext_g, int Rt, int R,
                                   int L, int W, int Wp, int C, int nslot,
                                   cudaStream_t stream) {
-  return launch_transit_mma<float>(tab, wrows, G, wgt, out, ext_g, Rt, R, L,
-                                   W, Wp, C, 1, nslot, stream);
+  return launch_transit_mma<float>(tab, wrows, G, wgt, out, ext_g, nullptr,
+                                   Rt, R, L, W, Wp, C, 1, nslot, stream);
 }

@@ -13,8 +13,9 @@
 //   a       = sum_b wgt[c, b] (1 - exp(-min(tau[b], 88)))   (annuli)
 //
 // and out[c, bin] is the mean of a over the bin's K sub-samples (fine
-// point w = bin K + k; K = 1: out = a).  G comes from slant_geometry and
-// is exactly lower-triangular, so the terms l > b are skipped.
+// point w = bin K + k; K = 1: out = a), for any K >= 1.  G comes from
+// slant_geometry and is exactly lower-triangular, so the terms l > b are
+// skipped.
 //
 // Design.  tau couples every layer of a chain, so ext of all layers stays
 // in shared memory in float32: a block is FT_W = 32 (fine) wavenumbers x
@@ -56,7 +57,14 @@
 //     blocks above the diagonal are neither copied nor multiplied.  The
 //     exponential, the annulus weights and the sum over b run on the
 //     accumulator fragments; shuffles and 32 words of shared memory
-//     finish the sum over b and the mean over k.
+//     finish the sum over b and the mean over k.  Where K divides the
+//     32-point tile lane j adds bin j's K sub-samples.  For any other K
+//     the tiles stay aligned to fine points (their 16-byte cp.async
+//     copies) and a bin may straddle two tiles or span several: lane j
+//     adds the sub-samples of the tile's j-th bin that the tile holds, in
+//     the order of their fine points, writes a bin that lies in the tile
+//     and leaves the sum of a cut bin in a scratch [C][ntile][2], which a
+//     second launch adds in tile order (fold_straddle.cuh; no atomics).
 //  Shared-memory words are swizzled, not padded, where padding would cost
 //  the room for the stages: ext_s rows by their layer, G rows by their
 //  row (conflict-free fragment loads, checked in the comments below).
@@ -104,6 +112,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "fold_straddle.cuh"
 #include "hopper.cuh"
 
 #define FT_W 32      // (fine) wavenumbers per block
@@ -202,7 +211,8 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& lo,
 // Rt..Rp-1 of wrows are zero padding); F of its Fp columns are in use, K
 // of them to an output bin.  kStream: the variant for L > 16 FT_MT, whose
 // ext lives in ext_g, [gridDim.x][FT_CB][Lk][kES] float32 (nullptr
-// otherwise).
+// otherwise).  part: the partial sums of the bins that straddle the
+// FT_W-point tiles, [C][ntile][2] (K not dividing FT_W; fold_straddle.cuh).
 template <typename TabT, bool kStream>
 __global__ void __launch_bounds__(32 * FT_CB, 1)
 fused_transit_mma_kernel(
@@ -212,6 +222,7 @@ fused_transit_mma_kernel(
     const float* __restrict__ wgt,             // [C, L]
     float* __restrict__ out,                   // [C, F / K]
     float* __restrict__ ext_g,
+    float* __restrict__ part,
     int Rt, int Rp, int L, int F, int Fp, int C, int K) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int NT = 32 * FT_CB;
@@ -511,34 +522,59 @@ fused_transit_mma_kernel(
     for (int k = 0; k < 8; ++k) col_s[8 * (k >> 1) + 2 * t + (k & 1)] = col[k];
   }
   __syncwarp();
-  if (lane < FT_W / K) {
-    float v = 0.0f;
-    for (int k = 0; k < K; ++k) v += col_s[lane * K + k];
-    const int w = w0 + lane * K;
-    if (w < F && c < C) out[(size_t)c * (F / K) + w / K] = v / (float)K;
+  if (FT_W % K == 0) {
+    // the tile holds whole bins: lane j sums bin j's K sub-samples
+    if (lane < FT_W / K) {
+      float v = 0.0f;
+      for (int k = 0; k < K; ++k) v += col_s[lane * K + k];
+      const int w = w0 + lane * K;
+      if (w < F && c < C) out[(size_t)c * (F / K) + w / K] = v / (float)K;
+    }
+  } else {
+    // any other K: lane j sums the sub-samples of the tile's j-th bin
+    // that the tile holds, in the order of their fine points (at most
+    // (FT_W - 1) / K + 2 <= 12 bins); a bin cut by the tile leaves its
+    // sum in part for the second launch (fold_straddle.cuh)
+    const int W = F / K, b0 = w0 / K, we = w0 + FT_W;
+    const int b = b0 + lane;
+    if (b <= (we - 1) / K && b < W && c < C) {
+      const int lo = max(b * K, w0), hi = min((b + 1) * K, we);
+      float v = 0.0f;
+      for (int w = lo; w < hi; ++w) v += col_s[w - w0];
+      if (b * K >= w0 && (b + 1) * K <= we)
+        out[(size_t)c * W + b] = v / (float)K;
+      else
+        part[((size_t)c * ((F + FT_W - 1) / FT_W) + w0 / FT_W) * 2 +
+             ((b + 1) * K > we)] = v;
+    }
   }
   }  // item
 }
 
-// Launch on ``stream``; returns the cudaError_t of the launch.  Rp is Rt
-// rounded up to the rows of a unit (16 for a bfloat16 table, 8 for a
+// Launch on ``stream``; returns the cudaError_t of the launches.  Rp is
+// Rt rounded up to the rows of a unit (16 for a bfloat16 table, 8 for a
 // float32 one); Fp a multiple of 16 bytes of TabT.  Up to 16 FT_MT layers
 // the resident kernel runs, one block an item; above, the streamed one on
 // min(items, nslot) blocks, with ext_g [nslot][FT_CB][Lk][kES] float32.
+// Where K does not divide FT_W, part [C][ntile][2] float32 takes the
+// straddling bins' partial sums and a second launch adds them
+// (fold_straddle.cuh).
 template <typename TabT>
 int launch_transit_mma(const void* tab, const float* wrows, const float* Gt,
-                       const float* wgt, float* out, float* ext_g, int Rt,
-                       int Rp, int L, int F, int Fp, int C, int K, int nslot,
-                       cudaStream_t stream) {
+                       const float* wgt, float* out, float* ext_g,
+                       float* part, int Rt, int Rp, int L, int F, int Fp,
+                       int C, int K, int nslot, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int UB = kBf16 ? kUnitBytes : kUnitBytes32;
   const int ntile = (F + FT_W - 1) / FT_W;
   const int ncb = (C + FT_CB - 1) / FT_CB;
   const bool stream_ext = L > 16 * FT_MT;
+  const bool straddles = K >= 1 && fold_straddles<FT_W>(K);
   if (Rt < 1 || Rp < Rt || Rp % (kBf16 ? 16 : 8) != 0 || L < 1 ||
       Fp % (16 / (int)sizeof(TabT)) != 0 || F < 1 || F > Fp || K < 1 ||
-      K > 32 || (K & (K - 1)) != 0 || F % K != 0 || C < 1 ||
-      ntile > 65535 || (stream_ext && (ext_g == nullptr || nslot < 1)))
+      F % K != 0 || C < 1 || ntile > 65535 ||
+      (stream_ext && (ext_g == nullptr || nslot < 1)) ||
+      (straddles && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const TabT* t = static_cast<const TabT*>(tab);
   if (!stream_ext) {
@@ -550,19 +586,22 @@ int launch_transit_mma(const void* tab, const float* wrows, const float* Gt,
     const dim3 grid((BART_ABLATE & 8) ? ntile : ncb,
                     (BART_ABLATE & 8) ? ncb : ntile);
     fused_transit_mma_kernel<TabT, false><<<grid, 32 * FT_CB, smem, stream>>>(
-        t, wrows, Gt, wgt, out, nullptr, Rt, Rp, L, F, Fp, C, K);
-    return (int)cudaGetLastError();
+        t, wrows, Gt, wgt, out, nullptr, part, Rt, Rp, L, F, Fp, C, K);
+  } else {
+    const size_t smem = ft_stream_smem_bytes(L, UB);
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_transit_mma_kernel<TabT, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const long long nitem = (long long)ncb * ntile;
+    const int nblock = nitem < nslot ? (int)nitem : nslot;
+    fused_transit_mma_kernel<TabT, true><<<nblock, 32 * FT_CB, smem, stream>>>(
+        t, wrows, Gt, wgt, out, ext_g, part, Rt, Rp, L, F, Fp, C, K);
   }
-  const size_t smem = ft_stream_smem_bytes(L, UB);
-  const cudaError_t e = cudaFuncSetAttribute(
-      fused_transit_mma_kernel<TabT, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long nitem = (long long)ncb * ntile;
-  const int nblock = nitem < nslot ? (int)nitem : nslot;
-  fused_transit_mma_kernel<TabT, true><<<nblock, 32 * FT_CB, smem, stream>>>(
-      t, wrows, Gt, wgt, out, ext_g, Rt, Rp, L, F, Fp, C, K);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !straddles) return (int)e;
+  return (int)launch_fold_straddle<FT_W>(part, out, C, F / K, K, ntile, 1.0f,
+                                         (float)K, stream);
 }
 
 }  // namespace

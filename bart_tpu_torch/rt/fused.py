@@ -77,9 +77,10 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
-# fused_eclipse.cu: TILE_W, CB, NSTAGE, NTHREADS, MAX_NMU, RCH (the tests
-# check the source)
-_MAX_NMU = 16          # the kernel keeps the quadrature in shared memory
+# fused_eclipse.cu: TILE_W, CB, NSTAGE, NTHREADS, RCH (the tests check
+# the source).  Both eclipse kernels take any number of quadrature nodes:
+# unrolled instances hold 5 (raygrid) or 8 (expsum) in shared memory, the
+# runtime-count instance reads any other count through the read-only cache
 _TILE_W, _CB, _NSTAGE, _NTHREADS = 64, 32, 4, 256
 #: table rows a stage of either eclipse kernel's ring holds: the row axis
 #: streams through the ring in chunks of this many rows (RCH)
@@ -95,8 +96,6 @@ _MMA_K, _MMA_K32 = 16, 8
 #: a RowsTable's wn axis is padded to 16 bytes of float32
 _ROWS_ALIGN = 4
 _MAX_GRID_Y = 65535
-#: sub-samples per bin the folded kernels take: the K lanes of a warp
-_FOLD_K = (2, 4, 8, 16, 32)
 #: the fine axis of a FoldedTable is padded to 16 bytes of bfloat16
 _FOLD_ALIGN = 8
 
@@ -106,8 +105,8 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _KERNELS = {
     "fused_eclipse": [_VP] * 8 + [_CI] * 8 + [_VP],
     "fused_transit": [_VP] * 6 + [_CI] * 7 + [_VP],
-    "fused_eclipse_folded": [_VP] * 8 + [_CI] * 10 + [_VP],
-    "fused_transit_folded": [_VP] * 6 + [_CI] * 9 + [_VP],
+    "fused_eclipse_folded": [_VP] * 9 + [_CI] * 10 + [_VP],
+    "fused_transit_folded": [_VP] * 7 + [_CI] * 9 + [_VP],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -586,9 +585,8 @@ def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
                            ("wrows", wrows, (C, L, R)), ("T", T, (C, L)),
                            ("drp", drp, (C, L))):
         _check("fused_eclipse", name, x, shape, dev)
-    if not 1 <= nmu <= _MAX_NMU:
-        raise ValueError(f"fused_eclipse: {nmu} quadrature nodes, the "
-                         f"kernel takes 1..{_MAX_NMU}")
+    if nmu < 1:
+        raise ValueError("fused_eclipse: no quadrature node")
     if min(R, L, C) < 1:
         raise ValueError("fused_eclipse: empty row, layer or chain axis")
     Rp = -(-R // _MMA_K32) * _MMA_K32
@@ -759,19 +757,40 @@ def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
 fused_transit.launches = 0
 
 
+def _fold_bins(K: int) -> int:
+    """The most output bins a fine tile of the folded eclipse kernel
+    (MTILE_F points, aligned to fine points) touches: MTILE_F / K where K
+    divides the tile, else (MTILE_F - 1) / K + 2, a bin cut at each end
+    (fold_bins in the source)."""
+    if _F_MTILE_F % K == 0:
+        return _F_MTILE_F // K
+    return (_F_MTILE_F - 1) // K + 2
+
+
 def _eclipse_folded_smem(R: int, K: int, bf16: bool) -> int:
     """Bytes of dynamic shared memory a block of the folded eclipse
     kernel needs (as its launcher counts them): NSTAGE stages of a chunk
     of Rs = min(Rp, RCH) rows, the table tile [Rs][MTILE_F + 8] and the
-    weights, then two buffers of Planck means [MTILE_F / K][CBM] in
+    weights, then two buffers of Planck means [_fold_bins(K)][CBM] in
     float32.  bfloat16: the weights' three parts [3][CBM][Rs + 8] in
     bfloat16, Rp = R rounded up to 16; float32: [CBM][Rs + 4] in float32,
-    Rp = R rounded up to 8.  Any R fits: the rows stream through the
-    ring."""
+    Rp = R rounded up to 8.  Any R and any K fit: the rows stream through
+    the ring, and a tile touches at most MTILE_F / 2 bins."""
     eb, parts, depth = (2, 3, _MMA_K) if bf16 else (4, 1, _MMA_K32)
     Rp = min(-(-R // depth) * depth, _RCH)
     stage = eb * (Rp * (_F_MTILE_F + 8) + parts * _F_CBM * (Rp + 16 // eb))
-    return _F_NSTAGE * stage + 2 * 4 * (_F_MTILE_F // K) * _F_CBM
+    return _F_NSTAGE * stage + 2 * 4 * _fold_bins(K) * _F_CBM
+
+
+def _straddle_part(C: int, F: int, K: int, tile: int, dev: torch.device):
+    """The scratch of a folded launch whose K does not divide its fine
+    tile of ``tile`` points (csrc/fold_straddle.cuh): [C, ntile, 2]
+    float32, the partial sums of the bins cut by a tile, which a second
+    launch adds in tile order; None where every bin lies in one tile."""
+    if tile % K == 0:
+        return None
+    return torch.empty((C, -(-F // tile), 2), dtype=torch.float32,
+                       device=dev)
 
 
 def _check_folded(fn: str, ft: FoldedTable, dev: torch.device) -> int:
@@ -785,8 +804,9 @@ def _check_folded(fn: str, ft: FoldedTable, dev: torch.device) -> int:
     if tab.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{fn}: the kernel reads float32 or bfloat16 "
                         f"tables, not {tab.dtype}")
-    if ft.K not in _FOLD_K:
-        raise ValueError(f"{fn}: K = {ft.K}; the kernel takes {_FOLD_K}")
+    if ft.K < 2:
+        raise ValueError(f"{fn}: K = {ft.K}; the folded kernels take K >= 2 "
+                         "(K = 1 is fused_eclipse / fused_transit)")
     if (tab.dim() != 3 or not tab.is_contiguous()
             or tab.shape[2] % _FOLD_ALIGN or ft.W * ft.K > tab.shape[2]
             or ft.W < 1):
@@ -814,8 +834,13 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     and the result is cast to ``T.dtype``.  The fill runs on tensor
     cores: on a bfloat16 table exactly, on the weights' three bfloat16
     parts (``split_bf16``); on a float32 table in 3xTF32, table and
-    weights split in the kernel (``split_tf32``).  It raises on any input
-    the kernel does not take, and never falls back.
+    weights split in the kernel (``split_tf32``).  Any K >= 2 and any
+    number of quadrature nodes: the kernel's tiles are 64 fine points, so
+    where K does not divide 64 a bin may straddle tiles; each tile sums
+    the sub-samples it holds in the order of their fine points, and a
+    second launch adds a cut bin's partial sums in tile order (no
+    atomics: a graphed launch repeats an eager one bit for bit).  It
+    raises on any input the kernel does not take, and never falls back.
     """
     if T.device.type == "cpu":
         return eclipse_folded_plain(ft, wn_out, mu, muw, wrows, T, drp,
@@ -834,9 +859,8 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
                            ("muw", muw, (nmu,)), ("wrows", wrows, (C, L, R)),
                            ("T", T, (C, L)), ("drp", drp, (C, L))):
         _check(fn, name, x, shape, dev)
-    if not 1 <= nmu <= _MAX_NMU:
-        raise ValueError(f"{fn}: {nmu} quadrature nodes, the kernel takes "
-                         f"1..{_MAX_NMU}")
+    if nmu < 1:
+        raise ValueError(f"{fn}: no quadrature node")
     if min(R, L, C) < 1:
         raise ValueError(f"{fn}: empty row, layer or chain axis")
     if -(-W * K // _F_MTILE_F) > _MAX_GRID_Y:
@@ -859,6 +883,7 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     minv = (1.0 / mu32).contiguous()
     wmu = (muw.to(f32) * mu32).contiguous()
     out = torch.empty((C, W), dtype=f32, device=dev)
+    part = _straddle_part(C, W * K, K, _F_MTILE_F, dev)
 
     lib = load_kernel(fn)
     with torch.cuda.device(dev):
@@ -867,6 +892,7 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
             ft.tab.data_ptr(), w.data_ptr(), T32.data_ptr(),
             drp32.data_ptr(), wn32.data_ptr(), minv.data_ptr(),
             wmu.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None,
             R, Rp, L, W, Fp, C, K, nmu, int(bool(powers)), bf16, stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
@@ -893,8 +919,12 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     table is exact, on the weights' three bfloat16 parts (``split_bf16``'s
     rule, applied in the kernel); that of a float32 table and the slant
     product are in 3xTF32 (``split_tf32``).  G may be
-    ``prepare_slant``'s SlantMatrix, which is then not copied.  It raises
-    on any input the kernel does not take, and never falls back.
+    ``prepare_slant``'s SlantMatrix, which is then not copied.  Any
+    K >= 2: the kernel's tiles are 32 fine points, and a bin that
+    straddles tiles is summed as in ``fused_eclipse_folded`` (each tile's
+    sub-samples in fine-point order, the partial sums in tile order by a
+    second launch).  It raises on any input the kernel does not take,
+    and never falls back.
     """
     if wgt.device.type == "cpu":
         return transit_folded_plain(
@@ -928,6 +958,7 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     out = torch.empty((C, W), dtype=f32, device=dev)
 
     scratch, nslot = _ext_scratch(L, C, W * K, dev)
+    part = _straddle_part(C, W * K, K, _FT_W, dev)
 
     lib = load_kernel(fn)
     with torch.cuda.device(dev):
@@ -936,6 +967,7 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
             ft.tab.data_ptr(), wrows32.data_ptr(), Gt.data_ptr(),
             wgt32.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
+            part.data_ptr() if part is not None else None,
             R, Rk, L, W, Fp, C, K, bf16, nslot, stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")

@@ -639,6 +639,13 @@ MANY_ROWS, MANY_LAYERS, MANY_LAYER_ROWS = (122, 137, 226, 512), (113, 200), 226
 #: phase 2b: the K = 1 width (the flagship's 910-3400 cm-1 at 1 cm-1) and
 #: the folded bins (phase 2's) of its random rows
 MANY_W, MANY_FOLD_W = 2491, 1125
+#: phase 2b: sub-samples a bin that the folded kernels' fine tiles (64
+#: points eclipse, 32 transit) do not hold whole (128: the reference's
+#: documented ~1e-5 setting, docs/LINE_SAMPLING.md:62-63), at phase 2's
+#: full-width shapes (R = 27 eclipse, 41 transit); and raygrids past the
+#: old 16-node ceiling, every 5 and every 1 degree (18 and 90 nodes), for
+#: fused_eclipse and for fused_eclipse_folded at K = ANY_NMU_K
+ANY_K, ANY_NMU_STEPS, ANY_NMU_K = (3, 12, 48, 128), (5.0, 1.0), 12
 
 
 def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
@@ -661,7 +668,7 @@ def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
     out = {n: [] for n in REPLACES}
     t_phase = time.perf_counter()
 
-    def run(name, what, kernel, plain, rtol, bands, bnd, nrep):
+    def run(name, what, kernel, plain, rtol, bands, bnd, nrep, **more):
         wrapper = getattr(fused, name)
         n0 = wrapper.launches
         got = kernel()
@@ -675,7 +682,7 @@ def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
                    band_rel_err=e_band, ms=ms, plain_ms=p_ms,
                    launches=wrapper.launches - n0,
                    bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-                   bound_term=bnd["bound_term"])
+                   bound_term=bnd["bound_term"], **more)
         out[name].append(rec)
         print(f"# phase 2b: {name} {what}: max rel err {e:.3e}, band "
               f"{e_band:.3e}, max abs {rec['max_abs_err']:.3e}; kernel "
@@ -772,8 +779,108 @@ def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
                 del fine
             del wrows, G, Gp, wgt
             torch.cuda.empty_cache()
-    print(f"# phase 2b: {sum(map(len, out.values()))} many-row and "
-          f"many-layer checks in {time.perf_counter() - t_phase:.1f} s")
+    t_any = time.perf_counter()
+    n_any = sum(map(len, out.values()))
+
+    # ---- any K: both folded kernels, both table types, both quadratures,
+    # at phase 2's full-width shapes
+    R, W, L = 27, MANY_FOLD_W, 100
+    tab, wn, wrows, T, drp = (torch.tensor(a, **f32) for a in
+                              random_rows(R, L, W, C, seed=7))
+    bands = build_band_matrix(wn.cpu().numpy(), filters,
+                              device=f32["device"], dtype=torch.float32)
+    for Kx in ANY_K:
+        factor = torch.tensor(fine_structure(R, W, Kx), **f32)
+        fine = (tab[..., None] * factor).reshape(R, L, W * Kx)
+        del factor
+        for tdt in (torch.bfloat16, torch.float32):
+            ft = fused.folded_table(fine, Kx, tdt)
+            for quad, ((mu, muw), powers) in quads.items():
+                rest = [torch.tensor(mu, **f32), torch.tensor(muw, **f32),
+                        wrows, T, drp]
+                run("fused_eclipse_folded",
+                    f"R={R} L={L} W={W} x {Kx} C={C} {str(tdt)[6:]} {quad}",
+                    lambda: fused.fused_eclipse_folded(ft, wn, *rest, powers),
+                    lambda: fused.eclipse_folded_plain(ft, wn, *rest, powers),
+                    SPEC_RTOL[powers], bands,
+                    eclipse_bound(R, L, W * Kx, C, len(mu), powers, Kx,
+                                  tdt == torch.bfloat16,
+                                  nbytes(ft.tab, wn, *rest)), 2,
+                    K=Kx, nmu=len(mu))
+            del ft
+        del fine
+        torch.cuda.empty_cache()
+
+    # ---- 18 and 90 quadrature nodes: fused_eclipse at the K = 1 width,
+    # fused_eclipse_folded at K = ANY_NMU_K on the bfloat16 table
+    from bart_tpu_torch.rt.eclipse import raygrid_weights
+
+    factor = torch.tensor(fine_structure(R, W, ANY_NMU_K), **f32)
+    ft = fused.folded_table((tab[..., None] * factor).reshape(
+        R, L, W * ANY_NMU_K), ANY_NMU_K, torch.bfloat16)
+    del factor
+    k1 = [torch.tensor(a, **f32) for a in random_rows(R, L, MANY_W, C,
+                                                      seed=7)]
+    rt = fused.rows_table(k1[0])
+    k1_bands = build_band_matrix(k1[1].cpu().numpy(), filters,
+                                 device=f32["device"], dtype=torch.float32)
+    for step in ANY_NMU_STEPS:
+        mu, muw = (torch.tensor(a, **f32) for a in
+                   raygrid_weights(np.arange(0.0, 90.0, step)))
+        nmu = int(mu.shape[0])
+        rest = [k1[1], mu, muw, *k1[2:]]
+        run("fused_eclipse", f"R={R} L={L} W={MANY_W} C={C} raygrid "
+            f"{nmu} nodes",
+            lambda: fused.fused_eclipse(rt, *rest),
+            lambda: fused.eclipse_plain(k1[0], *rest),
+            SPEC_RTOL[False], k1_bands,
+            eclipse_bound(R, L, MANY_W, C, nmu, False, 1, False,
+                          nbytes(k1[0], *rest)), 3, nmu=nmu)
+        rest = [mu, muw, wrows, T, drp]
+        run("fused_eclipse_folded",
+            f"R={R} L={L} W={W} x {ANY_NMU_K} C={C} bfloat16 raygrid "
+            f"{nmu} nodes",
+            lambda: fused.fused_eclipse_folded(ft, wn, *rest),
+            lambda: fused.eclipse_folded_plain(ft, wn, *rest),
+            SPEC_RTOL[False], bands,
+            eclipse_bound(R, L, W * ANY_NMU_K, C, nmu, False, ANY_NMU_K, True,
+                          nbytes(ft.tab, wn, *rest)), 2,
+            K=ANY_NMU_K, nmu=nmu)
+    del tab, wrows, ft, k1, rt
+    torch.cuda.empty_cache()
+
+    # ---- any K: the folded transit kernel on both table types, resident
+    # (L = 100) at R = 41
+    R = 41
+    tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                          random_transit_rows(R, L, W, C, seed=7)[:4])
+    Gp = fused.prepare_slant(G)
+    bands = build_band_matrix(np.linspace(2500.0, 5000.0, W), filters,
+                              device=f32["device"], dtype=torch.float32)
+    for Kx in ANY_K:
+        factor = torch.tensor(fine_structure(R, W, Kx), **f32)
+        fine = (tab[..., None] * factor).reshape(R, L, W * Kx)
+        del factor
+        for tdt in (torch.bfloat16, torch.float32):
+            ft = fused.folded_table(fine, Kx, tdt)
+            run("fused_transit_folded",
+                f"R={R} L={L} W={W} x {Kx} C={C} {str(tdt)[6:]}",
+                lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt),
+                lambda: fused.transit_folded_plain(ft, wrows, G, wgt),
+                OUT_RTOL, bands,
+                transit_bound(R, L, W * Kx, C, Kx, tdt == torch.bfloat16,
+                              nbytes(ft.tab, wrows, G, wgt)), 2, K=Kx)
+            del ft
+        del fine
+        torch.cuda.empty_cache()
+    del tab, wrows, G, Gp, wgt
+    torch.cuda.empty_cache()
+    print(f"# phase 2b: {sum(map(len, out.values())) - n_any} checks at "
+          f"K = {ANY_K} and {ANY_NMU_STEPS}-degree raygrids in "
+          f"{time.perf_counter() - t_any:.1f} s")
+    print(f"# phase 2b: {sum(map(len, out.values()))} many-row, many-layer, "
+          f"any-K and many-node checks in "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2217,7 +2324,8 @@ def spectrum_vs_plain(fused, label: str, cfg_path: str, loc: str, over: dict,
         k.launches = c                         # comparisons do not count
     _, spec_file = read_spectrum(os.path.join(loc, cfg.outspec), wn=True)
     spec_file = torch.as_tensor(np.asarray(spec_file))
-    rt = fm.tables["tab"]
+    # a folded model's rows are those of its fine table
+    rt = fm.tables["tab"] if "tab" in fm.tables else fm.tables["tabk"]
     R, L = int(rt.tab.shape[0]), int(rt.tab.shape[1])
     e = rel_err(got, ref)
     e_file = rel_err(spec_file, got.cpu())
@@ -2229,7 +2337,8 @@ def spectrum_vs_plain(fused, label: str, cfg_path: str, loc: str, over: dict,
           + f"); launches {run['counts']}; kernels vs plain versions on the "
           f"atm file's profiles: max rel err {e:.3e}; the CLI's file vs "
           f"the in-process spectrum {e_file:.3e}")
-    check((R, L) == (rows_expected, layers),
+    check((R if rows_expected is None else rows_expected, L)
+          == (R, layers),
           f"{label}: the model has {R} rows x {L} layers, expected "
           f"{rows_expected} x {layers}")
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite spectrum")
@@ -2241,7 +2350,10 @@ def spectrum_vs_plain(fused, label: str, cfg_path: str, loc: str, over: dict,
     check(e_file < CLI_SPEC_RTOL,
           f"{label}: the CLI's file vs in-process {e_file}")
     return dict(run=run, rel=e, file_rel=e_file, R=R, L=L,
-                abs=abs_err(got, ref))
+                abs=abs_err(got, ref),
+                nmu=(int(fm.tables["mu"].shape[0])
+                     if fm.config.solution != "transit" else None),
+                fold=fm.fold)
 
 
 def flagship_run(fused, label: str, fold: bool, work: str, smi: str) -> dict:
@@ -2391,6 +2503,211 @@ def cli_fold_kernels(p11: dict) -> list:
             cli_fold_launches={r: n[name] for r, n in runs.items()
                                if mine(r)},
             max_rel_err=c["rel"], **more))
+    return recs
+
+
+#: phase 16 (``--fold-k``): the reference's documented ~1e-5 setting
+#: (docs/LINE_SAMPLING.md:62-63: "rtosamp=128 reaches ~1e-5"), which no
+#: K-lane tiling held; the graphed steps of each folded retrieval (512
+#: chains, CLI_CHAINS); eclipse.cfg's raygrid every 5 degrees (18 angles)
+FOLDK_RTOSAMP, FOLDK_STEPS, FOLDK_BURNIN = 128, 200, 100
+FOLDK_RAYGRID = " ".join(str(a) for a in range(0, 90, 5))
+
+
+def fold_k_phase(fused, f32: dict, smi: str) -> dict:
+    """Phase 16 (``--fold-k``): any K and any quadrature through the
+    port's CLI at full width (100 layers x 2501 output bins x 512 chains,
+    27 T-nodes, CH4 and H2-H2 CIA, the adaptive split 0.02, bfloat16 fine
+    rows).
+
+    (a) ``driver.cli.main`` on eclipse_fold.cfg at ``--rtosamp``
+    FOLDK_RTOSAMP: the fine build on the 320,128-point grid, then 512
+    chains x FOLDK_STEPS graphed steps (finite posterior, acceptance > 0,
+    fused_eclipse_folded and fused_eclipse launched); phase 4b on the
+    CLI's own likelihood (graphed block = eager block bit for bit, each
+    kernel once a step in the trace of a replayed block, the step's
+    times); each kernel on the CLI model's rows against its plain
+    version; ``--justSpectrum`` on its directory against the plain
+    versions.  (b) the same on transit_fold.cfg at the same K, on (a)'s
+    opacity file (its wn, T and pressure grids checked against the
+    transit cfg).  (c) ``--justSpectrum`` of eclipse.cfg with a raygrid
+    every 5 degrees (18 angles) against the plain versions.  Each run's
+    build (opacity stage) seconds and peak GiB, the fine bins the split
+    chose and the graphed step are printed."""
+    import shutil
+
+    import torch
+
+    from bart_tpu_torch.demo import TRUTH, TRUTH_TRANSIT
+    from bart_tpu_torch.driver.pipeline import Pipeline
+    from bart_tpu_torch.opacity.grid import load_grid
+    from bart_tpu_torch.utils.grids import folded_fine_grid
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    demo = os.path.join(root, "examples", "torch_demo")
+    work = os.path.join(root, "build", "phase16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    kernels = (fused.fused_eclipse_folded, fused.fused_eclipse,
+               fused.fused_transit_folded, fused.fused_transit)
+    K = FOLDK_RTOSAMP
+    eloc, tloc = (os.path.join(work, n) for n in ("eclipse", "transit"))
+    opac = os.path.join(eloc, "opacity_CH4.npz")
+    gib = 2.0 ** 30
+    rng = np.random.default_rng(4)
+    likes = {}
+    stage_mcmc = Pipeline.stage_mcmc
+
+    def kept(self, like, space):
+        likes[self.cfg.solution] = (like, space, self.cfg)
+        return stage_mcmc(self, like, space)
+
+    def retrieval(label, cfg_path, loc, extra, solution, truth, spread):
+        """The CLI's folded retrieval, phase 4b on its likelihood, its
+        kernels on its rows, its --justSpectrum against the plain
+        versions."""
+        folded = kernels[2] if solution == "transit" else kernels[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = cli_run(["-c", cfg_path, "--loc_dir", loc, "--rtosamp", str(K),
+                       "--nchains", str(CLI_CHAINS), "--numit",
+                       str(CLI_CHAINS * FOLDK_STEPS), "--burnin",
+                       str(FOLDK_BURNIN), "--plots", "False", "--grtest",
+                       "False", *extra], kernels)
+        peak = torch.cuda.max_memory_allocated() / gib
+        post = np.load(os.path.join(loc, "output.npy"))
+        with open(os.path.join(loc, "MCMC.log")) as f:
+            accept = float(re.findall(r"accept=([0-9.]+)", f.read())[-1])
+        like, space, cfg = likes.pop(solution)
+        fm = like.forward
+        ft = fm.tables["tabk"]
+        n_fine = len(folded_fine_grid(cfg.wavenumber_grid(), cfg.fold_K))
+        nbin = len(cfg.wavenumber_grid())
+        step_ms = 1e3 * run["stages"]["mcmc"] / FOLDK_STEPS
+        source = "loaded" if extra else f"the {n_fine}-point fine build"
+        print(f"# {label} ({smi}): cli {os.path.basename(cfg_path)} "
+              f"--rtosamp {K}: opacity {run['stages']['opacity']} s "
+              f"({source}), "
+              f"mcmc {run['stages']['mcmc']} s = {step_ms:.3f} ms a "
+              f"{CLI_CHAINS}-chain step with the host's stores; peak "
+              f"{peak:.2f} GiB; fine bins {ft.W} of {nbin} "
+              f"({ft.W / nbin:.3f}) x {ft.K}, {str(ft.tab.dtype)[6:]}; "
+              f"accept {accept:.3f}; posterior {post.shape}; launches "
+              f"counted in Python {run['counts']}")
+        check(cfg.fold_K == K and ft.K == K,
+              f"{label}: the model folds {ft.K}, expected {K}")
+        check(0 < ft.W < nbin, f"{label}: {ft.W} fine bins of {nbin}")
+        check(post.shape[0] == CLI_CHAINS and post.shape[2] > 0
+              and bool(np.all(np.isfinite(post))), f"{label}: posterior")
+        check(accept > 0.0, f"{label}: no accepted proposal")
+        check(run["counts"][folded.__name__] > 0,
+              f"{label}: the retrieval launched {run['counts']}")
+        params = torch.tensor(np.tile(truth, (CLI_CHAINS, 1)) + rng.normal(
+            0, 1, (CLI_CHAINS, len(truth))) * spread, **f32)
+        pair = [folded, kernels[3] if solution == "transit" else kernels[1]]
+        step = step_phase(label, like, space, fm, params, pair)
+        print_steps(label, step, smi)
+        del like, space
+        kern = fold_path_kernels(fused, fm, params)
+        del fm
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = spectrum_vs_plain(
+            fused, f"{label} --justSpectrum", cfg_path, loc,
+            {"rtosamp": K, **{k.lstrip("-"): v
+                              for k, v in zip(extra[::2], extra[1::2])}},
+            kernels,
+            None, 100)
+        check(spec["fold"] == K, f"{label}: --justSpectrum's model folds "
+              f"{spec['fold']}")
+        check(spec["run"]["counts"][folded.__name__] > 0,
+              f"{label}: --justSpectrum launched {spec['run']['counts']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(run=run, peak=peak, step=step, kern=kern, spec=spec,
+                    fine_bins=ft.W, bins=nbin, step_ms=step_ms,
+                    accept=accept)
+
+    Pipeline.stage_mcmc = kept
+    out = {}
+    try:
+        # (a) eclipse_fold.cfg: the fine build and the retrieval
+        out["eclipse"] = retrieval("phase 16 (a)", os.path.join(
+            demo, "eclipse_fold.cfg"), eloc, [], "eclipse", TRUTH,
+            FOLD_CHECK_SPREAD)
+        # (b) transit_fold.cfg on (a)'s table
+        tcfg = os.path.join(demo, "transit_fold.cfg")
+        from bart_tpu_torch.driver.config import load_config
+
+        tc = load_config(tcfg, {"rtosamp": str(K)})
+        grid = load_grid(opac, device="cpu")
+        t_grid = np.arange(tc.tlow, tc.thigh + tc.tempdelt / 2, tc.tempdelt)
+        same = (np.array_equal(grid.wn_grid, folded_fine_grid(
+            tc.wavenumber_grid(), K)) and np.array_equal(grid.t_grid, t_grid))
+        print(f"# phase 16 (b): eclipse_fold.cfg's opacity file "
+              f"{tuple(grid.sigma.shape)} has transit_fold.cfg's wn and T "
+              f"grids at rtosamp {K}: {same}")
+        del grid
+        check(same, "eclipse_fold.cfg's opacity file is not transit_fold."
+              "cfg's table: build it for transit")
+        out["transit"] = retrieval(
+            "phase 16 (b)", tcfg, tloc, ["--opacityfile", opac], "transit",
+            TRUTH_TRANSIT, np.where(np.arange(len(TRUTH_TRANSIT)) == 5, 10.0,
+                                    FOLD_CHECK_SPREAD))
+    finally:
+        Pipeline.stage_mcmc = stage_mcmc
+
+    # (c) eclipse.cfg with an 18-angle raygrid, --justSpectrum
+    torch.cuda.reset_peak_memory_stats()
+    out["raygrid18"] = r18 = spectrum_vs_plain(
+        fused, "phase 16 (c) eclipse.cfg, raygrid every 5 degrees",
+        os.path.join(demo, "eclipse.cfg"), os.path.join(work, "raygrid18"),
+        {"raygrid": FOLDK_RAYGRID}, kernels, None, 100)
+    r18["peak"] = torch.cuda.max_memory_allocated() / gib
+    print(f"# phase 16 (c) ({smi}): eclipse.cfg raygrid {FOLDK_RAYGRID}: "
+          f"{r18['nmu']} nodes; opacity {r18['run']['stages']['opacity']} s, "
+          f"peak {r18['peak']:.2f} GiB")
+    check(r18["nmu"] == 18 and r18["fold"] == 1,
+          f"phase 16 (c): {r18['nmu']} nodes, fold {r18['fold']}")
+    check(r18["run"]["counts"]["fused_eclipse"] > 0,
+          f"phase 16 (c): --justSpectrum launched {r18['run']['counts']}")
+    for geo in ("eclipse", "transit"):
+        for name, c in out[geo]["kern"].items():
+            print(f"# phase 16 ({smi}): {name} on the CLI's {geo} rows "
+                  f"(R={c['R']} W={c['W']} K={c['K']} C={CLI_CHAINS}): max "
+                  f"rel err {c['rel']:.3e}, abs {c['abs']:.3e}; kernel "
+                  f"{c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
+                  f"{c['bound']['bound_ms']:.3f} ms "
+                  f"({c['bound']['bound_term']})")
+    print(f"# phase 16 ({smi}): {time.perf_counter() - t_phase:.1f} s for "
+          "the phase")
+    return out
+
+
+def fold_k_kernels(p16: dict) -> list:
+    """Phase 16's kernels line: each kernel on the CLI models' own rows
+    (launches: the trace of a replayed block of phase 4b; python_launches:
+    the wrapper's count in the retrieval and its --justSpectrum), with the
+    18-angle --justSpectrum's errors beside fused_eclipse."""
+    recs = []
+    for geo in ("eclipse", "transit"):
+        g = p16[geo]
+        for name, c in g["kern"].items():
+            more = dict(R=c["R"], W=c["W"], K=c["K"], max_rel_err=c["rel"],
+                        python_launches=g["run"]["counts"][name]
+                        + g["spec"]["run"]["counts"][name],
+                        spectrum_rel_err=g["spec"]["rel"])
+            if name == "fused_eclipse":
+                r18 = p16["raygrid18"]
+                more["raygrid18"] = dict(
+                    nmu=r18["nmu"], max_rel_err=r18["rel"],
+                    max_abs_err=r18["abs"],
+                    launches=r18["run"]["counts"][name])
+            recs.append(kernel_record(name, c["abs"], c["ms"], c["plain_ms"],
+                                      c["bound"],
+                                      g["step"]["counts"].get(name, 0),
+                                      **more))
     return recs
 
 
@@ -4108,6 +4425,15 @@ def main() -> int:
         return 0
     if "--bench" in sys.argv[1:]:
         bench_phase(smi.strip())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--fold-k" in sys.argv[1:]:
+        p16 = fold_k_phase(fused, f32, smi.strip())
+        print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+              "start to the records")
+        print(json.dumps({"kernels": fold_k_kernels(p16)}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

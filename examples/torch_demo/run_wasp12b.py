@@ -81,7 +81,8 @@ def run(argv=None) -> tuple[int, dict]:
 
     cfg_path = CFG
     if args.fold:
-        assert not args.short, "--fold and --short are exclusive"
+        if args.short:
+            ap.error("--fold and --short are exclusive")
         cfg_path = FOLD_CFG
     outdir = args.outdir or os.path.join(
         HERE, "wasp12b_out" + ("_short" if args.short else "")
@@ -129,7 +130,8 @@ def run(argv=None) -> tuple[int, dict]:
     bf, _, ok = fm(torch.as_tensor(truth_full[None], dtype=p.dtype,
                                    device=p.device))
     bf = bf[0].double().cpu().numpy()
-    assert bool(ok[0]), "truth parameters rejected by the forward model"
+    if not bool(ok[0]):
+        raise RuntimeError("truth parameters rejected by the forward model")
 
     data = load_data_array(cfg.data)
     uncert = load_data_array(cfg.uncert)
@@ -147,10 +149,11 @@ def run(argv=None) -> tuple[int, dict]:
         pull_truth = float(np.max(np.abs(bf - data) / uncert))
         print(f"model(truth) vs committed depths: max pull "
               f"{pull_truth:.3f} sigma")
-        assert pull_truth < 0.5, (
-            f"committed WASP-12b depths no longer reproduce the truth "
-            f"model (max pull {pull_truth:.2f} sigma) — the forward "
-            f"model changed numerically")
+        if not pull_truth < 0.5:
+            raise RuntimeError(
+                f"committed WASP-12b depths no longer reproduce the truth "
+                f"model (max pull {pull_truth:.2f} sigma) — the forward "
+                f"model changed numerically")
 
     t0 = time.time()
     result = p.stage_mcmc(like, space)

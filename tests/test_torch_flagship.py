@@ -257,7 +257,7 @@ def _original_timing_keys() -> set:
 
 
 def test_runner_writes_the_originals_timing_keys(work, tmp_path,
-                                                 monkeypatch):
+                                                 monkeypatch, capsys):
     """run_wasp12b.py --short on the CPU at the tiny size, 3 blocks of
     100 steps: its checks run, and its JSON holds exactly the original's
     keys with values of the same kinds."""
@@ -286,8 +286,11 @@ def test_runner_writes_the_originals_timing_keys(work, tmp_path,
                                          "CO2", "CO", "CH4"}
     assert np.isfinite(timing["chi2_best"]) and timing["mcmc_s"] > 0
     assert state["result"].posterior.shape[:2] == (16, 7)
-    with pytest.raises(AssertionError, match="exclusive"):
+    # a usage error (argparse's exit 2), which holds under python -O too
+    with pytest.raises(SystemExit) as exc:
         runner.run(["--short", "--fold", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "--fold and --short are exclusive" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------

@@ -328,8 +328,9 @@ def test_folded_kernel_source_constants_match_python():
     np.testing.assert_allclose(lit("kC1"), C1, rtol=1e-15)
     np.testing.assert_allclose(lit("kC2"), const.C2, rtol=1e-15)
     assert lit("kTauClamp") == fused.TAU_CLAMP
-    for macro, value in (("MAX_NMU", fused._MAX_NMU),
-                         ("MTILE_F", fused._F_MTILE_F),
+    # any quadrature: the node ceiling is gone from source and wrapper
+    assert "MAX_NMU" not in src and not hasattr(fused, "_MAX_NMU")
+    for macro, value in (("MTILE_F", fused._F_MTILE_F),
                          ("CBM", fused._F_CBM), ("NSTAGE", fused._F_NSTAGE),
                          ("MTHREADS", fused._F_MTHREADS)):
         assert re.search(rf"#define {macro} (\d+)", src).group(1) == str(value)
@@ -347,15 +348,28 @@ def test_folded_kernel_source_constants_match_python():
     assert fused._MMA_K == 16 and "mma_bf16(" in src and "mma_bf16(" in tsrc
     assert fused._MMA_K32 == 8 and "mma_tf32(" in src and "mma_tf32(" in tsrc
     assert len(re.findall(r"__global__", src)) == 1
-    # one kernel template: table type, quadrature and whether the row
-    # axis streams through the ring in chunks of RCH rows
-    assert ("template <typename TabT, bool POWERS, int NMU, bool CHUNKED>"
-            in src)
+    # one kernel template: table type, quadrature, whether the row axis
+    # streams through the ring in chunks of RCH rows and whether a bin's
+    # sub-samples are neighbouring lanes (K a power of two up to 32)
+    assert ("template <typename TabT, bool POWERS, int NMU, bool CHUNKED, "
+            "bool LANES>" in src)
     assert re.search(r"#define RCH (\d+)", src).group(1) == str(fused._RCH)
     assert set(fused._KERNELS) == {p.stem for p in fused._CSRC.glob("*.cu")}
-    # every sub-sample count the wrappers let through is a lane group
-    assert all(32 % k == 0 and fused._F_MTILE_F % k == 0
-               and fused._FT_W % k == 0 for k in fused._FOLD_K)
+    # any K >= 2: both folded kernels include the second launch that adds
+    # the partial sums of the bins their tiles cut, and the wrappers give
+    # it a scratch exactly where K does not divide the tile
+    assert not hasattr(fused, "_FOLD_K")
+    for text in (src, tsrc):
+        assert '#include "fold_straddle.cuh"' in text
+        assert "launch_fold_straddle<" in text
+    cpu = torch.device("cpu")
+    for k in (2, 3, 4, 6, 8, 12, 16, 32, 48, 64, 128):
+        for tile in (fused._F_MTILE_F, fused._FT_W):
+            part = fused._straddle_part(5, 75 * k, k, tile, cpu)
+            assert (part is None) == (tile % k == 0)
+            if part is not None:
+                assert part.shape == (5, -(-75 * k // tile), 2)
+                assert part.dtype == F32
 
 
 # ---------------------------------------------------------------------
@@ -370,9 +384,16 @@ def cuda_device():
     return resolve_device("cuda")
 
 
+#: every K the card tests take: the powers of two whose bins the tiles
+#: hold whole, and K that straddle the eclipse kernel's 64-point and the
+#: transit kernel's 32-point tiles (64: whole eclipse tiles, two transit
+#: tiles a bin; 128: two eclipse tiles a bin)
+CARD_K = [2, 4, 8, 32, 3, 6, 12, 48, 64, 128]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("table_dtype", [F32, BF16])
-@pytest.mark.parametrize("k", [2, 4, 8, 32])
+@pytest.mark.parametrize("k", CARD_K)
 @pytest.mark.parametrize("quad", ["raygrid", "expsum"])
 def test_eclipse_folded_kernel_matches_plain_on_card(cuda_device, quad, k,
                                                      table_dtype):
@@ -392,7 +413,29 @@ def test_eclipse_folded_kernel_matches_plain_on_card(cuda_device, quad, k,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("table_dtype", [F32, BF16])
-@pytest.mark.parametrize("k", [2, 4, 8, 32])
+@pytest.mark.parametrize("k", [4, 3, 48])
+@pytest.mark.parametrize("step", [5.0, 1.0])
+def test_eclipse_folded_kernel_many_nodes_on_card(cuda_device, step, k,
+                                                  table_dtype):
+    """Past the old 16-node ceiling: a raygrid every 5 degrees (18
+    nodes) and every degree (90 nodes), read by the runtime-count
+    instance through the read-only cache."""
+    fine, args, _ = _eclipse("raygrid", (19, 23, 75, 6), k)
+    mu, muw = raygrid_weights(np.arange(0.0, 90.0, step))
+    assert len(mu) == round(90 / step)
+    ft = _ft(fine, k, F32, table_dtype, cuda_device)
+    rest = [_t(a, F32, cuda_device)
+            for a in (args[1], mu, muw, *args[4:])]
+    got = fused.fused_eclipse_folded(ft, *rest)
+    ref = fused.eclipse_folded_plain(ft, *rest)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table_dtype", [F32, BF16])
+@pytest.mark.parametrize("k", CARD_K)
 def test_transit_folded_kernel_matches_plain_on_card(cuda_device, k,
                                                      table_dtype):
     fine, args = _transit((41, 23, 75, 6), k)
@@ -417,12 +460,20 @@ _RAGGED_ECLIPSE = [(16, 23, 15, 17, 4), (48, 23, 17, 33, 4),
                    (33, 12, 9, 17, 16),
                    # past the old row ceiling: chunks of 64 rows, the
                    # last one short
-                   (226, 23, 17, 33, 4), (137, 12, 9, 17, 32)]
+                   (226, 23, 17, 33, 4), (137, 12, 9, 17, 32),
+                   # K that straddle the tiles, with ragged chains and rows
+                   (16, 23, 31, 17, 3), (48, 23, 9, 33, 48),
+                   (137, 12, 5, 17, 128)]
 _RAGGED_TRANSIT = [(16, 23, 7, 17, 4), (48, 23, 9, 33, 4),
                    (41, 23, 75, 6, 16), (17, 100, 5, 9, 32),
                    (33, 104, 3, 17, 16),
                    # past the old layer ceiling: the streamed variant
-                   (17, 113, 5, 9, 32), (226, 130, 7, 17, 4)]
+                   (17, 113, 5, 9, 32), (226, 130, 7, 17, 4),
+                   # K that straddle the 32-point tiles, resident and
+                   # streamed (L = 113, 200)
+                   (16, 23, 11, 17, 3), (41, 100, 7, 9, 48),
+                   (17, 113, 5, 9, 3), (33, 200, 3, 17, 48),
+                   (17, 113, 3, 9, 128), (48, 200, 5, 9, 6)]
 
 
 @pytest.mark.gpu
@@ -498,14 +549,53 @@ def test_tensor_core_fill_keeps_tiny_weights_on_card(cuda_device, geometry,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 48])
+@pytest.mark.parametrize("geometry", ["eclipse", "transit"])
+def test_straddling_k_repeats_its_bits_and_graphs_on_card(cuda_device,
+                                                          geometry, k):
+    """The partial sums of a cut bin are added in tile order, without
+    atomics: two launches give the same bits, and so does a replay of a
+    captured launch."""
+    if geometry == "eclipse":
+        fine, args, powers = _eclipse("expsum", (19, 23, 75, 40), k)
+        run = lambda ft, r: fused.fused_eclipse_folded(ft, *r, powers=powers)
+    else:
+        fine, args = _transit((41, 23, 75, 40), k)
+        run = lambda ft, r: fused.fused_transit_folded(ft, *r)
+    ft = _ft(fine, k, F32, BF16, cuda_device)
+    rest = [_t(a, F32, cuda_device) for a in args[1:]]
+    first, second = run(ft, rest), run(ft, rest)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(ft, rest)                                       # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run(ft, rest)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, captured)
+
+
+@pytest.mark.gpu
 def test_folded_kernels_raise_on_what_they_do_not_take(cuda_device):
     fine, args, _ = _eclipse(shape=(5, 9, 12, 3), k=4)
     rest = [_t(a, F32, cuda_device) for a in args[1:]]
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fused.fused_eclipse_folded(_ft(fine, 4, F64, None, cuda_device), *rest)
-    odd = fused.FoldedTable(_t(np.ones((5, 9, 16)), F32, cuda_device), 3, 5)
-    with pytest.raises(ValueError, match="K = 3"):
-        fused.fused_eclipse_folded(odd, *rest)
+    # K = 3 is taken (it used to raise); K = 1 and 0 are not folded
+    fine3, args3, _ = _eclipse(shape=(5, 9, 12, 3), k=3)
+    ft3 = _ft(fine3, 3, F32, None, cuda_device)
+    rest3 = [_t(a, F32, cuda_device) for a in args3[1:]]
+    np.testing.assert_allclose(
+        fused.fused_eclipse_folded(ft3, *rest3).cpu().numpy(),
+        fused.eclipse_folded_plain(ft3, *rest3).cpu().numpy(), rtol=1e-4)
+    for k in (1, 0):
+        flat = fused.FoldedTable(_t(np.ones((5, 9, 16)), F32, cuda_device),
+                                 k, 12)
+        with pytest.raises(ValueError, match=f"K = {k}; the folded kernels"):
+            fused.fused_eclipse_folded(flat, *rest)
     # past the resident kernel's 112 layers: the streamed variant takes
     # them; the annulus weights' shared memory caps L at 4,704
     for L, table_dtype in ((200, F32), (200, BF16), (113, BF16)):

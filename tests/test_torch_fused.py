@@ -26,7 +26,10 @@ from bart_tpu_torch.rt.eclipse import expsum_weights, raygrid_weights
 from bart_tpu_torch.rt.planck import C1
 
 QUADS = {"raygrid": (raygrid_weights([0.0, 20.0, 40.0, 60.0, 80.0]), False),
-         "expsum": (expsum_weights(8), True)}
+         "expsum": (expsum_weights(8), True),
+         # past the old 16-node ceiling: every 5 degrees and every degree
+         "raygrid18": (raygrid_weights(np.arange(0.0, 90.0, 5.0)), False),
+         "raygrid90": (raygrid_weights(np.arange(0.0, 90.0, 1.0)), False)}
 
 
 @pytest.fixture(autouse=True)
@@ -159,9 +162,13 @@ def test_kernel_source_constants_match_python():
     np.testing.assert_allclose(lit("kC1"), C1, rtol=1e-15)
     np.testing.assert_allclose(lit("kC2"), const.C2, rtol=1e-15)
     assert lit("kTauClamp") == fused.TAU_CLAMP
-    for macro, value in (("TILE_W", fused._TILE_W), ("CB", fused._CB),
-                         ("MAX_NMU", fused._MAX_NMU)):
+    for macro, value in (("TILE_W", fused._TILE_W), ("CB", fused._CB)):
         assert re.search(rf"#define {macro} (\d+)", src).group(1) == str(value)
+    # any number of quadrature nodes: no ceiling in the source or the
+    # wrapper, the runtime-count instance reads the nodes through the
+    # read-only cache and the unrolled ones (5, 8) from shared memory
+    assert "MAX_NMU" not in src and not hasattr(fused, "_MAX_NMU")
+    assert "__ldg(wmu + q)" in src and "minv_s[NMU ? NMU : 1]" in src
 
 
 @pytest.fixture
@@ -174,7 +181,8 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("quad", ["raygrid", "expsum"])
+@pytest.mark.parametrize("quad", ["raygrid", "expsum", "raygrid18",
+                                  "raygrid90"])
 @pytest.mark.parametrize("shape", [(23, 300, 6), (100, 2501, 64)])
 def test_kernel_matches_plain_on_card(cuda_device, quad, shape):
     L, W, C = shape

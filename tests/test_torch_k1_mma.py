@@ -269,9 +269,11 @@ def test_eclipse_source_constants_and_smem_match_python():
     env = _macros(src)
     for macro, value in (("TILE_W", fused._TILE_W), ("CB", fused._CB),
                          ("NSTAGE", fused._NSTAGE),
-                         ("NTHREADS", fused._NTHREADS),
-                         ("MAX_NMU", fused._MAX_NMU), ("RCH", fused._RCH)):
+                         ("NTHREADS", fused._NTHREADS), ("RCH", fused._RCH)):
         assert env[macro] == value
+    # the quadrature has no node ceiling: shared memory does not hold it
+    # beyond the unrolled instances' own NMU nodes
+    assert "MAX_NMU" not in env and not hasattr(fused, "_MAX_NMU")
     assert '#include "hopper.cuh"' in src and "mma_tf32(" in src
     assert "extern \"C\" int bart_fused_eclipse(" in src
     env["kTS"] = eval(re.search(r"constexpr int kTS = ([^;]+);", src).group(1),
@@ -507,9 +509,10 @@ def test_eclipse_kernel_matches_plain_on_card(cuda_device, quad, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nmu", [1, 3, 16])
+@pytest.mark.parametrize("nmu", [1, 3, 16, 17, 90])
 def test_eclipse_kernel_takes_any_quadrature_size(cuda_device, nmu):
-    """The instances without an unrolled quadrature."""
+    """The instances without an unrolled quadrature, past the old
+    16-node ceiling too (the nodes through the read-only cache)."""
     rng = np.random.default_rng(nmu)
     mu = _t(np.sort(rng.uniform(0.1, 1.0, nmu)), F32).to(cuda_device)
     muw = _t(rng.uniform(0.1, 1.0, nmu) / nmu, F32).to(cuda_device)
@@ -520,9 +523,8 @@ def test_eclipse_kernel_takes_any_quadrature_size(cuda_device, nmu):
         ref = fused.eclipse_plain(tab, wn, mu, muw, wrows, T, drp, powers)
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=2e-4 if powers else 1e-4)
-    with pytest.raises(ValueError, match="quadrature nodes"):
-        fused.fused_eclipse(tab, wn, mu.repeat(17)[:17], muw.repeat(17)[:17],
-                            wrows, T, drp)
+    with pytest.raises(ValueError, match="no quadrature node"):
+        fused.fused_eclipse(tab, wn, mu[:0], muw[:0], wrows, T, drp)
 
 
 @pytest.mark.gpu

@@ -192,15 +192,15 @@ def _emulated_transit(ft, wrows32, G32, wgt):
     return torch.bmm(wgt[:, None, :], abar / ft.K)[:, 0]
 
 
-def _eclipse_case(quad, table_dtype=BF16, shape=SHAPE):
+def _eclipse_case(quad, table_dtype=BF16, shape=SHAPE, k=K):
     (mu, muw), powers = QUADS[quad]
     tab, wn, wrows, T, drp = random_rows(*shape)
     wrows = wrows * min(1.0, 27.0 / shape[0])   # tau of order one inside
     if table_dtype == BF16:
-        ft, ft64 = _bf16_table(_fine(tab))
+        ft, ft64 = _bf16_table(_fine(tab, k), k)
     else:
-        ft = fused.folded_table(_t(_fine(tab), F32), K)
-        ft64 = fused.FoldedTable(ft.tab.double(), K, ft.W)
+        ft = fused.folded_table(_t(_fine(tab, k), F32), k)
+        ft64 = fused.FoldedTable(ft.tab.double(), k, ft.W)
     wrows32 = _t(wrows, F32)
     rest = [_t(wn), _t(mu), _t(muw), wrows32.double(), _t(T), _t(drp)]
     return ft, ft64, wrows32, rest, powers
@@ -307,9 +307,9 @@ def test_one_tf32_pass_would_not_hold_the_tolerance():
     assert float(((one.double() - ext64).abs() / ext64).max()) > 2e-6
 
 
-def _transit_case(shape=SHAPE):
+def _transit_case(shape=SHAPE, k=K):
     tab, wrows, G, wgt, _ = random_transit_rows(*shape)
-    ft, ft64 = _bf16_table(_fine(tab))
+    ft, ft64 = _bf16_table(_fine(tab, k), k)
     wrows32, G32 = _t(wrows, F32), _t(G, F32)
     return ft, ft64, wrows32, G32, _t(wgt)
 
@@ -351,25 +351,130 @@ def test_a_two_part_split_would_not_hold_the_tolerance():
 
 
 # ---------------------------------------------------------------------
+# (b') a K that does not divide the kernels' fine tiles: the tile-order
+# sum of partials (csrc/fold_straddle.cuh)
+
+def _tile_order_sum(v, k, tile, mul, div):
+    """out [C, W] from per-fine-point values v [C, W k] (float32) as the
+    folded kernels' epilogue and second launch form it for a K that does
+    not divide their ``tile`` fine points: each tile sums its part of a
+    bin in the order of the fine points; a bin inside one tile is written
+    as (its sum) times mul / div, a cut bin's partial sums are added in
+    tile order, then scaled the same way.  All in float32.  Returns (out,
+    the number of cut bins)."""
+    v = v.numpy()
+    C, F = v.shape
+    W, one = F // k, np.float32
+    out = np.empty((C, W), np.float32)
+    cut = 0
+    for b in range(W):
+        parts = []
+        for t in range(b * k // tile, ((b + 1) * k - 1) // tile + 1):
+            acc = np.zeros(C, np.float32)
+            for f in range(max(b * k, t * tile), min((b + 1) * k,
+                                                     (t + 1) * tile)):
+                acc = acc + v[:, f]
+            parts.append(acc)
+        tot = parts[0]
+        for p_ in parts[1:]:
+            tot = tot + p_
+        cut += len(parts) > 1
+        out[:, b] = tot * one(mul) / one(div)
+    return torch.tensor(out), cut
+
+
+def _emulated_eclipse_fine(ft, wn, mu, muw, wrows32, T, drp, powers):
+    """The flux of every fine point, F_f + B_{L-1} S_{L-1, f}, with the
+    emulated fill (Planck at the bin centre), in float64: the values the
+    kernel sums over a bin's sub-samples."""
+    B = planck_wn(wn, T[..., None])                           # [C, L, W]
+    Bmid = 0.5 * (B[:, :-1] + B[:, 1:])
+    out = []
+    for k in range(ft.K):
+        ext = _emulated_ext(ft, wrows32, k).double()
+        seg = 0.5 * (ext[:, :-1] + ext[:, 1:]) * drp[:, 1:, None]
+        tau = torch.cat([torch.zeros_like(ext[:, :1]),
+                         torch.cumsum(seg, dim=1)], dim=1)
+        S = fused.smix(tau, mu, muw, powers)
+        out.append(torch.sum(Bmid * (S[:, :-1] - S[:, 1:]), dim=1)
+                   + B[:, -1] * S[:, -1])
+    return torch.stack(out, -1).flatten(1)                    # [C, W K]
+
+
+@pytest.mark.parametrize("k", [3, 48])
+def test_emulated_straddling_eclipse_agrees_with_the_plain_version(k):
+    """The eclipse kernel's 64-point tiles: at K = 3 a bin is cut by a
+    tile boundary every 64 / 3 bins, at K = 48 every other bin is."""
+    ft, ft64, wrows32, rest, powers = _eclipse_case("expsum", k=k)
+    v = _emulated_eclipse_fine(ft, *rest[:3], wrows32, *rest[4:], powers)
+    got, cut = _tile_order_sum(v.float(), k, fused._F_MTILE_F,
+                               2.0 * np.float32(np.pi) / np.float32(k), 1.0)
+    assert cut > 0 and fused._F_MTILE_F % k
+    ref = fused.eclipse_folded_plain(ft64, *rest, powers=powers)
+    # float32 sums of up to K positive fluxes
+    np.testing.assert_allclose(got.double().numpy(), ref.numpy(), rtol=5e-6)
+
+
+@pytest.mark.parametrize("k", [3, 48])
+def test_emulated_straddling_transit_agrees_with_the_plain_version(k):
+    """The transit kernel's 32-point tiles: at K = 48 every bin spans two
+    or three tiles."""
+    ft, ft64, wrows32, G32, wgt = _transit_case(k=k)
+    Gb, Gs = fused.split_tf32(torch.tril(G32))
+    a = []
+    for j in range(k):
+        eb, es = fused.split_tf32(_emulated_ext(ft, wrows32, j))
+        tau = torch.bmm(Gs, eb) + torch.bmm(Gb, es) + torch.bmm(Gb, eb)
+        absorb = 1.0 - torch.exp(-torch.clamp(tau.double(), max=TAU_CLAMP))
+        a.append(torch.bmm(wgt[:, None, :], absorb)[:, 0])
+    v = torch.stack(a, -1).flatten(1)                         # [C, W K]
+    got, cut = _tile_order_sum(v.float(), k, fused._FT_W, 1.0, k)
+    assert cut > 0 and fused._FT_W % k
+    ref = fused.transit_folded_plain(ft64, wrows32.double(), G32.double(),
+                                     wgt)
+    np.testing.assert_allclose(got.double().numpy(), ref.numpy(), rtol=5e-6)
+
+
+def test_tile_order_sum_of_a_dividing_k_is_the_bin_sum():
+    """Where K divides the tile no bin is cut, and the sum is the plain
+    one of the bin's sub-samples in their order."""
+    v = torch.rand(3, 16 * 24, generator=torch.Generator().manual_seed(2))
+    got, cut = _tile_order_sum(v, 16, 64, 1.0, 16.0)
+    assert cut == 0
+    want = v.reshape(3, 24, 16)
+    acc = want[..., 0].clone()
+    for j in range(1, 16):
+        acc = acc + want[..., j]
+    assert torch.equal(got, acc / 16.0)
+
+
+# ---------------------------------------------------------------------
 # (c) sources, shared memory, limits, the prepared slant matrix
 
 def _macros(src):
     return {m: int(v) for m, v in re.findall(r"#define (\w+) (\d+)\b", src)}
 
 
-def _cxx_return(src, name, env):
+def _cxx_return(src, name, env, kind="size_t"):
     """Evaluate the single return expression of the constexpr function
-    ``name`` of a source, with ``env`` for its parameters and helpers."""
-    body = re.search(rf"constexpr size_t {name}\([^)]*\) {{\s*return (.*?);\s*}}",
-                     src, re.S).group(1)
+    ``name`` of a source, with ``env`` for its parameters and helpers
+    (one conditional ``a ? b : c`` at the top is read as Python's)."""
+    body = re.search(
+        rf"constexpr {kind} {name}\([^)]*\) {{\s*return (.*?);\s*}}", src,
+        re.S).group(1)
     expr = re.sub(r"\(size_t\)", "", body).replace("/", "//")
+    cond = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr, re.S)
+    if cond:
+        expr = f"({cond.group(2)}) if ({cond.group(1)}) else ({cond.group(3)})"
     return eval(f"({expr})", {"__builtins__": {}}, env)
 
 
 def test_eclipse_mma_source_constants_and_smem_match_python():
     src = (fused._CSRC / "fused_eclipse_folded.cu").read_text()
     env = _macros(src)
-    assert set(env) >= {"MTILE_F", "CBM", "NSTAGE", "MTHREADS", "MAX_NMU"}
+    assert set(env) >= {"MTILE_F", "CBM", "NSTAGE", "MTHREADS"}
+    # any quadrature: no node ceiling is left in the source
+    assert "MAX_NMU" not in src and not hasattr(fused, "_MAX_NMU")
     for macro, value in (("MTILE_F", fused._F_MTILE_F), ("CBM", fused._F_CBM),
                          ("NSTAGE", fused._F_NSTAGE),
                          ("MTHREADS", fused._F_MTHREADS), ("RCH", fused._RCH)):
@@ -379,9 +484,15 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
     assert '#include "hopper.cuh"' in src
     env["mma_stage_bytes"] = lambda rs, eb, np_: _cxx_return(
         src, "mma_stage_bytes", {**env, "Rs": rs, "eb": eb, "np": np_})
+    env["fold_bins"] = lambda k: _cxx_return(src, "fold_bins",
+                                             {**env, "K": k}, "int")
+    for k in range(2, 257):
+        assert fused._fold_bins(k) == env["fold_bins"](k)
     for bf16, eb, parts, depth in ((True, 2, 3, 16), (False, 4, 1, 8)):
         for R, k in ((27, 32), (19, 2), (16, 4), (48, 8), (41, 16),
-                     (122, 32), (137, 32), (226, 32), (512, 32), (226, 4)):
+                     (122, 32), (137, 32), (226, 32), (512, 32), (226, 4),
+                     (27, 3), (27, 6), (27, 12), (27, 48), (27, 64),
+                     (27, 128), (122, 128), (512, 3)):
             # a stage holds a chunk of min(Rp, RCH) rows
             Rs = min(-(-R // depth) * depth, env["RCH"])
             want = _cxx_return(src, "mma_smem_bytes",
@@ -390,12 +501,13 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
             assert fused._eclipse_folded_smem(R, k, bf16) == want
             # two blocks an SM (228 KB, 1 KB of it reserved a block)
             assert 2 * (want + 1024) <= 233472
-        # every row count fits a block: shared memory stops growing at a
-        # chunk of RCH rows (the float32 table's K = 2 alone takes one
-        # block an SM)
+        # every row count and every K fits a block: shared memory stops
+        # growing at a chunk of RCH rows, and K = 2 has the most bins a
+        # tile (the float32 table's K = 2 alone takes one block an SM)
         for R in range(1, 513):
-            for k in fused._FOLD_K:
+            for k in range(2, 129):
                 assert fused._eclipse_folded_smem(R, k, bf16) \
+                    <= fused._eclipse_folded_smem(R, 2, bf16) \
                     <= fused._SMEM_LIMIT
             assert fused._eclipse_folded_smem(R, 32, bf16) \
                 == fused._eclipse_folded_smem(min(R, 64), 32, bf16)
@@ -416,9 +528,20 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
     assert len(set(((fused._F_MTILE_F + 8) * t + g) % 32)) == 32
     for Rs in range(8, env["RCH"] + 1, 8):
         assert len(set(((Rs + 4) * g + t) % 32)) == 32
-    # every sub-sample count divides the fine tile, and the Planck pairs
-    # of a block fit the threads' registers (PP per thread)
-    assert all(fused._F_MTILE_F % k == 0 for k in fused._FOLD_K)
+    # the bins a tile touches: K dividing the tile keeps its old count
+    # (the same buffers as before any K was taken), every other K at most
+    # a bin cut at each end; at most MTILE_F / 2, the size of the bins'
+    # wavenumbers in shared memory, so the Planck pairs of a block fit
+    # the threads' registers (PP per thread) for every K
+    for k in (2, 4, 8, 16, 32, 64):
+        assert fused._fold_bins(k) == fused._F_MTILE_F // k
+    T = fused._F_MTILE_F
+    for k in range(2, 513):
+        # the tile at f0 touches bins f0 / K .. (f0 + T - 1) / K; f0 runs
+        # over every residue mod K within K tiles
+        nb = max((f0 + T - 1) // k - f0 // k + 1 for f0 in range(0, T * k, T))
+        assert nb <= fused._fold_bins(k) <= T // 2
+    assert "wn_s[MTILE_F / 2]" in src
     assert fused._F_CBM * (fused._F_MTILE_F // 2) % fused._F_MTHREADS == 0
     # a warp per 16 fine points x 16 chains
     assert fused._F_MTHREADS == 32 * (fused._F_MTILE_F // 16) * (
@@ -463,7 +586,12 @@ def test_transit_mma_source_constants_and_smem_match_python():
             assert fused._transit_streamed(L)
     assert fused._transit_mma_smem(100, True) == 192128
     assert fused._transit_mma_smem(100, False) == 176768
-    assert all(fused._FT_W % k == 0 for k in fused._FOLD_K)
+    # a K that does not divide the 32-point tile: lane j of the warp sums
+    # the tile's j-th bin, and a tile touches at most (FT_W - 1) / K + 2
+    # bins, fewer than the warp's lanes for every K >= 2
+    assert "if (FT_W % K == 0)" in src
+    assert '#include "fold_straddle.cuh"' in src
+    assert all((fused._FT_W - 1) // k + 2 <= 32 for k in range(2, 4097))
 
 
 def test_limits_the_wrappers_raise_on():
@@ -480,11 +608,15 @@ def test_limits_the_wrappers_raise_on():
             fused._check_transit_fit("fn", 8000, 300, bf16)
         with pytest.raises(ValueError, match="exceed the grid"):
             fused._check_transit_fit("fn", 100, 32 * 65535 + 1, bf16)
-    # K outside _FOLD_K, a table that is not folded_table's
+    # any K >= 2 is taken (K = 1 is the K = 1 kernels'); a table that is
+    # not folded_table's raises
     cpu = torch.device("cpu")
     odd = fused.FoldedTable(torch.ones(5, 9, 16, dtype=F32), 3, 5)
-    with pytest.raises(ValueError, match="K = 3"):
-        fused._check_folded("fn", odd, cpu)
+    assert fused._check_folded("fn", odd, cpu) == 0
+    for k in (1, 0):
+        with pytest.raises(ValueError, match=f"K = {k}; the folded kernels"):
+            fused._check_folded("fn", fused.FoldedTable(
+                torch.ones(5, 9, 16, dtype=F32), k, 5), cpu)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fused._check_folded("fn", fused.FoldedTable(
             torch.ones(5, 9, 16, dtype=F64), 4, 4), cpu)
