@@ -12,7 +12,9 @@ full-width shapes of chip_smoke.py's phase 2: 512 chains, 100 layers;
 ``fused_transit`` at R = 41 x 2,501, ``fused_eclipse_folded`` (R = 27)
 and ``fused_transit_folded`` (R = 41) at 1,125 bins x K for K in 2, 4,
 8, 16, 32 on bfloat16 tables (eclipse: expsum; at K = 32 also raygrid
-and float32 tables).  Every output is compared bit for bit across the
+and float32 tables), and at the K that straddle the tiles (3, 48, 128:
+the cut bins' partial sums in their scratch) on both table types
+(eclipse: bfloat16 expsum, float32 raygrid).  Every output is compared bit for bit across the
 four runs; each case's ms (CUDA events, mean over the launches after a
 warm-up) is printed per run, with the change's best against the
 parent's best.
@@ -32,6 +34,8 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FOLD_KS = (2, 4, 8, 16, 32)
+#: K that the folded kernels' 64- and 32-point tiles cut
+STRADDLE_KS = (3, 48, 128)
 
 
 def cases(root: str, out_npz: str) -> None:
@@ -93,12 +97,14 @@ def cases(root: str, out_npz: str) -> None:
     # folded
     tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
                               for a in random_rows(27, L, WF, C, seed=7))
-    for K in FOLD_KS:
+    for K in FOLD_KS + STRADDLE_KS:
         fn = fine(tab, K)
         for tdt, quad in ([(torch.bfloat16, "expsum")]
                           + ([(torch.bfloat16, "raygrid"),
                               (torch.float32, "expsum"),
-                              (torch.float32, "raygrid")] if K == 32 else [])):
+                              (torch.float32, "raygrid")] if K == 32 else [])
+                          + ([(torch.float32, "raygrid")]
+                             if K in STRADDLE_KS else [])):
             ft = fused.folded_table(fn, K, tdt)
             mu, muw, powers = q(quad)
             timed(f"fused_eclipse_folded K={K} {str(tdt)[6:]} {quad}",
@@ -108,9 +114,11 @@ def cases(root: str, out_npz: str) -> None:
     tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
                           random_transit_rows(41, L, WF, C, seed=7)[:4])
     Gp = fused.prepare_slant(G)
-    for K in FOLD_KS:
+    for K in FOLD_KS + STRADDLE_KS:
         fn = fine(tab, K)
-        for tdt in [torch.bfloat16] + ([torch.float32] if K == 32 else []):
+        for tdt in [torch.bfloat16] + ([torch.float32]
+                                       if K == 32 or K in STRADDLE_KS
+                                       else []):
             ft = fused.folded_table(fn, K, tdt)
             timed(f"fused_transit_folded K={K} {str(tdt)[6:]}",
                   lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt), 5)

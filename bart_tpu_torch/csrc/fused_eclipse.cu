@@ -48,7 +48,10 @@
 // from L2 16 times per launch (0.43 GB at R = 27, L = 100, W = 2501; the
 // 4-chain blocks of the first version read it 128 times, 3.5 GB).
 // blockIdx.x walks the chain blocks, so the blocks resident at once
-// share a few table tiles.  Any number of quadrature nodes: the unrolled
+// share a few table tiles; the wavenumber tiles are spread over the
+// grid's y and z (hopper.cuh: tile_grid), so any W below 2^31 - 64 fits,
+// and the table is read through 64-bit offsets, so it may hold any number
+// of elements.  Only the weights are indexed in 32 bits: C L Rp < 2^31.  Any number of quadrature nodes: the unrolled
 // instances (raygrid's 5, expsum's 8) hold them in shared memory, the
 // runtime-count one reads any count through the read-only cache.
 //
@@ -136,7 +139,9 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
                      const float* __restrict__ wmu,     // [nmu]
                      float* __restrict__ out,           // [C, W]
                      int R, int Rp, int L, int W, int Wp, int C,
-                     int nmu_any) {
+                     int nmu_any, int ntile) {
+  const int tile = grid_tile();
+  if (tile >= ntile) return;        // past the last tile (tile_grid)
   const int nmu = NMU ? NMU : nmu_any;
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
@@ -155,7 +160,7 @@ fused_eclipse_kernel(const float* __restrict__ tab,     // [R, L, Wp]
   const int fw = (warp % (TILE_W / 16)) * 16;   // the warp's wavenumbers
   const int ch = (warp / (TILE_W / 16)) * 16;   // and chains, 16 of each
   const int c0 = blockIdx.x * CB;
-  const int w0 = blockIdx.y * TILE_W;
+  const int w0 = tile * TILE_W;
 
   if (NMU && tid < NMU) {
     minv_s[tid] = minv[tid];
@@ -420,19 +425,19 @@ cudaError_t launch(const float* tab, const float* wrows, const float* T,
                    const float* drp, const float* wn, const float* minv,
                    const float* wmu, float* out, int R, int Rp, int L, int W,
                    int Wp, int C, int nmu, cudaStream_t stream) {
-  const int ntile = (W + TILE_W - 1) / TILE_W;
-  if (Rp % 8 != 0 || Rp < R || Wp % 4 != 0 || Wp < W || ntile > 65535 ||
+  if (Rp % 8 != 0 || Rp < R || Wp % 4 != 0 || Wp < W || Wp >= kMaxRow ||
       (long long)C * L * Rp >= (1ll << 31))
     return cudaErrorInvalidValue;
+  const int ntile = (W + TILE_W - 1) / TILE_W;
   const size_t smem = smem_bytes(CHUNKED ? RCH : Rp);
   const cudaError_t e = cudaFuncSetAttribute(
       fused_eclipse_kernel<POWERS, NMU, CHUNKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((C + CB - 1) / CB, ntile);
   fused_eclipse_kernel<POWERS, NMU, CHUNKED>
-      <<<grid, NTHREADS, smem, stream>>>(tab, wrows, T, drp, wn, minv, wmu,
-                                         out, R, Rp, L, W, Wp, C, nmu);
+      <<<tile_grid((C + CB - 1) / CB, ntile), NTHREADS, smem, stream>>>(
+          tab, wrows, T, drp, wn, minv, wmu, out, R, Rp, L, W, Wp, C, nmu,
+          ntile);
   return cudaGetLastError();
 }
 
@@ -441,7 +446,8 @@ cudaError_t launch(const float* tab, const float* wrows, const float* T,
 // Plain C entry point (bound with ctypes).  tab [R, L, Wp] is the table
 // with its wavenumber axis zero-padded to Wp, W rounded up to 4 (16
 // bytes: bart_tpu_torch.rt.fused.rows_table); wrows [C, L, Rp] the
-// weights zero-padded to Rp rows, R rounded up to 8; nmu >= 1 quadrature
+// weights zero-padded to Rp rows, R rounded up to 8 (C L Rp < 2^31: the
+// weights are indexed in 32 bits); Wp < 2^31 - 64; nmu >= 1 quadrature
 // nodes.  Returns the cudaError_t of the launch: 0 when the kernel was
 // queued on ``stream``.
 extern "C" int bart_fused_eclipse(const float* tab, const float* wrows,

@@ -80,7 +80,11 @@
 // the nodes in shared memory, the runtime-count one reads any number
 // through the read-only cache.  blockIdx.x walks the chain blocks, so the
 // blocks resident at once share a few table tiles and the table leaves
-// HBM once.
+// HBM once; the fine tiles are spread over the grid's y and z
+// (hopper.cuh: tile_grid), so any fine axis below 2^31 - 64 points fits,
+// and the table is read through 64-bit offsets, so it may hold any number
+// of elements (the flagship at K = 128: 3.3e9).  Only the weights are
+// indexed in 32 bits: NP C L Rp < 2^31.
 //
 // Bound on the H100.  Per 512-chain batch at R = 27, L = 100, 1,064 fine
 // bins, K = 32: 47 G FMAs of fill (three passes: 0.29 ms at the dense
@@ -194,7 +198,10 @@ fused_eclipse_folded_mma_kernel(
     const float* __restrict__ wmu,     // [nmu]
     float* __restrict__ out,           // [C, W]
     float* __restrict__ part,          // [C, ntile, 2] (straddling K)
-    int R, int Rp, int L, int W, int Fp, int C, int K, int nmu_any) {
+    int R, int Rp, int L, int W, int Fp, int C, int K, int nmu_any,
+    int ntile) {
+  const int tile = grid_tile();
+  if (tile >= ntile) return;        // past the last tile (tile_grid)
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int EPC = 16 / sizeof(TabT);  // elements per 16-byte copy
   constexpr int NP = kBf16 ? 3 : 1;       // parts of the weights
@@ -227,7 +234,7 @@ fused_eclipse_folded_mma_kernel(
   const int ch = (warp / (MTILE_F / 16)) * 16;   // and chains, 16 of each
   const int F = W * K;
   const int c0 = blockIdx.x * CBM;
-  const int f0 = blockIdx.y * MTILE_F;
+  const int f0 = tile * MTILE_F;
   const size_t CLR = (size_t)C * L * Rp;
   // the output bins the tile touches, b0 .. b0 + nb - 1 (those from W on
   // are padding): K divides MTILE_F, then nb = MTILE_F / K; else the
@@ -599,7 +606,7 @@ fused_eclipse_folded_mma_kernel(
       if (b * K >= f0 && (b + 1) * K <= fe)
         out[(size_t)c * W + b] = scale * v;
       else
-        part[((size_t)c * gridDim.y + blockIdx.y) * 2 + ((b + 1) * K > fe)] =
+        part[((size_t)c * ntile + f0 / MTILE_F) * 2 + ((b + 1) * K > fe)] =
             v;
     }
   }
@@ -613,23 +620,22 @@ cudaError_t launch_mma(const void* tab, const void* wparts, const float* T,
                        cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int NP = kBf16 ? 3 : 1;
-  const int ntile = (W * K + MTILE_F - 1) / MTILE_F;
   const bool straddles = fold_straddles<MTILE_F>(K);
   if (Rp % (kBf16 ? 16 : 8) != 0 || Rp < R || Fp % 8 != 0 ||
-      ntile > 65535 || (long long)NP * C * L * Rp >= (1ll << 31) ||
+      Fp >= kMaxRow || (long long)NP * C * L * Rp >= (1ll << 31) ||
       (straddles && part == nullptr))
     return cudaErrorInvalidValue;
+  const int ntile = (W * K + MTILE_F - 1) / MTILE_F;
   const size_t smem =
       mma_smem_bytes(CHUNKED ? RCH : Rp, K, sizeof(TabT), NP);
   const cudaError_t e = cudaFuncSetAttribute(
       fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED, LANES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((C + CBM - 1) / CBM, ntile);
   fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED, LANES>
-      <<<grid, MTHREADS, smem, stream>>>(
+      <<<tile_grid((C + CBM - 1) / CBM, ntile), MTHREADS, smem, stream>>>(
           static_cast<const TabT*>(tab), static_cast<const TabT*>(wparts), T,
-          drp, wn, minv, wmu, out, part, R, Rp, L, W, Fp, C, K, nmu);
+          drp, wn, minv, wmu, out, part, R, Rp, L, W, Fp, C, K, nmu, ntile);
   const cudaError_t e2 = cudaGetLastError();
   if (e2 != cudaSuccess || !straddles) return e2;
   return launch_fold_straddle<MTILE_F>(part, out, C, W, K, ntile,
@@ -673,11 +679,12 @@ cudaError_t launch_quad(const void* tab, const void* wparts, const float* T,
 
 // Plain C entry point (bound with ctypes).  tab [R, L, Fp] is the
 // bin-major fine table whose first W K columns are in use, Fp a multiple
-// of 8; K >= 2 sub-samples a bin, nmu >= 1 quadrature nodes.  The
+// of 8 below 2^31 - 64; K >= 2 sub-samples a bin, nmu >= 1 quadrature nodes.  The
 // weights w as the kernel reads them, zero-padded to Rp rows: for a
 // bfloat16 table (bf16 != 0) the three bfloat16 parts [3, C, L, Rp],
 // smallest first, Rp = R rounded up to 16; for a float32 table
-// [C, L, Rp] float32, Rp = R rounded up to 8.  part: where K does not
+// [C, L, Rp] float32, Rp = R rounded up to 8 (NP C L Rp < 2^31: the
+// weights are indexed in 32 bits).  part: where K does not
 // divide the 64-point tile, the straddling bins' partial sums,
 // [C, ceil(W K / 64), 2] float32 (fold_straddle.cuh; else unused, may be
 // null).  Returns the cudaError_t of the launches: 0 when the kernel

@@ -7,7 +7,7 @@
 
 // Plain C entry point (bound with ctypes).  tab [Rt, L, Wp] is the table
 // with its wavenumber axis zero-padded to Wp, W rounded up to 4 (16
-// bytes: bart_tpu_torch.rt.fused.rows_table); wrows [C, L, R] the
+// bytes: bart_tpu_torch.rt.fused.rows_table), below 2^31 - 64; wrows [C, L, R] the
 // weights zero-padded to R rows, Rt rounded up to 8; G in tiles
 // [C, Lk / 8, Lm, 8] (tile s holds G[c, :, 8 s : 8 s + 8]; Lk, Lm = L
 // rounded up to 8, 16; lower-triangular, zero padding); out [C, W].

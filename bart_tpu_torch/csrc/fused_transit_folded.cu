@@ -14,7 +14,7 @@
 
 // Plain C entry point (bound with ctypes).  tab [Rt, L, Fp] is the
 // bin-major fine table, zero-padded along wn to Fp, a multiple of 16
-// bytes; its first W K columns are in use; wrows [C, L, R] float32,
+// bytes below 2^31 - 64; its first W K columns are in use; wrows [C, L, R] float32,
 // zero-padded to R rows; out [C, W].  K >= 2 sub-samples a bin.
 // R = Rt rounded up to 16 (bfloat16 table) or 8 (float32 table, bf16 ==
 // 0); G in tiles [C, Lk / 8, Lm, 8] (tile s holds G[c, :, 8 s : 8 s + 8];

@@ -68,6 +68,14 @@
 //  Shared-memory words are swizzled, not padded, where padding would cost
 //  the room for the stages: ext_s rows by their layer, G rows by their
 //  row (conflict-free fragment loads, checked in the comments below).
+//  The chain blocks are the grid's x and the wavenumber tiles its y, and
+//  past 65,535 tiles its y and z (kTiled; hopper.cuh: tile_grid), so any
+//  fine axis below 2^31 - 64 points fits; the table, the weights, G and
+//  the outputs are read and written through 64-bit offsets, so a table
+//  may hold any number of elements.  Two resident instances, not one
+//  index for both: read through grid_tile at every size, the tile cost
+//  the folded launches 1-2.5% at K = 2-8 (ab_kernels.py on an NVIDIA
+//  H100 80GB HBM3 at 700 W).
 //
 // Many layers (L > 16 FT_MT = 112: the streamed variant, kStream).  Then
 // neither ext of all layers (1 KB a layer) fits shared memory nor tau of
@@ -213,7 +221,9 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& lo,
 // ext lives in ext_g, [gridDim.x][FT_CB][Lk][kES] float32 (nullptr
 // otherwise).  part: the partial sums of the bins that straddle the
 // FT_W-point tiles, [C][ntile][2] (K not dividing FT_W; fold_straddle.cuh).
-template <typename TabT, bool kStream>
+// kTiled: the resident kernel past 65,535 tiles, its tile read through
+// grid_tile (else blockIdx.y).
+template <typename TabT, bool kStream, bool kTiled>
 __global__ void __launch_bounds__(32 * FT_CB, 1)
 fused_transit_mma_kernel(
     const TabT* __restrict__ tab,              // [Rt, L, Fp]
@@ -223,7 +233,7 @@ fused_transit_mma_kernel(
     float* __restrict__ out,                   // [C, F / K]
     float* __restrict__ ext_g,
     float* __restrict__ part,
-    int Rt, int Rp, int L, int F, int Fp, int C, int K) {
+    int Rt, int Rp, int L, int F, int Fp, int C, int K, int ntile) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int NT = 32 * FT_CB;
   constexpr int UR = kBf16 ? 16 : 8;            // table rows of a unit
@@ -241,16 +251,21 @@ fused_transit_mma_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  // the resident kernel's tile; past 65,535 tiles a block past the last
+  // one returns
+  const int tile = kTiled ? grid_tile()
+                   : (BART_ABLATE & 8) ? (int)blockIdx.x : (int)blockIdx.y;
+  if (kTiled && tile >= ntile) return;
   // the streamed variant walks the items (chain block, wavenumber tile),
-  // chain blocks fastest, as the resident one's grid does
+  // chain blocks fastest, as the resident one's grid does (ncb ntile <
+  // 2^31: the launcher's check)
   const int ncb = (C + FT_CB - 1) / FT_CB;
-  const int nitem = kStream ? ncb * ((F + FT_W - 1) / FT_W) : 1;
+  const int nitem = kStream ? ncb * ntile : 1;
   for (int item = kStream ? (int)blockIdx.x : 0; item < nitem;
        item += kStream ? (int)gridDim.x : 1) {
   const int c0 = (kStream ? item % ncb
                   : (BART_ABLATE & 8) ? blockIdx.y : blockIdx.x) * FT_CB;
-  const int w0 = (kStream ? item / ncb
-                  : (BART_ABLATE & 8) ? blockIdx.x : blockIdx.y) * FT_W;
+  const int w0 = (kStream ? item / ncb : tile) * FT_W;
   if (kStream && item != (int)blockIdx.x)
     __syncthreads();  // every warp is done with the previous item
 
@@ -544,8 +559,7 @@ fused_transit_mma_kernel(
       if (b * K >= w0 && (b + 1) * K <= we)
         out[(size_t)c * W + b] = v / (float)K;
       else
-        part[((size_t)c * ((F + FT_W - 1) / FT_W) + w0 / FT_W) * 2 +
-             ((b + 1) * K > we)] = v;
+        part[((size_t)c * ntile + w0 / FT_W) * 2 + ((b + 1) * K > we)] = v;
     }
   }
   }  // item
@@ -553,9 +567,11 @@ fused_transit_mma_kernel(
 
 // Launch on ``stream``; returns the cudaError_t of the launches.  Rp is
 // Rt rounded up to the rows of a unit (16 for a bfloat16 table, 8 for a
-// float32 one); Fp a multiple of 16 bytes of TabT.  Up to 16 FT_MT layers
-// the resident kernel runs, one block an item; above, the streamed one on
-// min(items, nslot) blocks, with ext_g [nslot][FT_CB][Lk][kES] float32.
+// float32 one); Fp a multiple of 16 bytes of TabT, below 2^31 - 64.  Up
+// to 16 FT_MT layers the resident kernel runs, one block an item (the
+// tiles over the grid's y and z: tile_grid); above, the streamed one on
+// min(items, nslot) blocks, with ext_g [nslot][FT_CB][Lk][kES] float32
+// (fewer than 2^31 items: the item index is an int).
 // Where K does not divide FT_W, part [C][ntile][2] float32 takes the
 // straddling bins' partial sums and a second launch adds them
 // (fold_straddle.cuh).
@@ -566,37 +582,44 @@ int launch_transit_mma(const void* tab, const float* wrows, const float* Gt,
                        int C, int K, int nslot, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
   constexpr int UB = kBf16 ? kUnitBytes : kUnitBytes32;
-  const int ntile = (F + FT_W - 1) / FT_W;
-  const int ncb = (C + FT_CB - 1) / FT_CB;
   const bool stream_ext = L > 16 * FT_MT;
   const bool straddles = K >= 1 && fold_straddles<FT_W>(K);
   if (Rt < 1 || Rp < Rt || Rp % (kBf16 ? 16 : 8) != 0 || L < 1 ||
-      Fp % (16 / (int)sizeof(TabT)) != 0 || F < 1 || F > Fp || K < 1 ||
-      F % K != 0 || C < 1 || ntile > 65535 ||
+      Fp % (16 / (int)sizeof(TabT)) != 0 || Fp >= kMaxRow || F < 1 ||
+      F > Fp || K < 1 || F % K != 0 || C < 1 ||
       (stream_ext && (ext_g == nullptr || nslot < 1)) ||
       (straddles && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int ntile = (F + FT_W - 1) / FT_W;
+  const int ncb = (C + FT_CB - 1) / FT_CB;
+  if (stream_ext && (long long)ncb * ntile >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   const TabT* t = static_cast<const TabT*>(tab);
   if (!stream_ext) {
     const size_t smem = ft_smem_bytes(L, UB);
+    const bool tiled = ntile > kMaxGridYZ;
+    const auto kernel = tiled ? fused_transit_mma_kernel<TabT, false, true>
+                              : fused_transit_mma_kernel<TabT, false, false>;
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_transit_mma_kernel<TabT, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((BART_ABLATE & 8) ? ntile : ncb,
-                    (BART_ABLATE & 8) ? ncb : ntile);
-    fused_transit_mma_kernel<TabT, false><<<grid, 32 * FT_CB, smem, stream>>>(
-        t, wrows, Gt, wgt, out, nullptr, part, Rt, Rp, L, F, Fp, C, K);
+    const dim3 grid = tiled               ? tile_grid(ncb, ntile)
+                      : (BART_ABLATE & 8) ? dim3(ntile, ncb)
+                                          : dim3(ncb, ntile);
+    kernel<<<grid, 32 * FT_CB, smem, stream>>>(
+        t, wrows, Gt, wgt, out, nullptr, part, Rt, Rp, L, F, Fp, C, K, ntile);
   } else {
     const size_t smem = ft_stream_smem_bytes(L, UB);
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_transit_mma_kernel<TabT, true>,
+        fused_transit_mma_kernel<TabT, true, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const long long nitem = (long long)ncb * ntile;
     const int nblock = nitem < nslot ? (int)nitem : nslot;
-    fused_transit_mma_kernel<TabT, true><<<nblock, 32 * FT_CB, smem, stream>>>(
-        t, wrows, Gt, wgt, out, ext_g, part, Rt, Rp, L, F, Fp, C, K);
+    fused_transit_mma_kernel<TabT, true, false>
+        <<<nblock, 32 * FT_CB, smem, stream>>>(t, wrows, Gt, wgt, out, ext_g,
+                                              part, Rt, Rp, L, F, Fp, C, K,
+                                              ntile);
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !straddles) return (int)e;

@@ -2,7 +2,8 @@
 // later; built for sm_90a): 16-byte asynchronous copies into shared
 // memory, ldmatrix fragment loads, the warp-level tensor-core products
 // mma.sync m16n8k16 (bf16 x bf16 -> f32) and m16n8k8 (tf32 x tf32 -> f32),
-// and the TF32 split of a float32 operand.
+// the TF32 split of a float32 operand, and the tile axis of the kernels'
+// grids.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "... m16n8k8"), with lane = 4 g + t (g = 0..7, t = 0..3):
@@ -106,5 +107,28 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big));
 }
+
+// The tile axis of a grid.  A kernel's (fine) wavenumber tiles are
+// numbered tile = blockIdx.y + gridDim.y blockIdx.z: y and z each take at
+// most 65,535 blocks, so one of them alone would bound the axis at 65,535
+// tiles (4.19 M points at 64 a tile, 2.10 M at 32).  tile_grid spreads
+// ntile tiles over gridDim.z = ceil(ntile / 65535) and gridDim.y =
+// ceil(ntile / gridDim.z); the few blocks past the last tile return before
+// their first copy.  Up to 65,535 tiles gridDim.z is 1: the grid, the
+// order of its blocks and every result are those of a y-only grid.
+constexpr int kMaxGridYZ = 65535;
+inline dim3 tile_grid(unsigned nx, int ntile) {
+  const int nz = (ntile + kMaxGridYZ - 1) / kMaxGridYZ;
+  return dim3(nx, (ntile + nz - 1) / nz, nz);
+}
+__device__ __forceinline__ int grid_tile() {
+  return (int)(blockIdx.y + gridDim.y * blockIdx.z);
+}
+
+// Points a row (W, Wp, F = W K, Fp) travel as int: a row takes fewer than
+// 2^31 - 64, so that a tile's end, up to 64 points past the row's last
+// tile start, stays an int (bart_tpu_torch.rt.fused._MAX_ROW).  Table and
+// output offsets are 64-bit: a table of any size within this is taken.
+constexpr int kMaxRow = 2147483647 - 63;
 
 }  // namespace

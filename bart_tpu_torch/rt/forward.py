@@ -63,7 +63,8 @@ from bart_tpu_torch.physics.hydro import anchor_index, radius_profile
 from bart_tpu_torch.physics.pt import n_pt_params, pt_generator
 from bart_tpu_torch.rt.eclipse import (eclipse_flux, expsum_weights,
                                        raygrid_weights)
-from bart_tpu_torch.rt.fused import (FoldedTable, RowsTable, folded_table,
+from bart_tpu_torch.rt.fused import (FoldedTable, RowsTable, _row_step,
+                                     folded_blocks, folded_table,
                                      fused_eclipse, fused_eclipse_folded,
                                      fused_transit, fused_transit_folded,
                                      interp_weights, prepare_slant,
@@ -357,7 +358,11 @@ class ForwardModel:
                 f"the output grid needs {K} x {n_out}")
         sig = sigma_fine.to(device=self.device, dtype=self.dtype)
         sig = sig.reshape(M * nT, L, n_out, K)
-        sigbar = sig.mean(-1)                              # [M*nT, L, W]
+        # the bin means a few rows at a time: the fine table may hold
+        # more than 2^31 elements (the flagship's 3.4e9 at rtosamp 128)
+        step = _row_step(L * Wf)
+        sigbar = torch.cat([sig[r:r + step].mean(-1)
+                            for r in range(0, M * nT, step)])  # [M*nT, L, W]
         t["sigma"] = sigbar.reshape(M, nT, L, n_out)
         if fold_adapt:
             mask = fine_bin_mask(sig.reshape(M, nT, L, Wf), K,
@@ -368,22 +373,22 @@ class ForwardModel:
         k_dt = torch.bfloat16 if self.fold_bf16 else self.dtype
         if frows is not None:
             frows = frows.reshape(frows.shape[0], L, n_out, K)
-        if self._idx_fine is None:
-            fine = [sig] + ([frows] if frows is not None else [])
-        else:
+        fine = [sig] + ([frows] if frows is not None else [])
+        idx_f = None
+        if self._idx_fine is not None:
             idx_f = torch.as_tensor(self._idx_fine, device=self.device)
             idx_s = torch.as_tensor(self._idx_smooth, device=self.device)
             self._idx_fine_t, self._idx_smooth_t = idx_f, idx_s
-            fine = [sig[:, :, idx_f]]
             smooth = [sigbar[:, :, idx_s]]
             if frows is not None:
                 # continuum rows are smooth by construction, but their
                 # columns must follow the bin split
-                fine.append(frows[:, :, idx_f])
                 smooth.append(frows.mean(-1)[:, :, idx_s])
             t["tabs"] = rows_table(smooth)
             t["wn_f"], t["wn_s"] = t["wn"][idx_f], t["wn"][idx_s]
-        t["tabk"] = folded_table(torch.cat(fine, dim=0).flatten(2), K, k_dt)
+        # the fine bins' table laid out in place, a few rows at a time:
+        # no float32 copy of the fine table beside it
+        t["tabk"] = folded_blocks(fine, K, k_dt, idx_f)
 
     # -----------------------------------------------------------------
     @property

@@ -68,10 +68,10 @@ from bart_tpu_torch.utils import build
 __all__ = ["fused_eclipse", "eclipse_plain", "fused_transit",
            "transit_plain", "fused_eclipse_folded", "eclipse_folded_plain",
            "fused_transit_folded", "transit_folded_plain", "FoldedTable",
-           "folded_table", "fold_table", "unfold_table", "interp_weights",
-           "smix", "load_kernel", "build_kernels", "split_bf16",
-           "split_tf32", "SlantMatrix", "prepare_slant", "RowsTable",
-           "rows_table"]
+           "folded_table", "folded_blocks", "fold_table", "unfold_table",
+           "interp_weights", "smix", "load_kernel", "build_kernels",
+           "split_bf16", "split_tf32", "SlantMatrix", "prepare_slant",
+           "RowsTable", "rows_table"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,7 +95,15 @@ _FT_W, _FT_CB, _FT_NS, _FT_MT = 32, 8, 5, 7
 _MMA_K, _MMA_K32 = 16, 8
 #: a RowsTable's wn axis is padded to 16 bytes of float32
 _ROWS_ALIGN = 4
-_MAX_GRID_Y = 65535
+#: the most blocks of a grid's y or z extent: the kernels spread their
+#: wavenumber tiles over both (csrc/hopper.cuh: tile_grid, ``_tile_grid``)
+_MAX_GRID_YZ = 65535
+#: points a row (W, Wp, F = W K, Fp) travel to the kernels as int: a row
+#: takes fewer than this (2^31 - 64: a tile's end stays an int; kMaxRow)
+_MAX_ROW = 2**31 - 64
+#: the eclipse kernels index the weights [C, L, Rp] (the folded one on a
+#: bfloat16 table, their three parts) in 32 bits: fewer elements than this
+_MAX_WEIGHTS = 2**31
 #: the fine axis of a FoldedTable is padded to 16 bytes of bfloat16
 _FOLD_ALIGN = 8
 
@@ -204,11 +212,47 @@ def folded_table(tab_fine: torch.Tensor, K: int,
     if K < 2 or F % K:
         raise ValueError(f"folded_table: fine axis {F} is not a multiple of "
                          f"K = {K} >= 2")
-    Fp = -(-F // _FOLD_ALIGN) * _FOLD_ALIGN
-    tab = torch.zeros((R, L, Fp), dtype=dtype or tab_fine.dtype,
-                      device=tab_fine.device)
-    tab[..., :F] = tab_fine
-    return FoldedTable(tab, K, F // K)
+    return folded_blocks([tab_fine.unflatten(-1, (F // K, K))], K,
+                         dtype or tab_fine.dtype)
+
+
+#: the most elements a copy of folded_blocks (or a reduction of the
+#: folded set-up) takes at once
+_COPY_ELEMS = 2**30
+
+
+def _row_step(per_row: int) -> int:
+    """Rows a chunk of the folded set-up takes: fewer than _COPY_ELEMS
+    elements (read at call time), at least one row."""
+    return max(1, _COPY_ELEMS // max(1, per_row))
+
+
+def folded_blocks(blocks, K: int, dtype: torch.dtype,
+                  bins: torch.Tensor | None = None) -> FoldedTable:
+    """[rows, L, W, K] blocks (bin-major sub-samples; any strides, an
+    expanded view too), stacked along the row axis -> FoldedTable in
+    ``dtype`` of the output bins ``bins`` (all when None): folded_table's
+    layout, written a few rows at a time, so that no temporary and no
+    single copy reaches _COPY_ELEMS elements.  A table past 2^31
+    elements (the 4-molecule flagship's at rtosamp 128: 3.3e9) is so laid
+    out beside its source, with no full-size copy in the source's type;
+    each element is cast as one copy of the whole would cast it."""
+    blocks = list(blocks)
+    L, W = blocks[0].shape[1], (blocks[0].shape[2] if bins is None
+                                else int(bins.shape[0]))
+    F = W * K
+    tab = torch.zeros((sum(b.shape[0] for b in blocks), L,
+                       -(-F // _FOLD_ALIGN) * _FOLD_ALIGN), dtype=dtype,
+                      device=blocks[0].device)
+    dst = tab[..., :F].unflatten(-1, (W, K))
+    step, r = _row_step(L * F), 0
+    for b in blocks:
+        for r0 in range(0, b.shape[0], step):
+            src = b[r0:r0 + step]
+            dst[r + r0:r + r0 + src.shape[0]] = (src if bins is None
+                                                 else src[:, :, bins])
+        r += b.shape[0]
+    return FoldedTable(tab, K, W)
 
 
 def fold_table(tab_fine: torch.Tensor, K: int) -> torch.Tensor:
@@ -509,6 +553,32 @@ def load_kernel(name: str) -> ctypes.CDLL:
         return lib
 
 
+def _tile_grid(ntile: int) -> tuple[int, int]:
+    """(gridDim.y, gridDim.z) over which a kernel spreads ``ntile``
+    wavenumber tiles (csrc/hopper.cuh: tile_grid; block (y, z) takes tile
+    y + gridDim.y z, and a block past the last tile does nothing)."""
+    nz = -(-ntile // _MAX_GRID_YZ)
+    return -(-ntile // nz), nz
+
+
+def _check_row(fn: str, n: int) -> None:
+    """Raise unless a row of ``n`` (padded) points fits the kernels' int
+    indexing of a row."""
+    if n >= _MAX_ROW:
+        raise ValueError(f"{fn}: {n} points a row; the kernels index a row "
+                         f"with 32-bit ints and take fewer than {_MAX_ROW} "
+                         "(2^31 - 64)")
+
+
+def _check_weights(fn: str, n: int) -> None:
+    """Raise unless an eclipse kernel's ``n`` weight elements fit its
+    32-bit weight offsets."""
+    if n >= _MAX_WEIGHTS:
+        raise ValueError(f"{fn}: {n} weight elements (chains x layers x "
+                         "padded rows); the eclipse kernels index the weights "
+                         "with 32-bit offsets and take fewer than 2^31")
+
+
 def _check(fn, name, x, shape, device):
     if x.device != device:
         raise ValueError(f"{fn}: {name} on {x.device}, expected {device}")
@@ -537,8 +607,7 @@ def _rows32(fn: str, tab, dev: torch.device) -> tuple[torch.Tensor, int]:
         raise ValueError(f"{fn}: table of shape {tuple(t.shape)} is not a "
                          f"contiguous [R, L, Wp] with Wp = {W} rounded up to "
                          f"{_ROWS_ALIGN} (rows_table)")
-    if t.numel() >= 2**31:
-        raise ValueError(f"{fn}: table beyond 2^31 elements")
+    _check_row(fn, t.shape[2])
     return t.to(torch.float32), W
 
 
@@ -550,6 +619,28 @@ def _eclipse_smem(R: int) -> int:
     R rounded up to 8.  Any R fits: the rows stream through the ring."""
     Rs = min(-(-R // _MMA_K32) * _MMA_K32, _RCH)
     return 4 * _NSTAGE * (Rs * (_TILE_W + 8) + _CB * (Rs + 4) + 2 * _CB)
+
+
+def _eclipse_args(tab, wn, mu, muw, wrows, T, drp, dev: torch.device):
+    """fused_eclipse's inputs checked: (tab32 [R, L, Wp] float32, W, Rp),
+    or raise on any input the kernel does not take."""
+    fn = "fused_eclipse"
+    tab32, W = _rows32(fn, tab, dev)
+    R, L, Wp = tab32.shape
+    C = T.shape[0]
+    nmu = int(mu.shape[0])
+    for name, x, shape in (("wn", wn, (W,)),
+                           ("mu", mu, (nmu,)), ("muw", muw, (nmu,)),
+                           ("wrows", wrows, (C, L, R)), ("T", T, (C, L)),
+                           ("drp", drp, (C, L))):
+        _check(fn, name, x, shape, dev)
+    if nmu < 1:
+        raise ValueError(f"{fn}: no quadrature node")
+    if min(R, L, C) < 1:
+        raise ValueError(f"{fn}: empty row, layer or chain axis")
+    Rp = -(-R // _MMA_K32) * _MMA_K32
+    _check_weights(fn, C * L * Rp)
+    return tab32, W, Rp
 
 
 def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
@@ -566,8 +657,10 @@ def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
     A CPU ``T`` runs ``eclipse_plain``.  A CUDA ``T`` launches the
     kernel in float32 on the current stream, without synchronising, and
     returns the result cast to ``T.dtype``: the contraction in 3xTF32 on
-    tensor cores (``split_tf32``), the rest on the float32 pipes.  It
-    raises on any input the kernel does not take, and never falls back.
+    tensor cores (``split_tf32``), the rest on the float32 pipes.  A
+    table of any number of elements and any W below 2^31 - 64 are taken;
+    the weights need C L Rp < 2^31 (Rp = R rounded up to 8).  It raises
+    on any input the kernel does not take, and never falls back.
     """
     if T.device.type == "cpu":
         return eclipse_plain(_plain_rows(tab), wn, mu, muw, wrows, T, drp,
@@ -576,25 +669,10 @@ def fused_eclipse(tab, wn: torch.Tensor, mu: torch.Tensor,
         raise ValueError(f"fused_eclipse: unsupported device {T.device}")
 
     dev = T.device
-    tab32, W = _rows32("fused_eclipse", tab, dev)
+    tab32, W, Rp = _eclipse_args(tab, wn, mu, muw, wrows, T, drp, dev)
     R, L, Wp = tab32.shape
     C = T.shape[0]
     nmu = int(mu.shape[0])
-    for name, x, shape in (("wn", wn, (W,)),
-                           ("mu", mu, (nmu,)), ("muw", muw, (nmu,)),
-                           ("wrows", wrows, (C, L, R)), ("T", T, (C, L)),
-                           ("drp", drp, (C, L))):
-        _check("fused_eclipse", name, x, shape, dev)
-    if nmu < 1:
-        raise ValueError("fused_eclipse: no quadrature node")
-    if min(R, L, C) < 1:
-        raise ValueError("fused_eclipse: empty row, layer or chain axis")
-    Rp = -(-R // _MMA_K32) * _MMA_K32
-    if -(-W // _TILE_W) > _MAX_GRID_Y:
-        raise ValueError(f"fused_eclipse: {W} wavenumbers exceed the "
-                         f"grid's {_MAX_GRID_Y * _TILE_W}")
-    if max(C * L * Rp, C * W) >= 2**31:
-        raise ValueError("fused_eclipse: tensors beyond 2^31 elements")
 
     # per call only the weights are padded
     f32 = torch.float32
@@ -657,17 +735,23 @@ def _transit_streamed(L: int) -> bool:
     return L > 16 * _FT_MT
 
 
-def _check_transit_fit(fn: str, L: int, F: int, bf16: bool) -> None:
-    """Raise if L layers or F (fine) wavenumbers exceed what a block or
-    the grid of the transit kernel holds (the annulus weights bound L at
-    4,704 on a bfloat16 table, 4,960 on a float32 one)."""
+def _check_transit_fit(fn: str, L: int, F: int, bf16: bool,
+                       C: int = 1) -> None:
+    """Raise if L layers exceed what a block of the transit kernel holds
+    (the annulus weights bound L at 4,704 on a bfloat16 table, 4,960 on a
+    float32 one), or if the streamed variant's (chain block, tile) items
+    of C chains and F (fine) wavenumbers reach 2^31 (its item index is an
+    int).  Any F below 2^31 - 64 is taken: the tiles spread over the
+    grid's y and z."""
     smem = _transit_mma_smem(L, bf16)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory, "
                          f"more than a block has ({_SMEM_LIMIT})")
-    if -(-F // _FT_W) > _MAX_GRID_Y:
-        raise ValueError(f"{fn}: {F} wavenumbers exceed the grid's "
-                         f"{_MAX_GRID_Y * _FT_W}")
+    items = -(-C // _FT_CB) * -(-F // _FT_W)
+    if _transit_streamed(L) and items >= 2**31:
+        raise ValueError(f"{fn}: {items} (chain block, tile) items; the "
+                         f"streamed variant ({L} layers) indexes them with "
+                         "an int and takes fewer than 2^31")
 
 
 @functools.lru_cache(maxsize=None)
@@ -689,6 +773,22 @@ def _ext_scratch(L: int, C: int, F: int, dev: torch.device):
                        device=dev), nslot
 
 
+def _transit_args(tab, wrows, G, wgt, dev: torch.device):
+    """fused_transit's inputs checked: (tab32 [R, L, Wp] float32, W, G's
+    tiles, Rp), or raise on any input the kernel does not take."""
+    fn = "fused_transit"
+    tab32, W = _rows32(fn, tab, dev)
+    R, L, Wp = tab32.shape
+    C = wgt.shape[0]
+    for name, x, shape in (("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
+        _check(fn, name, x, shape, dev)
+    Gt = _slant32(fn, G, C, L, dev)
+    if min(R, L, C) < 1:
+        raise ValueError(f"{fn}: empty row, layer or chain axis")
+    _check_transit_fit(fn, L, W, False, C)
+    return tab32, W, Gt, -(-R // _MMA_K32) * _MMA_K32
+
+
 def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
                   wgt: torch.Tensor) -> torch.Tensor:
     """Annulus-integrated absorption out [C, W], batched over chains.
@@ -704,8 +804,9 @@ def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
     A CPU ``wgt`` runs ``transit_plain``.  A CUDA ``wgt`` launches the
     kernel in float32 on the current stream, without synchronising, and
     returns the result cast to ``wgt.dtype``: both contractions in 3xTF32
-    on tensor cores (``split_tf32``).  It raises on any input the kernel
-    does not take, and never falls back.
+    on tensor cores (``split_tf32``).  A table of any number of elements
+    and any W below 2^31 - 64 are taken.  It raises on any input the
+    kernel does not take, and never falls back.
     """
     if wgt.device.type == "cpu":
         return transit_plain(
@@ -716,18 +817,9 @@ def fused_transit(tab, wrows: torch.Tensor, G: torch.Tensor,
 
     fn = "fused_transit"
     dev = wgt.device
-    tab32, W = _rows32(fn, tab, dev)
+    tab32, W, Gt, Rp = _transit_args(tab, wrows, G, wgt, dev)
     R, L, Wp = tab32.shape
     C = wgt.shape[0]
-    for name, x, shape in (("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
-        _check(fn, name, x, shape, dev)
-    Gt = _slant32(fn, G, C, L, dev)
-    if min(R, L, C) < 1:
-        raise ValueError(f"{fn}: empty row, layer or chain axis")
-    _check_transit_fit(fn, L, W, False)
-    Rp = -(-R // _MMA_K32) * _MMA_K32
-    if max(C * L * Rp, C * W) >= 2**31:
-        raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
     # per call only the weights are padded
     f32 = torch.float32
@@ -813,9 +905,55 @@ def _check_folded(fn: str, ft: FoldedTable, dev: torch.device) -> int:
         raise ValueError(f"{fn}: table of shape {tuple(tab.shape)} is not a "
                          f"contiguous [R, L, Fp >= {ft.W} x {ft.K}] with Fp "
                          f"a multiple of {_FOLD_ALIGN} (folded_table)")
-    if tab.numel() >= 2**31:
-        raise ValueError(f"{fn}: table beyond 2^31 elements")
+    _check_row(fn, tab.shape[2])
     return int(tab.dtype == torch.bfloat16)
+
+
+def _eclipse_folded_args(ft, wn_out, mu, muw, wrows, T, drp,
+                         dev: torch.device) -> tuple[int, int]:
+    """fused_eclipse_folded's inputs checked: (bf16, Rp), 1 for a
+    bfloat16 table and the padded rows of its weights, or raise on any
+    input the kernel does not take."""
+    fn = "fused_eclipse_folded"
+    bf16 = _check_folded(fn, ft, dev)
+    R, L, Fp = ft.tab.shape
+    C = T.shape[0]
+    nmu = int(mu.shape[0])
+    for name, x, shape in (("wn_out", wn_out, (ft.W,)), ("mu", mu, (nmu,)),
+                           ("muw", muw, (nmu,)), ("wrows", wrows, (C, L, R)),
+                           ("T", T, (C, L)), ("drp", drp, (C, L))):
+        _check(fn, name, x, shape, dev)
+    if nmu < 1:
+        raise ValueError(f"{fn}: no quadrature node")
+    if min(R, L, C) < 1:
+        raise ValueError(f"{fn}: empty row, layer or chain axis")
+    # the row axis padded to the depth of one product; the weights as
+    # the kernel reads them: three bfloat16 parts (split_bf16) for a
+    # bfloat16 table, float32 for a float32 one
+    depth = _MMA_K if bf16 else _MMA_K32
+    Rp = -(-R // depth) * depth
+    _check_weights(fn, (3 if bf16 else 1) * C * L * Rp)
+    return bf16, Rp
+
+
+def _transit_folded_args(ft, wrows, G, wgt, dev: torch.device):
+    """fused_transit_folded's inputs checked: (bf16, G's tiles, Rk), 1 for
+    a bfloat16 table and the padded rows of the weights, or raise on any
+    input the kernel does not take."""
+    fn = "fused_transit_folded"
+    bf16 = _check_folded(fn, ft, dev)
+    R, L, _ = ft.tab.shape
+    C = wgt.shape[0]
+    for name, x, shape in (("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
+        _check(fn, name, x, shape, dev)
+    Gt = _slant32(fn, G, C, L, dev)
+    if min(R, L, C) < 1:
+        raise ValueError(f"{fn}: empty row, layer or chain axis")
+    _check_transit_fit(fn, L, ft.W * ft.K, bool(bf16), C)
+    # the row axis as the kernel reads it: padded to the depth of one
+    # product (the kernel splits the float32 weights in registers)
+    pad = _MMA_K if bf16 else _MMA_K32
+    return bf16, Gt, -(-R // pad) * pad
 
 
 def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
@@ -839,8 +977,11 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
     where K does not divide 64 a bin may straddle tiles; each tile sums
     the sub-samples it holds in the order of their fine points, and a
     second launch adds a cut bin's partial sums in tile order (no
-    atomics: a graphed launch repeats an eager one bit for bit).  It
-    raises on any input the kernel does not take, and never falls back.
+    atomics: a graphed launch repeats an eager one bit for bit).  A
+    table of any number of elements and any fine axis below 2^31 - 64
+    are taken; the weights need (3 on a bfloat16 table, else 1) x C L Rp
+    < 2^31.  It raises on any input the kernel does not take, and never
+    falls back.
     """
     if T.device.type == "cpu":
         return eclipse_folded_plain(ft, wn_out, mu, muw, wrows, T, drp,
@@ -850,29 +991,11 @@ def fused_eclipse_folded(ft: FoldedTable, wn_out: torch.Tensor,
                          f"{T.device}")
     fn = "fused_eclipse_folded"
     dev = T.device
-    bf16 = _check_folded(fn, ft, dev)
+    bf16, Rp = _eclipse_folded_args(ft, wn_out, mu, muw, wrows, T, drp, dev)
     R, L, Fp = ft.tab.shape
     W, K = ft.W, ft.K
     C = T.shape[0]
     nmu = int(mu.shape[0])
-    for name, x, shape in (("wn_out", wn_out, (W,)), ("mu", mu, (nmu,)),
-                           ("muw", muw, (nmu,)), ("wrows", wrows, (C, L, R)),
-                           ("T", T, (C, L)), ("drp", drp, (C, L))):
-        _check(fn, name, x, shape, dev)
-    if nmu < 1:
-        raise ValueError(f"{fn}: no quadrature node")
-    if min(R, L, C) < 1:
-        raise ValueError(f"{fn}: empty row, layer or chain axis")
-    if -(-W * K // _F_MTILE_F) > _MAX_GRID_Y:
-        raise ValueError(f"{fn}: {W * K} fine wavenumbers exceed the grid's "
-                         f"{_MAX_GRID_Y * _F_MTILE_F}")
-    # the row axis padded to the depth of one product; the weights as
-    # the kernel reads them: three bfloat16 parts (split_bf16) for a
-    # bfloat16 table, float32 for a float32 one
-    depth = _MMA_K if bf16 else _MMA_K32
-    Rp = -(-R // depth) * depth
-    if max((3 if bf16 else 1) * C * L * Rp, C * W) >= 2**31:
-        raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
     f32 = torch.float32
     w = _split_rows(wrows, Rp) if bf16 else _pad_rows(wrows, Rp)
@@ -923,8 +1046,9 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
     K >= 2: the kernel's tiles are 32 fine points, and a bin that
     straddles tiles is summed as in ``fused_eclipse_folded`` (each tile's
     sub-samples in fine-point order, the partial sums in tile order by a
-    second launch).  It raises on any input the kernel does not take,
-    and never falls back.
+    second launch).  A table of any number of elements and any fine axis
+    below 2^31 - 64 are taken.  It raises on any input the kernel does not
+    take, and never falls back.
     """
     if wgt.device.type == "cpu":
         return transit_folded_plain(
@@ -934,22 +1058,10 @@ def fused_transit_folded(ft: FoldedTable, wrows: torch.Tensor,
                          f"{wgt.device}")
     fn = "fused_transit_folded"
     dev = wgt.device
-    bf16 = _check_folded(fn, ft, dev)
+    bf16, Gt, Rk = _transit_folded_args(ft, wrows, G, wgt, dev)
     R, L, Fp = ft.tab.shape
     W, K = ft.W, ft.K
     C = wgt.shape[0]
-    for name, x, shape in (("wrows", wrows, (C, L, R)), ("wgt", wgt, (C, L))):
-        _check(fn, name, x, shape, dev)
-    Gt = _slant32(fn, G, C, L, dev)
-    if min(R, L, C) < 1:
-        raise ValueError(f"{fn}: empty row, layer or chain axis")
-    _check_transit_fit(fn, L, W * K, bool(bf16))
-    # the row axis as the kernel reads it: padded to the depth of one
-    # product (the kernel splits the float32 weights in registers)
-    pad = _MMA_K if bf16 else _MMA_K32
-    Rk = -(-R // pad) * pad
-    if max(C * L * Rk, C * W) >= 2**31:
-        raise ValueError(f"{fn}: tensors beyond 2^31 elements")
 
     # per call only the weights are padded
     f32 = torch.float32

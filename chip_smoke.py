@@ -146,6 +146,23 @@ smooth bins.  Phases:
      warm run loads both tables and builds neither), then ``entry()``'s
      forward on a table built in this process and on the cached one,
      for the bench's problem and entry's default one: equal bit for bit
+ 17. with ``--ceilings`` only (after phase 1): every kernel past the
+     card's two old refusals on random rows made on the card: tables of
+     2^31 elements or more (the folded eclipse at the flagship's rtosamp
+     = 128 shape, 3.3e9 bfloat16 elements, and on a float32 table; the
+     K = 1 pair and the folded transit on tables just past 2^31) and fine
+     axes past 65,535 tiles (2.2-4.2 M points at R = 8, L = 16, folded
+     transit also at a K the tiles cut); per case the whole launch
+     against launches on bin-aligned slices under both old ceilings and
+     against its graphed launch, bit for bit, the plain version on 8
+     chains, the kernel's ms, the plain version's and the bound
+ 18. with ``--flagship-k128`` only (after phase 1): the folded flagship
+     twin through the CLI at ``--rtosamp 128`` (its folded table 3.3e9
+     elements, past 2^31): the fine build's seconds and seconds a
+     T-node, the run's peak, the bins folded, 512 chains x 200 graphed
+     steps, phase 4b on its likelihood, both eclipse kernels on its rows
+     against their plain versions, ``--justSpectrum`` against the plain
+     versions
   6. with ``--trace`` only (after phase 14): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
@@ -184,6 +201,9 @@ exponentials at the special-function rate and its bytes at the HBM rate
                                       # and warm, and entry()
     python3 chip_smoke.py --flagship  # phases 0-1, then phase 15 (K = 1)
     python3 chip_smoke.py --flagship-fold   # phases 0-1, phase 15 folded
+    python3 chip_smoke.py --fold-k    # phases 0-2, then phase 16
+    python3 chip_smoke.py --ceilings  # phases 0-1, then phase 17
+    python3 chip_smoke.py --flagship-k128   # phases 0-1, then phase 18
 """
 
 from __future__ import annotations
@@ -882,6 +902,183 @@ def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
           f"any-K and many-node checks in "
           f"{time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+#: phase 17 (``--ceilings``): the card's two old refusals, on random rows
+#: (demo.random_rows' and random_transit_rows' distributions, the tables
+#: made on the card by utils.slices.random_table): per case (wrapper,
+#: ceiling, R, L, W bins, K, C chains, table type).  (i) Tables past 2^31
+#: elements: the folded eclipse at the flagship's rtosamp = 128 shape
+#: (122 rows x 100 layers x 2,088 bins x 128, 3.3e9 bfloat16) and on a
+#: float32 table just past 2^31, the K = 1 pair on one float32 table just
+#: past it, the folded transit on a bfloat16 one.  (ii) Fine axes past
+#: 65,535 tiles at few rows and layers: 4.2 M K = 1 eclipse points
+#: (65,625 64-point tiles), 2.2 M K = 1 transit points (68,750 32-point
+#: tiles), 4.2 M folded eclipse points at K = 128, 2.2 M folded transit
+#: points at K = 128 and at K = 48 (a bin cut by the tiles).  Expsum
+#: (the flagship's quadrature) for every eclipse case
+CEIL_CASES = (
+    ("fused_eclipse_folded", "table", 122, 100, 2088, 128, 512, "bfloat16"),
+    ("fused_eclipse_folded", "table", 122, 100, 1376, 128, 512, "float32"),
+    ("fused_eclipse", "table", 122, 100, 176100, 1, 512, "float32"),
+    ("fused_transit", "table", 122, 100, 176100, 1, 512, "float32"),
+    ("fused_transit_folded", "table", 41, 100, 4200, 128, 512, "bfloat16"),
+    ("fused_eclipse", "axis", 8, 16, 4200000, 1, 64, "float32"),
+    ("fused_transit", "axis", 8, 16, 2200000, 1, 64, "float32"),
+    ("fused_eclipse_folded", "axis", 8, 16, 33000, 128, 64, "bfloat16"),
+    ("fused_transit_folded", "axis", 8, 16, 17000, 128, 64, "bfloat16"),
+    ("fused_transit_folded", "axis", 8, 16, 45000, 48, 64, "bfloat16"),
+)
+#: phase 17: the chains on which each case is held against its plain
+#: version (the plain versions' temporaries at 512 chains and 4 M points
+#: would not fit), and the columns of the transit tables on which the
+#: share of slant tau in [0.1, 10] is checked
+CEIL_PLAIN_CHAINS, CEIL_MIXED_COLS = 8, 4096
+
+
+def ceiling_case(fused, dev, name: str, ceiling: str, R: int, L: int,
+                 W: int, K: int, C: int, tdt: str, seed: int) -> dict:
+    """One case of phase 17: the whole launch (the one that counts), the
+    same table in bin-aligned slices under both old ceilings (each bin's
+    output equal bit for bit: utils.slices), the plain version on
+    CEIL_PLAIN_CHAINS chains slice by slice (PERF.md section 2's
+    tolerances), a graphed launch against the eager one bit for bit, and
+    the kernel's ms, the plain version's and the bound."""
+    import torch
+
+    from bart_tpu_torch.device import graph_capture
+    from bart_tpu_torch.utils import slices
+
+    dtype = getattr(torch, tdt)
+    wrapper = getattr(fused, name)
+    transit = name.startswith("fused_transit")
+    F = W * K
+    t0 = time.perf_counter()
+    pb = slices.problem(name, R, L, W, K, C, dtype, seed, dev)
+    tab, raw, launch = pb.tab, pb.raw, pb.launch
+    if transit:
+        wrows, G, _ = pb.inputs
+        mixed = mixed_share(raw[..., :min(F, CEIL_MIXED_COLS)].float(),
+                            wrows[:16], G[:16])
+        check(mixed >= MIXED_SHARE, f"{name} {ceiling}: saturated ({mixed})")
+        rtol = OUT_RTOL
+        bnd = transit_bound(R, L, F, C, K, dtype == torch.bfloat16,
+                            nbytes(raw, *pb.inputs))
+    else:
+        rtol = SPEC_RTOL[True]
+        bnd = eclipse_bound(R, L, F, C, 8, True, K, dtype == torch.bfloat16,
+                            nbytes(raw, *pb.inputs))
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    ntile = -(-F // slices.TILE[name])
+    elems = raw.numel()
+    check(elems >= 2**31 if ceiling == "table"
+          else ntile > slices.OLD_MAX_TILES,
+          f"{name}: the case is not past the {ceiling} ceiling")
+
+    n0 = wrapper.launches
+    got = launch(tab, 0, W)                       # the whole launch
+    torch.cuda.synchronize()
+    launches = wrapper.launches - n0
+    check(bool(torch.isfinite(got).all()), f"{name} {ceiling}: non-finite")
+    edges = slices.slice_edges(W, K, slices.TILE[name], R * L)
+    by_slices = slices.launch_by_slices(launch, tab, edges)
+    same_slices = torch.equal(got, by_slices)
+    del by_slices
+    # the plain version on a few chains, a slice at a time
+    nc = CEIL_PLAIN_CHAINS
+    plain_all = lambda: torch.cat(                # noqa: E731
+        [pb.plain(slices.table_slice(tab, b0, b1), b0, b1, nc)
+         for b0, b1 in zip(edges, edges[1:])], dim=1)
+    ref = plain_all()
+    torch.cuda.synchronize()
+    e, e_abs = rel_err(got[:nc], ref), abs_err(got[:nc], ref)
+    del ref
+    p_ms = cuda_ms(plain_all, 1)
+    # graphed = eager
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(tab, 0, W)
+    torch.cuda.current_stream().wait_stream(side)
+    with graph_capture(graph):
+        static = launch(tab, 0, W)
+    graph.replay()
+    torch.cuda.synchronize()
+    same_graph = torch.equal(got, static)
+    del static, graph
+    ms = cuda_ms(lambda: launch(tab, 0, W), 3)
+    wrapper.launches = n0 + launches              # only the whole launch
+    ny, nz = fused._tile_grid(ntile)
+    rec = dict(case=f"{ceiling}: R={R} L={L} W={W} x {K} C={C} {tdt}",
+               ceiling=ceiling, R=R, L=L, W=W, K=K, C=C, table=tdt,
+               elements=elems, tiles=ntile, grid_yz=[ny, nz],
+               slices=[b - a for a, b in zip(edges, edges[1:])],
+               slices_equal=same_slices, graphed_equal=same_graph,
+               max_rel_err=e, max_abs_err=e_abs, plain_chains=nc, ms=ms,
+               plain_ms=p_ms, launches=launches, made_s=made_s,
+               bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+               bound_term=bnd["bound_term"])
+    print(f"# phase 17: {name} {rec['case']}: {elems} elements "
+          f"({elems / 2**31:.3f} x 2^31), {ntile} tiles (grid y x z "
+          f"{ny} x {nz}); {len(edges) - 1} slices of {rec['slices']} bins "
+          f"equal bit for bit: {same_slices}; graphed = eager: "
+          f"{same_graph}; vs plain on {nc} chains max rel err {e:.3e}, abs "
+          f"{e_abs:.3e}; kernel {ms:.3f} ms, plain {p_ms:.3f} ms ({nc} "
+          f"chains), bound {bnd['bound_ms']:.3f} ms ({bnd['bound_term']}); "
+          f"table made in {made_s:.1f} s")
+    check(same_slices, f"{name} {rec['case']}: the whole launch differs "
+          "from its slices")
+    check(same_graph, f"{name} {rec['case']}: graphed differs from eager")
+    check(e < rtol, f"{name} {rec['case']}: rel err {e}")
+    check(launches == 1, f"{name}: {launches} launches counted")
+    del tab, raw, got, pb, launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ceilings_phase(fused, dev, smi: str) -> dict:
+    """Phase 17 (``--ceilings``): every case of CEIL_CASES (ceiling_case)
+    with each wrapper's Python count zeroed before and read after the
+    phase (one whole launch a case counts); returns each wrapper's
+    records."""
+    import torch
+
+    t_phase = time.perf_counter()
+    for n in REPLACES:
+        getattr(fused, n).launches = 0
+    out = {n: [] for n in REPLACES}
+    for i, case in enumerate(CEIL_CASES):
+        torch.cuda.reset_peak_memory_stats()
+        rec = ceiling_case(fused, dev, *case, seed=100 + i)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[case[0]].append(rec)
+    counts = {n: getattr(fused, n).launches for n in REPLACES}
+    print(f"# phase 17 ({smi}): {len(CEIL_CASES)} cases in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches counted in "
+          f"Python {counts}")
+    check(all(counts[n] == len(out[n]) > 0 for n in REPLACES),
+          f"phase 17: launches {counts}")
+    return out
+
+
+def ceilings_kernels(p17: dict) -> list:
+    """Phase 17's kernels line: per wrapper its table case's ms, plain ms
+    and bound (the first, table-past-2^31 case), launches its whole
+    launches counted in Python (one a case), and every case's record
+    under ``ceilings``."""
+    recs = []
+    for name, cases in p17.items():
+        c = cases[0]
+        recs.append(kernel_record(
+            name, max(x["max_abs_err"] for x in cases), c["ms"],
+            c["plain_ms"], {k: c[k] for k in ("bound_ms", "bound_by",
+                                             "bound_term")},
+            sum(x["launches"] for x in cases),
+            plain_chains=CEIL_PLAIN_CHAINS, ceilings=cases))
+    return recs
 
 
 def ptxas_summary(log: str):
@@ -2514,6 +2711,116 @@ FOLDK_RTOSAMP, FOLDK_STEPS, FOLDK_BURNIN = 128, 200, 100
 FOLDK_RAYGRID = " ".join(str(a) for a in range(0, 90, 5))
 
 
+def kept_likelihoods():
+    """A context in which every Pipeline.stage_mcmc leaves its (like,
+    space, cfg) in the yielded dict under the cfg's solution."""
+    import contextlib
+
+    from bart_tpu_torch.driver.pipeline import Pipeline
+
+    @contextlib.contextmanager
+    def ctx():
+        likes = {}
+        stage_mcmc = Pipeline.stage_mcmc
+
+        def kept(self, like, space):
+            likes[self.cfg.solution] = (like, space, self.cfg)
+            return stage_mcmc(self, like, space)
+
+        Pipeline.stage_mcmc = kept
+        try:
+            yield likes
+        finally:
+            Pipeline.stage_mcmc = stage_mcmc
+    return ctx()
+
+
+def cli_fold_retrieval(fused, likes: dict, label: str, cfg_path: str,
+                       loc: str, extra: list, solution: str, truth, spread,
+                       K: int, f32: dict, rng, smi: str,
+                       rows: int | None = None, loaded: bool = False
+                       ) -> dict:
+    """The CLI's folded retrieval at rtosamp ``K`` (512 chains x
+    FOLDK_STEPS graphed steps; finite posterior, acceptance > 0, the
+    folded kernel and, where the split leaves smooth bins, the K = 1
+    kernel launched), phase 4b on its likelihood, its kernels on its
+    rows against their plain versions, its --justSpectrum against the
+    plain versions; the build (opacity stage) seconds, the run's peak
+    GiB, the fine bins the split chose and the fine table's elements
+    printed.  ``likes``: kept_likelihoods()'s dict; ``extra``: CLI
+    arguments, also passed to the --justSpectrum; ``rows``: the model's
+    expected row count (None: any); ``loaded``: the opacity file exists
+    (no build)."""
+    import torch
+
+    from bart_tpu_torch.utils.grids import folded_fine_grid
+
+    kernels = (fused.fused_eclipse_folded, fused.fused_eclipse,
+               fused.fused_transit_folded, fused.fused_transit)
+    folded = kernels[2] if solution == "transit" else kernels[0]
+    pair = [folded, kernels[3] if solution == "transit" else kernels[1]]
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = cli_run(["-c", cfg_path, "--loc_dir", loc, "--rtosamp", str(K),
+                   "--nchains", str(CLI_CHAINS), "--numit",
+                   str(CLI_CHAINS * FOLDK_STEPS), "--burnin",
+                   str(FOLDK_BURNIN), "--plots", "False", "--grtest",
+                   "False", *extra], kernels)
+    peak = torch.cuda.max_memory_allocated() / gib
+    post = np.load(os.path.join(loc, "output.npy"))
+    with open(os.path.join(loc, "MCMC.log")) as f:
+        accept = float(re.findall(r"accept=([0-9.]+)", f.read())[-1])
+    like, space, cfg = likes.pop(solution)
+    fm = like.forward
+    ft = fm.tables["tabk"]
+    elems, fine_bins = ft.tab.numel(), ft.W
+    n_fine = len(folded_fine_grid(cfg.wavenumber_grid(), cfg.fold_K))
+    nbin = len(cfg.wavenumber_grid())
+    step_ms = 1e3 * run["stages"]["mcmc"] / FOLDK_STEPS
+    source = "loaded" if loaded else f"the {n_fine}-point fine build"
+    print(f"# {label} ({smi}): cli {os.path.basename(cfg_path)} "
+          f"--rtosamp {K}: opacity {run['stages']['opacity']} s "
+          f"({source}), "
+          f"mcmc {run['stages']['mcmc']} s = {step_ms:.3f} ms a "
+          f"{CLI_CHAINS}-chain step with the host's stores; peak "
+          f"{peak:.2f} GiB; fine bins {ft.W} of {nbin} "
+          f"({ft.W / nbin:.3f}) x {ft.K}, {str(ft.tab.dtype)[6:]}: a fine "
+          f"table {tuple(ft.tab.shape)} of {elems} elements "
+          f"({elems / 2**31:.3f} x 2^31); accept {accept:.3f}; posterior "
+          f"{post.shape}; launches counted in Python {run['counts']}")
+    check(cfg.fold_K == K and ft.K == K,
+          f"{label}: the model folds {ft.K}, expected {K}")
+    check(0 < ft.W < nbin, f"{label}: {ft.W} fine bins of {nbin}")
+    check(post.shape[0] == CLI_CHAINS and post.shape[2] > 0
+          and bool(np.all(np.isfinite(post))), f"{label}: posterior")
+    check(accept > 0.0, f"{label}: no accepted proposal")
+    check(all(run["counts"][k.__name__] > 0 for k in pair),
+          f"{label}: the retrieval launched {run['counts']}")
+    params = torch.tensor(np.tile(truth, (CLI_CHAINS, 1)) + rng.normal(
+        0, 1, (CLI_CHAINS, len(truth))) * spread, **f32)
+    step = step_phase(label, like, space, fm, params, pair)
+    print_steps(label, step, smi)
+    del like, space
+    kern = fold_path_kernels(fused, fm, params)
+    del fm, ft
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = spectrum_vs_plain(
+        fused, f"{label} --justSpectrum", cfg_path, loc,
+        {"rtosamp": K, **{k.lstrip("-"): v
+                          for k, v in zip(extra[::2], extra[1::2])}},
+        kernels, rows, 100)
+    check(spec["fold"] == K, f"{label}: --justSpectrum's model folds "
+          f"{spec['fold']}")
+    check(spec["run"]["counts"][folded.__name__] > 0,
+          f"{label}: --justSpectrum launched {spec['run']['counts']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run=run, peak=peak, step=step, kern=kern, spec=spec,
+                fine_bins=fine_bins, bins=nbin, step_ms=step_ms, accept=accept, elements=elems)
+
+
 def fold_k_phase(fused, f32: dict, smi: str) -> dict:
     """Phase 16 (``--fold-k``): any K and any quadrature through the
     port's CLI at full width (100 layers x 2501 output bins x 512 chains,
@@ -2528,18 +2835,18 @@ def fold_k_phase(fused, f32: dict, smi: str) -> dict:
     kernel once a step in the trace of a replayed block, the step's
     times); each kernel on the CLI model's rows against its plain
     version; ``--justSpectrum`` on its directory against the plain
-    versions.  (b) the same on transit_fold.cfg at the same K, on (a)'s
-    opacity file (its wn, T and pressure grids checked against the
-    transit cfg).  (c) ``--justSpectrum`` of eclipse.cfg with a raygrid
-    every 5 degrees (18 angles) against the plain versions.  Each run's
-    build (opacity stage) seconds and peak GiB, the fine bins the split
-    chose and the graphed step are printed."""
+    versions (cli_fold_retrieval).  (b) the same on transit_fold.cfg at
+    the same K, on (a)'s opacity file (its wn, T and pressure grids
+    checked against the transit cfg).  (c) ``--justSpectrum`` of
+    eclipse.cfg with a raygrid every 5 degrees (18 angles) against the
+    plain versions.  Each run's build (opacity stage) seconds and peak
+    GiB, the fine bins the split chose and the graphed step are
+    printed."""
     import shutil
 
     import torch
 
     from bart_tpu_torch.demo import TRUTH, TRUTH_TRANSIT
-    from bart_tpu_torch.driver.pipeline import Pipeline
     from bart_tpu_torch.opacity.grid import load_grid
     from bart_tpu_torch.utils.grids import folded_fine_grid
 
@@ -2556,86 +2863,13 @@ def fold_k_phase(fused, f32: dict, smi: str) -> dict:
     opac = os.path.join(eloc, "opacity_CH4.npz")
     gib = 2.0 ** 30
     rng = np.random.default_rng(4)
-    likes = {}
-    stage_mcmc = Pipeline.stage_mcmc
-
-    def kept(self, like, space):
-        likes[self.cfg.solution] = (like, space, self.cfg)
-        return stage_mcmc(self, like, space)
-
-    def retrieval(label, cfg_path, loc, extra, solution, truth, spread):
-        """The CLI's folded retrieval, phase 4b on its likelihood, its
-        kernels on its rows, its --justSpectrum against the plain
-        versions."""
-        folded = kernels[2] if solution == "transit" else kernels[0]
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        run = cli_run(["-c", cfg_path, "--loc_dir", loc, "--rtosamp", str(K),
-                       "--nchains", str(CLI_CHAINS), "--numit",
-                       str(CLI_CHAINS * FOLDK_STEPS), "--burnin",
-                       str(FOLDK_BURNIN), "--plots", "False", "--grtest",
-                       "False", *extra], kernels)
-        peak = torch.cuda.max_memory_allocated() / gib
-        post = np.load(os.path.join(loc, "output.npy"))
-        with open(os.path.join(loc, "MCMC.log")) as f:
-            accept = float(re.findall(r"accept=([0-9.]+)", f.read())[-1])
-        like, space, cfg = likes.pop(solution)
-        fm = like.forward
-        ft = fm.tables["tabk"]
-        n_fine = len(folded_fine_grid(cfg.wavenumber_grid(), cfg.fold_K))
-        nbin = len(cfg.wavenumber_grid())
-        step_ms = 1e3 * run["stages"]["mcmc"] / FOLDK_STEPS
-        source = "loaded" if extra else f"the {n_fine}-point fine build"
-        print(f"# {label} ({smi}): cli {os.path.basename(cfg_path)} "
-              f"--rtosamp {K}: opacity {run['stages']['opacity']} s "
-              f"({source}), "
-              f"mcmc {run['stages']['mcmc']} s = {step_ms:.3f} ms a "
-              f"{CLI_CHAINS}-chain step with the host's stores; peak "
-              f"{peak:.2f} GiB; fine bins {ft.W} of {nbin} "
-              f"({ft.W / nbin:.3f}) x {ft.K}, {str(ft.tab.dtype)[6:]}; "
-              f"accept {accept:.3f}; posterior {post.shape}; launches "
-              f"counted in Python {run['counts']}")
-        check(cfg.fold_K == K and ft.K == K,
-              f"{label}: the model folds {ft.K}, expected {K}")
-        check(0 < ft.W < nbin, f"{label}: {ft.W} fine bins of {nbin}")
-        check(post.shape[0] == CLI_CHAINS and post.shape[2] > 0
-              and bool(np.all(np.isfinite(post))), f"{label}: posterior")
-        check(accept > 0.0, f"{label}: no accepted proposal")
-        check(run["counts"][folded.__name__] > 0,
-              f"{label}: the retrieval launched {run['counts']}")
-        params = torch.tensor(np.tile(truth, (CLI_CHAINS, 1)) + rng.normal(
-            0, 1, (CLI_CHAINS, len(truth))) * spread, **f32)
-        pair = [folded, kernels[3] if solution == "transit" else kernels[1]]
-        step = step_phase(label, like, space, fm, params, pair)
-        print_steps(label, step, smi)
-        del like, space
-        kern = fold_path_kernels(fused, fm, params)
-        del fm
-        gc.collect()
-        torch.cuda.empty_cache()
-        spec = spectrum_vs_plain(
-            fused, f"{label} --justSpectrum", cfg_path, loc,
-            {"rtosamp": K, **{k.lstrip("-"): v
-                              for k, v in zip(extra[::2], extra[1::2])}},
-            kernels,
-            None, 100)
-        check(spec["fold"] == K, f"{label}: --justSpectrum's model folds "
-              f"{spec['fold']}")
-        check(spec["run"]["counts"][folded.__name__] > 0,
-              f"{label}: --justSpectrum launched {spec['run']['counts']}")
-        gc.collect()
-        torch.cuda.empty_cache()
-        return dict(run=run, peak=peak, step=step, kern=kern, spec=spec,
-                    fine_bins=ft.W, bins=nbin, step_ms=step_ms,
-                    accept=accept)
-
-    Pipeline.stage_mcmc = kept
     out = {}
-    try:
+    with kept_likelihoods() as likes:
         # (a) eclipse_fold.cfg: the fine build and the retrieval
-        out["eclipse"] = retrieval("phase 16 (a)", os.path.join(
-            demo, "eclipse_fold.cfg"), eloc, [], "eclipse", TRUTH,
-            FOLD_CHECK_SPREAD)
+        out["eclipse"] = cli_fold_retrieval(
+            fused, likes, "phase 16 (a)",
+            os.path.join(demo, "eclipse_fold.cfg"), eloc, [], "eclipse",
+            TRUTH, FOLD_CHECK_SPREAD, K, f32, rng, smi)
         # (b) transit_fold.cfg on (a)'s table
         tcfg = os.path.join(demo, "transit_fold.cfg")
         from bart_tpu_torch.driver.config import load_config
@@ -2651,12 +2885,11 @@ def fold_k_phase(fused, f32: dict, smi: str) -> dict:
         del grid
         check(same, "eclipse_fold.cfg's opacity file is not transit_fold."
               "cfg's table: build it for transit")
-        out["transit"] = retrieval(
-            "phase 16 (b)", tcfg, tloc, ["--opacityfile", opac], "transit",
-            TRUTH_TRANSIT, np.where(np.arange(len(TRUTH_TRANSIT)) == 5, 10.0,
-                                    FOLD_CHECK_SPREAD))
-    finally:
-        Pipeline.stage_mcmc = stage_mcmc
+        out["transit"] = cli_fold_retrieval(
+            fused, likes, "phase 16 (b)", tcfg, tloc, ["--opacityfile", opac],
+            "transit", TRUTH_TRANSIT,
+            np.where(np.arange(len(TRUTH_TRANSIT)) == 5, 10.0,
+                     FOLD_CHECK_SPREAD), K, f32, rng, smi, loaded=True)
 
     # (c) eclipse.cfg with an 18-angle raygrid, --justSpectrum
     torch.cuda.reset_peak_memory_stats()
@@ -2709,6 +2942,120 @@ def fold_k_kernels(p16: dict) -> list:
                                       g["step"]["counts"].get(name, 0),
                                       **more))
     return recs
+
+
+#: phase 18 (``--flagship-k128``): the folded flagship twin at rtosamp =
+#: 128, the reference's ~1e-5 setting (docs/LINE_SAMPLING.md:43, 62-63):
+#: the fine grid is 2,491 bins x 128, and the table of the bins the split
+#: folds (2,088 at rtosamp 32) is 122 rows x 100 layers x ~267,000 fine
+#: points, 3.3e9 elements, past 2^31.  Its opacity file's name (the cfg's
+#: names rtosamp 32), and the bytes that must be free on the disk before
+#: the build starts (the float32 fine grid's file is 13.8 GB)
+FLAGSHIP_K128_OPACITY = "opacity_4mol_fold128.npz"
+FLAGSHIP_K128_DISK = 30e9
+
+
+def build_progress():
+    """A context in which build_opacity_grid prints the seconds since the
+    context began as it starts each species (one line each, flushed), so
+    that a build cut by the call's time limit still shows its rate."""
+    import contextlib
+
+    from bart_tpu_torch.opacity import grid
+
+    @contextlib.contextmanager
+    def ctx():
+        t0 = time.perf_counter()
+        get_molecule = grid.get_molecule
+
+        def noted(name):
+            print(f"# build: species {name} starts at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            return get_molecule(name)
+
+        grid.get_molecule = noted
+        try:
+            yield
+        finally:
+            grid.get_molecule = get_molecule
+    return ctx()
+
+
+def flagship_k128_phase(fused, f32: dict, smi: str) -> dict:
+    """Phase 18 (``--flagship-k128``): the folded flagship twin
+    (examples/torch_demo/wasp12b_eclipse_fold.cfg: 100 layers x 2,491
+    bins, 80,000 lines of 4 molecules, 122 rows, expsum, bfloat16 fine
+    rows, the default split) through ``driver.cli.main`` at ``--rtosamp``
+    FOLDK_RTOSAMP: (a) the fine build, whose folded table is past 2^31
+    elements (checked), with its seconds, seconds a T-node, the run's
+    peak GiB, the bins the split folds and the table's elements; (b) 512
+    chains x FOLDK_STEPS graphed steps (finite posterior, acceptance > 0,
+    fused_eclipse_folded and fused_eclipse launched); (c) phase 4b on its
+    likelihood; (d) each kernel on the CLI model's rows against its plain
+    version; (e) ``--justSpectrum`` against the plain versions
+    (cli_fold_retrieval)."""
+    import shutil
+
+    from bart_tpu_torch.driver.config import load_config
+    from bart_tpu_torch.inference.likelihood import ParamSpace
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(root, "examples", "torch_demo",
+                            "wasp12b_eclipse_fold.cfg")
+    work = os.path.join(root, "build", "phase18")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    free = shutil.disk_usage(work).free
+    print(f"# phase 18: {free / 1e9:.1f} GB free on the disk of {work}",
+          flush=True)
+    check(free >= FLAGSHIP_K128_DISK, f"phase 18: {free / 1e9:.1f} GB free, "
+          f"the fine grid's file needs {FLAGSHIP_K128_DISK / 1e9:.0f}")
+    t_phase = time.perf_counter()
+    cfg = load_config(cfg_path)
+    truth = np.asarray(cfg.params, np.float64)
+    free_par = np.zeros(len(truth))
+    free_par[ParamSpace(cfg.params, cfg.pmin, cfg.pmax,
+                        cfg.stepsize).ifree] = 1.0
+    n_t = len(np.arange(cfg.tlow, cfg.thigh + cfg.tempdelt / 2,
+                        cfg.tempdelt))
+    with kept_likelihoods() as likes, build_progress():
+        out = cli_fold_retrieval(
+            fused, likes, "phase 18", cfg_path, os.path.join(work, "wasp12b"),
+            ["--opacityfile", FLAGSHIP_K128_OPACITY], "eclipse", truth,
+            FLAGSHIP_SPREAD * free_par, FOLDK_RTOSAMP, f32,
+            np.random.default_rng(18), smi, rows=FLAGSHIP_ROWS)
+    build_s = out["run"]["stages"]["opacity"]
+    print(f"# phase 18 ({smi}): the fine build {build_s} s, "
+          f"{build_s / n_t:.1f} s a T-node ({n_t} nodes); the folded table "
+          f"{out['elements']} elements; {out['fine_bins']} of "
+          f"{out['bins']} bins folded; the graphed step "
+          f"{out['step']['graph'][0]:.3f} ms")
+    check(out["elements"] >= 2**31,
+          f"phase 18: the folded table has {out['elements']} elements")
+    for name, c in out["kern"].items():
+        print(f"# phase 18 ({smi}): {name} on the CLI's rows (R={c['R']} "
+              f"W={c['W']} K={c['K']} C={CLI_CHAINS}): max rel err "
+              f"{c['rel']:.3e}, abs {c['abs']:.3e}; kernel {c['ms']:.3f} ms, "
+              f"plain {c['plain_ms']:.3f} ms, bound "
+              f"{c['bound']['bound_ms']:.3f} ms ({c['bound']['bound_term']})")
+    print(f"# phase 18 ({smi}): {time.perf_counter() - t_phase:.1f} s for "
+          "the phase")
+    return out
+
+
+def flagship_k128_kernels(p18: dict) -> list:
+    """Phase 18's kernels line: each eclipse kernel on the CLI model's own
+    rows (launches: the trace of a replayed block of phase 4b;
+    python_launches: the wrapper's count in the retrieval and its
+    --justSpectrum)."""
+    return [kernel_record(
+        name, c["abs"], c["ms"], c["plain_ms"], c["bound"],
+        p18["step"]["counts"].get(name, 0), R=c["R"], W=c["W"], K=c["K"],
+        max_rel_err=c["rel"], table_elements=p18["elements"],
+        python_launches=p18["run"]["counts"][name]
+        + p18["spec"]["run"]["counts"][name],
+        spectrum_rel_err=p18["spec"]["rel"])
+        for name, c in p18["kern"].items()]
 
 
 def onthefly_phase(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
@@ -4366,6 +4713,24 @@ def main() -> int:
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
               "start to the records")
         print(json.dumps({"kernels": flagship_kernels(p15)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--ceilings" in sys.argv[1:]:
+        p17 = ceilings_phase(fused, dev, smi.strip().splitlines()[0])
+        print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+              "start to the records")
+        print(json.dumps({"kernels": ceilings_kernels(p17)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--flagship-k128" in sys.argv[1:]:
+        p18 = flagship_k128_phase(fused, f32, smi.strip().splitlines()[0])
+        print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+              "start to the records")
+        print(json.dumps({"kernels": flagship_k128_kernels(p18)}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -613,3 +613,36 @@ def test_folded_kernels_raise_on_what_they_do_not_take(cuda_device):
             ft, torch.ones(2, L, 1, dtype=F32, device=cuda_device),
             torch.zeros(2, L, L, dtype=F32, device=cuda_device),
             torch.ones(2, L, dtype=F32, device=cuda_device))
+
+
+# past the card's old ceilings: a table of 2^31 elements or more (86 rows
+# x 100 layers x ~250,000 fine points, bfloat16) and a fine axis past
+# 65,535 tiles (4.2 M eclipse points, 2.2 M transit points), at K = 128
+# (a bin spans two eclipse tiles) and K = 48 (cut by the transit tiles),
+# each held against launches on bin-aligned slices under both old
+# ceilings (bit for bit) and against the plain version on a few chains
+_FOLD_CEILINGS = {
+    "eclipse-table": ("fused_eclipse_folded", 86, 100, 1954, 128, 16),
+    "eclipse-axis": ("fused_eclipse_folded", 8, 16, 33000, 128, 16),
+    "transit-table": ("fused_transit_folded", 86, 100, 5210, 48, 16),
+    "transit-axis": ("fused_transit_folded", 8, 16, 45000, 48, 16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_FOLD_CEILINGS))
+def test_folded_kernels_past_the_old_ceilings_on_card(cuda_device, case):
+    from bart_tpu_torch.utils import slices
+
+    name, R, L, W, k, C = _FOLD_CEILINGS[case]
+    pb = slices.problem(name, R, L, W, k, C, BF16, 3, cuda_device)
+    assert (pb.raw.numel() >= 2**31 if case.endswith("table")
+            else -(-W * k // slices.TILE[name]) > slices.OLD_MAX_TILES)
+    got = pb.launch(pb.tab, 0, W)
+    edges = slices.slice_edges(W, k, slices.TILE[name], R * L)
+    assert len(edges) > 2
+    assert torch.equal(got, slices.launch_by_slices(pb.launch, pb.tab,
+                                                    edges))
+    b1 = edges[1]
+    ref = pb.plain(slices.table_slice(pb.tab, 0, b1), 0, b1, 4)
+    np.testing.assert_allclose(got[:4, :b1].cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5 if "transit" in name else 2e-4)

@@ -596,3 +596,36 @@ def test_forward_on_card_copies_no_table(cuda_device):
     torch.cuda.synchronize()
     table_bytes = tab.numel() * tab.element_size()
     assert torch.cuda.max_memory_allocated() - base < table_bytes
+
+
+# past the card's old ceilings: a table of 2^31 elements or more (86 rows
+# x 100 layers x 250,000 wavenumbers, float32, 8.6 GB) and a fine axis
+# past 65,535 tiles (4.2 M eclipse points in 64-point tiles, 2.2 M
+# transit points in 32-point ones), each held against launches on
+# bin-aligned slices under both old ceilings (bit for bit: each
+# wavenumber's output depends only on its own columns) and against the
+# plain version on a few chains
+_K1_CEILINGS = {"eclipse-table": ("fused_eclipse", 86, 100, 250000, 16),
+                "eclipse-axis": ("fused_eclipse", 8, 16, 4200000, 16),
+                "transit-table": ("fused_transit", 86, 100, 250000, 16),
+                "transit-axis": ("fused_transit", 8, 16, 2200000, 16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_K1_CEILINGS))
+def test_k1_kernels_past_the_old_ceilings_on_card(cuda_device, case):
+    from bart_tpu_torch.utils import slices
+
+    name, R, L, W, C = _K1_CEILINGS[case]
+    pb = slices.problem(name, R, L, W, 1, C, F32, 3, cuda_device)
+    assert (pb.raw.numel() >= 2**31 if case.endswith("table")
+            else -(-W // slices.TILE[name]) > slices.OLD_MAX_TILES)
+    got = pb.launch(pb.tab, 0, W)
+    edges = slices.slice_edges(W, 1, slices.TILE[name], R * L)
+    assert len(edges) > 2
+    assert torch.equal(got, slices.launch_by_slices(pb.launch, pb.tab,
+                                                    edges))
+    b1 = edges[1]
+    ref = pb.plain(slices.table_slice(pb.tab, 0, b1), 0, b1, 4)
+    np.testing.assert_allclose(got[:4, :b1].cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5 if "transit" in name else 2e-4)

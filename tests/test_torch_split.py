@@ -597,8 +597,9 @@ def test_transit_mma_source_constants_and_smem_match_python():
 def test_limits_the_wrappers_raise_on():
     # every layer count up to 400 (and well beyond: the annulus weights
     # bound the streamed variant at 4,704 layers, 4,960 on a float32
-    # table) fits the transit kernels, and the fine axis is what the grid
-    # bounds
+    # table) fits the transit kernels, and so does a fine axis past the
+    # 65,535 tiles a grid's y extent holds (the tiles spread over y and
+    # z); the streamed variant's int item index bounds its items
     for bf16 in (True, False):
         for L in range(1, 401):
             assert fused._transit_mma_smem(L, bf16) <= fused._SMEM_LIMIT
@@ -606,8 +607,11 @@ def test_limits_the_wrappers_raise_on():
         fused._check_transit_fit("fn", 4000, 300, bf16)
         with pytest.raises(ValueError, match="shared memory"):
             fused._check_transit_fit("fn", 8000, 300, bf16)
-        with pytest.raises(ValueError, match="exceed the grid"):
-            fused._check_transit_fit("fn", 100, 32 * 65535 + 1, bf16)
+        for L in (100, 200):
+            fused._check_transit_fit("fn", L, 32 * 65535 + 1, bf16, 512)
+        fused._check_transit_fit("fn", 100, 2**31 - 128, bf16, 10**6)
+        with pytest.raises(ValueError, match="fewer than 2\\^31"):
+            fused._check_transit_fit("fn", 200, 2**31 - 128, bf16, 10**6)
     # any K >= 2 is taken (K = 1 is the K = 1 kernels'); a table that is
     # not folded_table's raises
     cpu = torch.device("cpu")
