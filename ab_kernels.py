@@ -14,7 +14,11 @@ and ``fused_transit_folded`` (R = 41) at 1,125 bins x K for K in 2, 4,
 8, 16, 32 on bfloat16 tables (eclipse: expsum; at K = 32 also raygrid
 and float32 tables), and at the K that straddle the tiles (3, 48, 128:
 the cut bins' partial sums in their scratch) on both table types
-(eclipse: bfloat16 expsum, float32 raygrid).  Every output is compared bit for bit across the
+(eclipse: bfloat16 expsum, float32 raygrid).  Then the transit kernels'
+streamed variant (L > 112) at 113 and 200 layers, at R = 41 and 226:
+``fused_transit`` at 2,501 wavenumbers and ``fused_transit_folded`` at
+1,125 bins x 32 on both table types and x 48 (a K the 32-point tiles
+cut) on a bfloat16 table.  Every output is compared bit for bit across the
 four runs; each case's ms (CUDA events, mean over the launches after a
 warm-up) is printed per run, with the change's best against the
 parent's best.
@@ -36,6 +40,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FOLD_KS = (2, 4, 8, 16, 32)
 #: K that the folded kernels' 64- and 32-point tiles cut
 STRADDLE_KS = (3, 48, 128)
+#: the streamed transit cases: layers, rows, and the folded (K, table
+#: type) pairs
+STREAM_LS, STREAM_RS = (113, 200), (41, 226)
+STREAM_FOLDS = ((32, "bfloat16"), (32, "float32"), (48, "bfloat16"))
 
 
 def cases(root: str, out_npz: str) -> None:
@@ -75,10 +83,10 @@ def cases(root: str, out_npz: str) -> None:
         (mu, muw), powers = quads[quad]
         return torch.tensor(mu, **f32), torch.tensor(muw, **f32), powers
 
-    def fine(tab, K):
+    def fine(tab, K, layers=L):
         R, _, W = tab.shape
         factor = torch.tensor(fine_structure(R, W, K), **f32)
-        return (tab[..., None] * factor).reshape(R, L, W * K)
+        return (tab[..., None] * factor).reshape(R, layers, W * K)
 
     # K = 1
     tab, wn, wrows, T, drp = (torch.tensor(a, **f32)
@@ -123,6 +131,31 @@ def cases(root: str, out_npz: str) -> None:
             timed(f"fused_transit_folded K={K} {str(tdt)[6:]}",
                   lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt), 5)
         del fn, ft
+    del tab, wrows, G, Gp, wgt
+    # the streamed transit variant
+    for Ls in STREAM_LS:
+        for R in STREAM_RS:
+            tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                                  random_transit_rows(R, Ls, W1, C,
+                                                      seed=7)[:4])
+            rt, Gp = fused.rows_table(tab), fused.prepare_slant(G)
+            timed(f"fused_transit L={Ls} R={R}",
+                  lambda: fused.fused_transit(rt, wrows, Gp, wgt), 5)
+            del tab, wrows, G, Gp, wgt, rt
+            tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                                  random_transit_rows(R, Ls, WF, C,
+                                                      seed=7)[:4])
+            Gp = fused.prepare_slant(G)
+            for K, tdt in STREAM_FOLDS:
+                fn = fine(tab, K, Ls)
+                ft = fused.folded_table(fn, K, getattr(torch, tdt))
+                del fn
+                timed(f"fused_transit_folded L={Ls} R={R} K={K} {tdt}",
+                      lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt),
+                      3)
+                del ft
+            del tab, wrows, G, Gp, wgt
+            torch.cuda.empty_cache()
     np.savez(out_npz, **outs)
     print(json.dumps({"ms": ms, "card": torch.cuda.get_device_name(0)}))
 

@@ -6,8 +6,10 @@ products, the exponentials, the grid order.
 Each variant is built with ``-DBART_ABLATE=<bits>`` (the bits are listed
 in the kernels' sources) in a process of its own, and timed on
 chip_smoke.py's phase-2 random rows at the full-width shapes (512 chains,
-100 layers).  Without ``--k1`` the two folded kernels (1,125 fine bins x
-32, bfloat16 tables, or float32 ones with ``--f32``; eclipse R = 27 with
+100 layers, or ``--layers N``: past 112 the transit kernels run their
+streamed variant, whose ablation bits mean what the resident's do).
+Without ``--k1`` the two folded kernels (1,125 fine bins x 32, bfloat16
+tables, or float32 ones with ``--f32``; eclipse R = 27 with
 the expsum quadrature, transit R = 41); with ``--k1`` the two K = 1
 kernels (2,501 wavenumbers, float32 tables; eclipse R = 27 in both
 quadratures, transit R = 41).  An ablated
@@ -19,6 +21,10 @@ kernel's result is wrong (all bits but the eclipse's 16 and the transit's
     python3 ablate_folded.py --f32 0 8       # on float32 fine tables
     python3 ablate_folded.py --k1            # the K = 1 default variants
     python3 ablate_folded.py --k1 0 16       # these bit sets
+    python3 ablate_folded.py --k1 --layers 113 0 1 22   # the streamed
+                                                          # variant
+    python3 ablate_folded.py --root build/parent --k1 --layers 113 0 1
+                             # the same bits on another checkout's kernels
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 VARIANTS = {0: "as built", 1: "no global -> shared copies",
             2: "no fill products", 4: "no exponentials",
@@ -53,10 +61,12 @@ def rel_err(a, b) -> float:
                   / b.double().abs().clamp_min(1e-300)).max())
 
 
-def one(bits: int, k1: bool, f32_table: bool = False) -> None:
+def one(bits: int, k1: bool, f32_table: bool = False, L: int = 100,
+        root: str = HERE) -> None:
     import torch
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(root))
     from bart_tpu_torch.demo import (fine_structure, random_rows,
                                      random_transit_rows)
     from bart_tpu_torch.rt import fused
@@ -66,10 +76,11 @@ def one(bits: int, k1: bool, f32_table: bool = False) -> None:
     # one more flag keys another library in build/: set before any build
     fused._NVCC_FLAGS += (f"-DBART_ABLATE={bits}",)
     f32 = dict(dtype=torch.float32, device="cuda")
-    R, Rt, L, C, K = 27, 41, 100, 512, 32
+    R, Rt, C, K = 27, 41, 512, 32
     W = 2501 if k1 else 1125
     names = (("fused_eclipse", "fused_transit") if k1
              else ("fused_eclipse_folded", "fused_transit_folded"))
+    assert fused.__file__.startswith(os.path.abspath(root)), fused.__file__
     fused.build_kernels(names)
     label = (VARIANTS_K1 if k1 else VARIANTS).get(bits, "custom")
 
@@ -110,7 +121,7 @@ def one(bits: int, k1: bool, f32_table: bool = False) -> None:
     t_ms = cuda_ms(lambda: kernel(ttab, wrows, Gp, wgt), 5)
     t_err = rel_err(kernel(ttab, wrows, Gp, wgt), plain(ptab, wrows, G, wgt))
     table = "" if k1 else ("float32 " if f32_table else "bfloat16 ")
-    print(f"# ablate {bits:2d} ({label}): {table}{names[0]} "
+    print(f"# ablate {bits:2d} ({label}), L = {L}: {table}{names[0]} "
           f"{', '.join(e_out)}; "
           f"{names[1]} {t_ms:.3f} ms (rel err {t_err:.2e})", flush=True)
 
@@ -123,10 +134,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    if len(args) == 3 and args[0] == "--one":
-        one(int(args[2]), args[1] == "k1", args[1] == "f32")
+    if len(args) == 5 and args[0] == "--one":
+        one(int(args[2]), args[1] == "k1", args[1] == "f32", int(args[3]),
+            args[4])
         return 0
     k1, f32_table = "--k1" in args, "--f32" in args
+    opts = {"--layers": "100", "--root": HERE}
+    for key in opts:
+        if key in args:
+            i = args.index(key)
+            opts[key] = args[i + 1]
+            del args[i:i + 2]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -138,7 +156,8 @@ def main() -> int:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--one", "k1" if k1 else
                               "f32" if f32_table else "folded",
-                              str(int(bits))]).returncode
+                              str(int(bits)), str(int(opts["--layers"])),
+                              opts["--root"]]).returncode
     return rc
 
 

@@ -11,8 +11,8 @@
 // weights zero-padded to R rows, Rt rounded up to 8; G in tiles
 // [C, Lk / 8, Lm, 8] (tile s holds G[c, :, 8 s : 8 s + 8]; Lk, Lm = L
 // rounded up to 8, 16; lower-triangular, zero padding); out [C, W].
-// Above 112 layers ext_g is the streamed kernel's scratch, nslot x 8 x Lk
-// x 32 float32 for nslot blocks (else unused).  Returns the cudaError_t
+// Above 112 layers ext_g is the streamed kernel's scratch, nslot x 32 x
+// Lk x 32 float32 for nslot blocks (else unused).  Returns the cudaError_t
 // of the launch: 0 when the kernel was queued on ``stream``.
 extern "C" int bart_fused_transit(const float* tab, const float* wrows,
                                   const float* G, const float* wgt,

@@ -19,8 +19,8 @@
 // R = Rt rounded up to 16 (bfloat16 table) or 8 (float32 table, bf16 ==
 // 0); G in tiles [C, Lk / 8, Lm, 8] (tile s holds G[c, :, 8 s : 8 s + 8];
 // Lk, Lm = L rounded up to 8, 16; lower-triangular, zero padding).
-// Above 112 layers ext_g is the streamed kernel's scratch, nslot x 8 x Lk
-// x 32 float32 for nslot blocks (else unused).  Where K does not divide
+// Above 112 layers ext_g is the streamed kernel's scratch, nslot x 32 x
+// Lk x 32 float32 for nslot blocks (else unused).  Where K does not divide
 // the 32-point tile, part is the straddling bins' partial sums,
 // [C, ceil(W K / 32), 2] float32, added by a second launch in tile order
 // (fold_straddle.cuh; else unused, may be null).  Returns the

@@ -88,8 +88,11 @@ _RCH = 64
 # fused_eclipse_folded.cu: MTILE_F, CBM, NSTAGE, MTHREADS
 _F_MTILE_F, _F_CBM, _F_NSTAGE, _F_MTHREADS = 64, 32, 4, 256
 # fused_transit_mma.cuh (the K = 1 and the folded transit kernel): FT_W,
-# FT_CB, FT_NS, FT_MT; above 16 FT_MT layers its streamed variant runs
+# FT_CB, FT_NS, FT_MT; above 16 FT_MT layers its streamed variant runs,
+# on items of FT_SG chain groups of FT_CB x FT_SW tiles, FT_SNS units in a
+# warp pair's ring
 _FT_W, _FT_CB, _FT_NS, _FT_MT = 32, 8, 5, 7
+_FT_SG, _FT_SW, _FT_SNS = 4, 2, 4
 #: the tensor-core kernels pad the row axis to the depth of one product:
 #: 16 rows in bfloat16, 8 in TF32
 _MMA_K, _MMA_K32 = 16, 8
@@ -715,19 +718,26 @@ def _transit_mma_smem(L: int, bf16: bool) -> int:
     [16][FT_W + 8] in bfloat16 and weights [FT_CB][24] in float32; a
     float32 table's: [8][FT_W + 8] and [FT_CB][12] in float32) and their
     G stages (2 x [Lm][8] float32 each).  Above (the streamed variant,
-    ext in a global scratch): the annulus weights, then the larger of the
-    fill rings and the warps' two stages of a group's G rows
-    [16 FT_MT][8] and a step's ext rows [8][FT_W], float32.  The row
-    count does not enter."""
+    ext in a global scratch): the annulus weights of each warp pair's
+    chain, then the larger of the pairs' fill rings (FT_SNS units each:
+    the table rows of FT_SW tiles, [16][FT_SW FT_W + 8] bfloat16 or
+    [8][FT_SW FT_W + 8] float32, and the weights of FT_SG x FT_CB chains,
+    [32][16] or [32][12] float32) and the slant's stages (each pair's two
+    of a group's G rows [16 FT_MT][8], each warp's two of a step's ext
+    rows [8][FT_W], float32).  The row count does not enter."""
     Lk, Lm = -(-L // 8) * 8, -(-L // 16) * 16
+    if _transit_streamed(L):
+        chains, pairs, cols = _FT_SG * _FT_CB, _FT_CB // _FT_SW, \
+            _FT_SW * _FT_W + 8
+        unit = (2 * 16 * cols + 4 * chains * 16 if bf16
+                else 4 * 8 * cols + 4 * chains * 12)
+        slant = 4 * (pairs * 2 * 16 * _FT_MT * 8 + _FT_CB * 2 * 8 * _FT_W)
+        return 4 * pairs * Lm + max(pairs * _FT_SNS * unit, slant)
     unit = (2 * 16 * (_FT_W + 8) + 4 * _FT_CB * 24 if bf16
             else 4 * 8 * (_FT_W + 8) + 4 * _FT_CB * 12)
-    fill = _FT_CB * _FT_NS * unit
-    if _transit_streamed(L):
-        slant = _FT_CB * 2 * (16 * _FT_MT * 8 + 8 * _FT_W) * 4
-        return 4 * _FT_CB * Lm + max(fill, slant)
     slant = _FT_CB * 2 * Lm * 8 * 4
-    return 4 * (_FT_CB * (Lk * _FT_W + 4) + _FT_CB * Lm) + max(fill, slant)
+    return (4 * (_FT_CB * (Lk * _FT_W + 4) + _FT_CB * Lm)
+            + max(_FT_CB * _FT_NS * unit, slant))
 
 
 def _transit_streamed(L: int) -> bool:
@@ -735,11 +745,19 @@ def _transit_streamed(L: int) -> bool:
     return L > 16 * _FT_MT
 
 
+def _transit_items(L: int, C: int, F: int) -> int:
+    """The (chain block, 32-point tile) pairs of a transit launch, which
+    its launcher bounds: blocks of FT_CB chains (resident) or FT_SG FT_CB
+    (streamed, whose items take FT_SW tiles each)."""
+    cb = _FT_SG * _FT_CB if _transit_streamed(L) else _FT_CB
+    return -(-C // cb) * -(-F // _FT_W)
+
+
 def _check_transit_fit(fn: str, L: int, F: int, bf16: bool,
                        C: int = 1) -> None:
     """Raise if L layers exceed what a block of the transit kernel holds
-    (the annulus weights bound L at 4,704 on a bfloat16 table, 4,960 on a
-    float32 one), or if the streamed variant's (chain block, tile) items
+    (the annulus weights bound L at 10,176 on a bfloat16 table, 10,688 on
+    a float32 one), or if the streamed variant's (chain block, tile) items
     of C chains and F (fine) wavenumbers reach 2^31 (its item index is an
     int).  Any F below 2^31 - 64 is taken: the tiles spread over the
     grid's y and z."""
@@ -747,7 +765,7 @@ def _check_transit_fit(fn: str, L: int, F: int, bf16: bool,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{fn}: {L} layers need {smem} B of shared memory, "
                          f"more than a block has ({_SMEM_LIMIT})")
-    items = -(-C // _FT_CB) * -(-F // _FT_W)
+    items = _transit_items(L, C, F)
     if _transit_streamed(L) and items >= 2**31:
         raise ValueError(f"{fn}: {items} (chain block, tile) items; the "
                          f"streamed variant ({L} layers) indexes them with "
@@ -761,16 +779,17 @@ def _sm_count(index: int) -> int:
 
 def _ext_scratch(L: int, C: int, F: int, dev: torch.device):
     """(scratch, nslot) of the streamed transit variant: one block an SM
-    walks the (chain block, wavenumber tile) items, each with its own
-    [FT_CB][Lk][FT_W] float32 of ext; (None, 0) for the resident kernel."""
+    walks the (chain block, FT_SW wavenumber tiles) items, each with its
+    own [FT_SW][FT_SG FT_CB][Lk][FT_W] float32 of ext; (None, 0) for the
+    resident kernel."""
     if not _transit_streamed(L):
         return None, 0
-    items = -(-C // _FT_CB) * -(-F // _FT_W)
-    nslot = min(items, _sm_count(dev.index if dev.index is not None
-                                 else torch.cuda.current_device()))
+    nslot = min(_transit_items(L, C, F),
+                _sm_count(dev.index if dev.index is not None
+                          else torch.cuda.current_device()))
     Lk = -(-L // 8) * 8
-    return torch.empty(nslot * _FT_CB * Lk * _FT_W, dtype=torch.float32,
-                       device=dev), nslot
+    return torch.empty(nslot * _FT_SW * _FT_SG * _FT_CB * Lk * _FT_W,
+                       dtype=torch.float32, device=dev), nslot
 
 
 def _transit_args(tab, wrows, G, wgt, dev: torch.device):

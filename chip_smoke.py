@@ -27,8 +27,10 @@ smooth bins.  Phases:
      result must differ from the K = 1 result on the bin-mean table); 2b:
      at full width past the old ceilings, the eclipse kernels at 122, 137,
      226 and 512 rows (both quadratures; both folded instances) and the
-     transit kernels at 113 and 200 layers on 226 rows (K = 1 and folded
-     on both table types), each timed beside its plain version
+     transit kernels at 112 layers (resident), 113 and 200 (streamed) on
+     226 and 41 rows (K = 1 and folded on both table types), each timed
+     beside its plain version, with the 113-layer time over the
+     112-layer one on the same rows
   3. the port's own opacity build on the card, then one 512-chain
      forward batch through ForwardModel.batched() per geometry; folded:
      the fine build, the fine share of bins, a forward per geometry held
@@ -163,6 +165,17 @@ smooth bins.  Phases:
      steps, phase 4b on its likelihood, both eclipse kernels on its rows
      against their plain versions, ``--justSpectrum`` against the plain
      versions
+ 19. with ``--deep-transit`` only (after phase 1): the deep-atmosphere
+     transit path through the CLI: examples/torch_demo/transit_l200.cfg
+     (K = 1) and transit_fold_l200.cfg (rtosamp 32, the adaptive split,
+     bfloat16 fine rows), 200 layers x 2,501 bins x 41 rows, where every
+     transit launch is the kernels' streamed variant: per cfg the build
+     (the fine build, folded), 512 chains x 200 graphed steps, phase 4b
+     on its likelihood (graphed = eager bit for bit, the streamed
+     variant's launches in the trace of a replayed block, the graphed
+     step's ms), its kernels on its rows against their plain versions
+     with their bounds, ``--justSpectrum`` against the plain versions;
+     the build's seconds and the run's peak GiB
   6. with ``--trace`` only (after phase 14): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
@@ -204,6 +217,7 @@ exponentials at the special-function rate and its bytes at the HBM rate
     python3 chip_smoke.py --fold-k    # phases 0-2, then phase 16
     python3 chip_smoke.py --ceilings  # phases 0-1, then phase 17
     python3 chip_smoke.py --flagship-k128   # phases 0-1, then phase 18
+    python3 chip_smoke.py --deep-transit    # phases 0-1, then phase 19
 """
 
 from __future__ import annotations
@@ -260,12 +274,13 @@ REPLACES = {"fused_eclipse": "bart_tpu/rt/fused.py:159",          # _kernel
 BLOCK = 10
 #: the name of each wrapper's kernel among a trace's device events (the
 #: folded paths' fine tables are bfloat16, so the float32 instances of the
-#: transit template, resident or streamed, are the K = 1 launches)
+#: transit kernels, resident or streamed, are the K = 1 launches)
 TRACE_KERNEL = {"fused_eclipse": r"fused_eclipse_kernel",
-                "fused_transit": r"fused_transit_mma_kernel<float,",
+                "fused_transit":
+                    r"fused_transit_(mma|stream)_kernel<float[,>]",
                 "fused_eclipse_folded": r"fused_eclipse_folded_\w+_kernel",
                 "fused_transit_folded":
-                    r"fused_transit_mma_kernel<__nv_bfloat16,"}
+                    r"fused_transit_(mma|stream)_kernel<__nv_bfloat16[,>]"}
 #: phase 4c: steps, burn-in and block of the truth-recovery retrieval
 #: (512 chains from uniform starts; tests/test_end_to_end.py runs 8 x
 #: 6,000).  3,000 steps with 1,500 of burn-in held three criteria but not
@@ -654,8 +669,10 @@ def folded_kernels_vs_plain(fused, filters, f32: dict, quads: dict) -> dict:
 #: held against their plain versions at full width: the flagship's 122
 #: rows (4 molecules x 27 T-nodes + 14 CIA T-nodes), 137 (a second CIA
 #: table and Rayleigh), 226 (the flagship at tempdelt = 50), 512; and the
-#: transit kernels at 113 and 200 layers on 226 rows
-MANY_ROWS, MANY_LAYERS, MANY_LAYER_ROWS = (122, 137, 226, 512), (113, 200), 226
+#: transit kernels at 112 layers (the resident kernel's last), 113 and 200
+#: (the streamed variant) on 226 rows and on the demo's 41
+MANY_ROWS, MANY_LAYERS = (122, 137, 226, 512), (112, 113, 200)
+MANY_LAYER_ROWS = (226, 41)
 #: phase 2b: the K = 1 width (the flagship's 910-3400 cm-1 at 1 cm-1) and
 #: the folded bins (phase 2's) of its random rows
 MANY_W, MANY_FOLD_W = 2491, 1125
@@ -758,8 +775,7 @@ def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
         del fine, wrows
         torch.cuda.empty_cache()
 
-    R = MANY_LAYER_ROWS
-    for L in MANY_LAYERS:
+    for R, L in [(r, ly) for r in MANY_LAYER_ROWS for ly in MANY_LAYERS]:
         # ---- K = 1 transit, then folded on both table types
         for W, Kt in ((MANY_W, 1), (MANY_FOLD_W, K)):
             tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
@@ -779,7 +795,8 @@ def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
                     lambda: fused.transit_plain(tab, wrows, G, wgt),
                     OUT_RTOL, bands,
                     transit_bound(R, L, W, C, 1, False,
-                                  nbytes(tab, wrows, G, wgt)), 5)
+                                  nbytes(tab, wrows, G, wgt)), 5,
+                    R=R, L=L, K=1, table="float32")
                 del rt, tab
             else:
                 factor = torch.tensor(fine_structure(R, W, Kt), **f32)
@@ -794,11 +811,31 @@ def many_rows_phase(fused, filters, f32: dict, quads: dict) -> dict:
                         OUT_RTOL, bands,
                         transit_bound(R, L, W * Kt, C, Kt,
                                       tdt == torch.bfloat16,
-                                      nbytes(ft.tab, wrows, G, wgt)), 2)
+                                      nbytes(ft.tab, wrows, G, wgt)), 2,
+                        R=R, L=L, K=Kt, table=str(tdt)[6:])
                     del ft
                 del fine
             del wrows, G, Gp, wgt
             torch.cuda.empty_cache()
+    # the resident kernel's last layer count against the streamed
+    # variant's first, on the same rows: the time the 112/113 boundary
+    # costs; and each streamed case against its plain version
+    recs = [r for n in ("fused_transit", "fused_transit_folded")
+            for r in out[n] if "L" in r]
+    for r in recs:
+        if r["L"] == 113:
+            res = [x for x in recs if x["L"] == 112 and all(
+                x[k] == r[k] for k in ("R", "K", "table"))][0]
+            r["vs_resident_112"] = r["ms"] / res["ms"]
+            print(f"# phase 2b: transit R={r['R']} K={r['K']} "
+                  f"{r['table']}: streamed L=113 {r['ms']:.3f} ms / "
+                  f"resident L=112 {res['ms']:.3f} ms = "
+                  f"{r['vs_resident_112']:.3f}")
+    slow = [r["what"] for r in recs if r["L"] > 112
+            and r["ms"] >= r["plain_ms"]]
+    print(f"# phase 2b: streamed transit cases slower than their plain "
+          f"versions: {slow if slow else 'none'} of "
+          f"{sum(r['L'] > 112 for r in recs)}")
     t_any = time.perf_counter()
     n_any = sum(map(len, out.values()))
 
@@ -1462,6 +1499,8 @@ def step_phase(label: str, like, space, fm, params, kernels) -> dict:
                     if any(re.search(TRACE_KERNEL[k.__name__], e.name)
                            for k in kernels))
     out.update(counts=counts, busy_window=busy_us / window_us,
+               stream=sum(1 for e in dev
+                          if "fused_transit_stream_kernel" in e.name),
                busy_step=busy_us / 1e3 / BLOCK,
                busy_fwd=fwd_busy_us / 1e3 / BLOCK,
                kernel_fwd=kernel_us / 1e3 / BLOCK,
@@ -3056,6 +3095,153 @@ def flagship_k128_kernels(p18: dict) -> list:
         + p18["spec"]["run"]["counts"][name],
         spectrum_rel_err=p18["spec"]["rel"])
         for name, c in p18["kern"].items()]
+
+
+#: phase 19 (``--deep-transit``): the 200-layer twins of transit.cfg and
+#: transit_fold.cfg (examples/torch_demo/*_l200.cfg), where every transit
+#: launch takes the kernels' streamed variant; each retrieval 512 chains
+#: (CLI_CHAINS) x DEEP_STEPS graphed steps with DEEP_BURNIN of burn-in
+DEEP_CFGS = (("transit_l200", False), ("transit_fold_l200", True))
+DEEP_LAYERS, DEEP_STEPS, DEEP_BURNIN = 200, 200, 100
+
+
+def deep_transit_retrieval(fused, likes: dict, label: str, cfg_path: str,
+                           loc: str, fold: bool, f32: dict, rng,
+                           smi: str) -> dict:
+    """Phase 19's run of one cfg: ``driver.cli.main`` on it, the opacity
+    build (the fine build, folded) and 512 chains x DEEP_STEPS graphed
+    steps (finite posterior, acceptance > 0, its transit kernels
+    launched); phase 4b on the CLI's own likelihood (graphed block =
+    eager block bit for bit, each kernel once a step in the trace of a
+    replayed block, every transit launch there the streamed variant's);
+    each kernel on the CLI model's rows against its plain version with
+    its ms and bound; ``--justSpectrum`` on its directory against the
+    plain versions.  The build's seconds and the run's peak GiB are
+    printed."""
+    import torch
+
+    from bart_tpu_torch.demo import TRUTH_TRANSIT
+
+    kernels = (fused.fused_transit_folded, fused.fused_transit)
+    pair = list(kernels) if fold else [kernels[1]]
+    gib = 2.0 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = cli_run(["-c", cfg_path, "--loc_dir", loc, "--nchains",
+                   str(CLI_CHAINS), "--numit", str(CLI_CHAINS * DEEP_STEPS),
+                   "--burnin", str(DEEP_BURNIN), "--plots", "False",
+                   "--grtest", "False"], kernels)
+    peak = torch.cuda.max_memory_allocated() / gib
+    post = np.load(os.path.join(loc, "output.npy"))
+    with open(os.path.join(loc, "MCMC.log")) as f:
+        accept = float(re.findall(r"accept=([0-9.]+)", f.read())[-1])
+    like, space, cfg = likes.pop("transit")
+    fm = like.forward
+    tab = fm.tables["tabk" if fold else "tab"]
+    R, L = int(tab.tab.shape[0]), int(tab.tab.shape[1])
+    nbin = len(cfg.wavenumber_grid())
+    step_ms = 1e3 * run["stages"]["mcmc"] / DEEP_STEPS
+    what = (f"fine bins {tab.W} of {nbin} x {tab.K}, "
+            f"{str(tab.tab.dtype)[6:]} fine table {tuple(tab.tab.shape)}"
+            if fold else f"table {tuple(tab.tab.shape)}")
+    print(f"# {label} ({smi}): cli {os.path.basename(cfg_path)}: {R} rows x "
+          f"{L} layers; opacity {run['stages']['opacity']} s (the build), "
+          f"mcmc {run['stages']['mcmc']} s = {step_ms:.3f} ms a "
+          f"{CLI_CHAINS}-chain step with the host's stores; peak "
+          f"{peak:.2f} GiB; {what}; accept {accept:.3f}; posterior "
+          f"{post.shape}; launches counted in Python {run['counts']}")
+    check(cfg.n_layers == L == DEEP_LAYERS and fused._transit_streamed(L),
+          f"{label}: {L} layers, expected {DEEP_LAYERS} (streamed)")
+    check(fm.fold == (FOLD_K if fold else 1),
+          f"{label}: the model folds {fm.fold}")
+    if fold:
+        check(0 < tab.W < nbin, f"{label}: {tab.W} fine bins of {nbin}")
+    check(post.shape[0] == CLI_CHAINS and post.shape[2] > 0
+          and bool(np.all(np.isfinite(post))), f"{label}: posterior")
+    check(accept > 0.0, f"{label}: no accepted proposal")
+    check(all(run["counts"][k.__name__] > 0 for k in pair),
+          f"{label}: the retrieval launched {run['counts']}")
+    spread = np.where(np.arange(len(TRUTH_TRANSIT)) == 5, 10.0,
+                      FOLD_CHECK_SPREAD)
+    params = torch.tensor(np.tile(TRUTH_TRANSIT, (CLI_CHAINS, 1)) + rng.normal(
+        0, 1, (CLI_CHAINS, len(TRUTH_TRANSIT))) * spread, **f32)
+    step = step_phase(label, like, space, fm, params, pair)
+    print_steps(label, step, smi)
+    check(step["stream"] == BLOCK * len(pair),
+          f"{label}: {step['stream']} launches of the streamed variant in "
+          f"the replayed block, expected {BLOCK * len(pair)}")
+    del like, space
+    kern = fold_path_kernels(fused, fm, params)
+    del fm, tab
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = spectrum_vs_plain(fused, f"{label} --justSpectrum", cfg_path, loc,
+                             {}, kernels, R, DEEP_LAYERS)
+    check(spec["fold"] == (FOLD_K if fold else 1),
+          f"{label}: --justSpectrum's model folds {spec['fold']}")
+    check(all(spec["run"]["counts"][k.__name__] > 0 for k in pair),
+          f"{label}: --justSpectrum launched {spec['run']['counts']}")
+    for name, c in kern.items():
+        print(f"# {label} ({smi}): {name} on the CLI's rows (R={c['R']} "
+              f"L={L} W={c['W']} K={c['K']} C={CLI_CHAINS}): max rel err "
+              f"{c['rel']:.3e}, abs {c['abs']:.3e}; kernel {c['ms']:.3f} ms, "
+              f"plain {c['plain_ms']:.3f} ms, bound "
+              f"{c['bound']['bound_ms']:.3f} ms ({c['bound']['bound_term']}); "
+              f"faster than plain: {c['ms'] < c['plain_ms']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run=run, peak=peak, step=step, kern=kern, spec=spec,
+                step_ms=step_ms, accept=accept, R=R,
+                build_s=run["stages"]["opacity"])
+
+
+def deep_transit_phase(fused, f32: dict, smi: str) -> dict:
+    """Phase 19 (``--deep-transit``): the deep-atmosphere transit path
+    through the port's CLI at full width (200 layers x 2,501 output bins
+    x 512 chains, CH4 on 27 T-nodes and H2-H2 CIA on 14: 41 rows):
+    transit_l200.cfg (K = 1) and transit_fold_l200.cfg (rtosamp 32, the
+    adaptive split, bfloat16 fine rows), each through
+    ``deep_transit_retrieval``.  Returns each cfg's record."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    demo = os.path.join(root, "examples", "torch_demo")
+    work = os.path.join(root, "build", "phase19")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(4)
+    out = {}
+    with kept_likelihoods() as likes:
+        for i, (name, fold) in enumerate(DEEP_CFGS):
+            out[name] = deep_transit_retrieval(
+                fused, likes, f"phase 19 ({'ab'[i]})",
+                os.path.join(demo, f"{name}.cfg"), os.path.join(work, name),
+                fold, f32, rng, smi)
+    print(f"# phase 19 ({smi}): {time.perf_counter() - t_phase:.1f} s for "
+          "the phase")
+    return out
+
+
+def deep_transit_kernels(p19: dict) -> list:
+    """Phase 19's kernels line: each kernel on each cfg's rows (launches:
+    the trace of a replayed block of phase 4b; python_launches: the
+    wrapper's count in the retrieval and its --justSpectrum), named
+    ``wrapper[cfg]``."""
+    recs = []
+    for cfg, g in p19.items():
+        for name, c in g["kern"].items():
+            recs.append(kernel_record(
+                f"{name}[{cfg}]", c["abs"], c["ms"], c["plain_ms"],
+                c["bound"], g["step"]["counts"].get(name, 0), R=c["R"],
+                L=DEEP_LAYERS, W=c["W"], K=c["K"], max_rel_err=c["rel"],
+                python_launches=g["run"]["counts"][name]
+                + g["spec"]["run"]["counts"][name],
+                spectrum_rel_err=g["spec"]["rel"],
+                step_ms=g["step"]["graph"][0],
+                build_s=g["build_s"], peak_gib=g["peak"]))
+    return recs
 
 
 def onthefly_phase(fused, fm, fmt, inp, f32: dict, smi: str) -> dict:
@@ -4731,6 +4917,15 @@ def main() -> int:
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
               "start to the records")
         print(json.dumps({"kernels": flagship_k128_kernels(p18)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--deep-transit" in sys.argv[1:]:
+        p19 = deep_transit_phase(fused, f32, smi.strip().splitlines()[0])
+        print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+              "start to the records")
+        print(json.dumps({"kernels": deep_transit_kernels(p19)}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -184,10 +184,12 @@ def test_the_limits_that_stay_raise_with_their_messages():
         fused._transit_folded_args(
             fused.FoldedTable(_m(1, 4, n, dtype=BF16), 2, n // 2),
             _m(1, 4, 1), fused.prepare_slant(_m(1, 4, 4)), _m(1, 4), META)
-    # the streamed transit variant's (chain block, tile) items are an int
+    # the streamed transit variant's (chain block, tile) items are an int:
+    # (32-chain block, 32-point tile) pairs
     with pytest.raises(ValueError, match="items"):
-        fused._check_transit_fit("fn", 200, 2**28, True, 2**12)
-    fused._check_transit_fit("fn", 100, 2**28, True, 2**12)
+        fused._check_transit_fit("fn", 200, 2**28, True, 2**14)
+    fused._check_transit_fit("fn", 200, 2**28, True, 2**13 - 32)
+    fused._check_transit_fit("fn", 100, 2**28, True, 2**14)
 
 
 # ---------------------------------------------------------------------

@@ -597,7 +597,7 @@ def test_folded_kernels_raise_on_what_they_do_not_take(cuda_device):
         with pytest.raises(ValueError, match=f"K = {k}; the folded kernels"):
             fused.fused_eclipse_folded(flat, *rest)
     # past the resident kernel's 112 layers: the streamed variant takes
-    # them; the annulus weights' shared memory caps L at 4,704
+    # them; the annulus weights' shared memory caps L at 10,176
     for L, table_dtype in ((200, F32), (200, BF16), (113, BF16)):
         tfine, targs = _transit((3, L, 8, 2), 4)
         ft = _ft(tfine, 4, F32, table_dtype, cuda_device)
@@ -605,7 +605,7 @@ def test_folded_kernels_raise_on_what_they_do_not_take(cuda_device):
         np.testing.assert_allclose(
             fused.fused_transit_folded(ft, *targs).cpu().numpy(),
             fused.transit_folded_plain(ft, *targs).cpu().numpy(), rtol=1e-5)
-    L = 4800
+    L = 10400
     ft = fused.folded_table(torch.ones(1, L, 32, dtype=F32,
                                        device=cuda_device), 4, BF16)
     with pytest.raises(ValueError, match="shared memory"):

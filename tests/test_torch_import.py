@@ -229,6 +229,31 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         calls[entry]()
 
 
+def test_card_scripts_import_without_jax():
+    """chip_smoke.py and the kernels' A/B and ablation scripts import
+    with jax and bart_tpu blocked (the card's machine has no JAX), and
+    chip_smoke's deep-transit phase names the 200-layer twin cfgs."""
+    proc = _run("""
+        import importlib, os, sys
+        sys.modules["jax"] = None
+        sys.modules["bart_tpu"] = None
+        mods = [importlib.import_module(n)
+                for n in ("chip_smoke", "ab_kernels", "ablate_folded")]
+        cs = mods[0]
+        for name, _ in cs.DEEP_CFGS:
+            assert os.path.isfile(f"examples/torch_demo/{name}.cfg"), name
+        from bart_tpu_torch.rt.fused import _transit_streamed
+        assert _transit_streamed(cs.DEEP_LAYERS)
+        assert not any(k == "jax" or k.startswith("jax.")
+                       for k, v in sys.modules.items() if v is not None)
+        assert not any(k == "bart_tpu" or k.startswith("bart_tpu.")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+        """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_flagship_scripts_import_without_jax():
     """examples/torch_demo/run_wasp12b.py and make_inputs.py import and
     parse their arguments with jax and bart_tpu blocked, and the port's

@@ -552,14 +552,36 @@ def test_transit_mma_source_constants_and_smem_match_python():
     src = (fused._CSRC / "fused_transit_mma.cuh").read_text()
     env = _macros(src)
     for macro, value in (("FT_W", fused._FT_W), ("FT_CB", fused._FT_CB),
-                         ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT)):
+                         ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT),
+                         ("FT_SG", fused._FT_SG), ("FT_SW", fused._FT_SW),
+                         ("FT_SNS", fused._FT_SNS)):
         assert env[macro] == value
     for name in ("kES", "kTS", "kGS", "kWF", "kWF32", "kUnitBytes",
-                 "kUnitBytes32"):
+                 "kUnitBytes32", "kSCB", "kTS2", "kSWF", "kSUnitBytes",
+                 "kSUnitBytes32"):
         expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
         env[name] = eval(expr, {"__builtins__": {}}, env)
     assert (env["kES"], env["kTS"], env["kGS"], env["kWF"]) == (32, 40, 8, 24)
     assert (env["kUnitBytes"], env["kUnitBytes32"]) == (2048, 1664)
+    # the streamed variant's units: the table rows of two tiles (rows 72
+    # elements apart: 144-byte bfloat16 rows hit all banks, float32 lane
+    # (g, t) -> bank 8 t + g), the weights of 32 chains
+    assert env["kSCB"] == fused._FT_SG * fused._FT_CB == 32
+    assert env["kTS2"] == 72
+    assert (env["kSUnitBytes"], env["kSUnitBytes32"]) == (4352, 3840)
+    assert len({(env["kTS2"] * 2 * r // 4) % 32 for r in range(8)}) == 8
+    gl, tl = np.divmod(np.arange(32), 4)
+    assert len(set((env["kTS2"] * tl + gl) % 32)) == 32
+    # its bfloat16 weight rows of 16 floats, halves swapped by bit 1 of
+    # the chain: a half-warp's 8-byte loads of (chain 8 s + g, rows 2 t,
+    # 2 t + 1), and of rows 2 t + 8, 2 t + 9, each hit all 32 banks
+    g16, t16 = np.divmod(np.arange(16), 4)
+    sw = ((g16 >> 1) & 1) * 8
+    for s in range(fused._FT_SG):
+        for half in (0, 8):
+            words = (8 * s + g16) * env["kSWF"] + ((2 * t16 + half) ^ sw)
+            banks = np.concatenate([words % 32, (words + 1) % 32])
+            assert len(set(banks)) == 32
     # the float32 tile's fragment loads: lane (g, t) -> bank 8 t + g of the
     # table tile and 12 g + t of the weights, all different
     g, t = np.divmod(np.arange(32), 4)
@@ -572,16 +594,18 @@ def test_transit_mma_source_constants_and_smem_match_python():
                           _cxx_return(src, "ft_slant_bytes", {**env, "L": L})))
             assert fused._transit_mma_smem(L, bf16) == want
             assert not fused._transit_streamed(L)
-    # the streamed variant (L > 16 FT_MT): the annulus weights, then the
-    # larger of the fill rings and two stages a warp of a group's G rows
-    # and a step's ext rows
+    # the streamed variant (L > 16 FT_MT): the annulus weights of a warp
+    # pair's chain, then the larger of the pairs' fill rings (FT_SNS
+    # streamed units each) and the slant's stages (two of a group's G rows
+    # a pair, two of a step's ext rows a warp)
+    pairs = env["FT_CB"] // env["FT_SW"]
     stage = _cxx_return(src, "ft_stream_stage_words", env)
-    assert stage == 16 * env["FT_MT"] * env["kGS"] + 8 * env["kES"]
+    assert stage == (pairs * 2 * 16 * env["FT_MT"] * env["kGS"]
+                     + env["FT_CB"] * 2 * 8 * env["kES"])
     for L in (113, 130, 150, 200, 400):
-        for bf16, unit in ((True, "kUnitBytes"), (False, "kUnitBytes32")):
+        for bf16, unit in ((True, "kSUnitBytes"), (False, "kSUnitBytes32")):
             want = (_cxx_return(src, "ft_wgt_bytes", {**env, "L": L})
-                    + max(env["FT_CB"] * env["FT_NS"] * env[unit],
-                          env["FT_CB"] * 2 * stage * 4))
+                    + max(pairs * env["FT_SNS"] * env[unit], 4 * stage))
             assert fused._transit_mma_smem(L, bf16) == want
             assert fused._transit_streamed(L)
     assert fused._transit_mma_smem(100, True) == 192128
@@ -596,7 +620,7 @@ def test_transit_mma_source_constants_and_smem_match_python():
 
 def test_limits_the_wrappers_raise_on():
     # every layer count up to 400 (and well beyond: the annulus weights
-    # bound the streamed variant at 4,704 layers, 4,960 on a float32
+    # bound the streamed variant at 10,176 layers, 10,688 on a float32
     # table) fits the transit kernels, and so does a fine axis past the
     # 65,535 tiles a grid's y extent holds (the tiles spread over y and
     # z); the streamed variant's int item index bounds its items
@@ -606,7 +630,7 @@ def test_limits_the_wrappers_raise_on():
             fused._check_transit_fit("fn", L, 80032, bf16)
         fused._check_transit_fit("fn", 4000, 300, bf16)
         with pytest.raises(ValueError, match="shared memory"):
-            fused._check_transit_fit("fn", 8000, 300, bf16)
+            fused._check_transit_fit("fn", 12000, 300, bf16)
         for L in (100, 200):
             fused._check_transit_fit("fn", L, 32 * 65535 + 1, bf16, 512)
         fused._check_transit_fit("fn", 100, 2**31 - 128, bf16, 10**6)

@@ -244,9 +244,9 @@ def test_kernel_raises_beyond_shared_memory(cuda_device):
         np.testing.assert_allclose(fused.fused_transit(*ts).cpu().numpy(),
                                    fused.transit_plain(*ts).cpu().numpy(),
                                    rtol=1e-5)
-    # the annulus weights' shared memory caps L near 4,960 on a float32
+    # the annulus weights' shared memory caps L near 10,688 on a float32
     # table
-    L = 5200
+    L = 10800
     f32 = dict(dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         fused.fused_transit(torch.ones(1, L, 8, **f32),
