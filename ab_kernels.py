@@ -14,7 +14,12 @@ and ``fused_transit_folded`` (R = 41) at 1,125 bins x K for K in 2, 4,
 8, 16, 32 on bfloat16 tables (eclipse: expsum; at K = 32 also raygrid
 and float32 tables), and at the K that straddle the tiles (3, 48, 128:
 the cut bins' partial sums in their scratch) on both table types
-(eclipse: bfloat16 expsum, float32 raygrid).  Then the transit kernels'
+(eclipse: bfloat16 expsum, float32 raygrid).  The resident transit
+kernel also at its largest L = 112 with R = 226 (``fused_transit`` at
+2,501 wavenumbers, ``fused_transit_folded`` at 1,125 bins x 32 on both
+table types), and on the transit shapes of chip_smoke.py's phase 17 (a
+table past 2^31 elements, fine axes past 65,535 tiles; utils.slices'
+problems) at 64 chains.  Then the transit kernels'
 streamed variant (L > 112) at 113 and 200 layers, at R = 41 and 226:
 ``fused_transit`` at 2,501 wavenumbers and ``fused_transit_folded`` at
 1,125 bins x 32 on both table types and x 48 (a K the 32-point tiles
@@ -40,6 +45,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FOLD_KS = (2, 4, 8, 16, 32)
 #: K that the folded kernels' 64- and 32-point tiles cut
 STRADDLE_KS = (3, 48, 128)
+#: the resident transit kernel at many rows and its largest L
+RESIDENT_R, RESIDENT_L = 226, 112
+#: chip_smoke.py's phase-17 transit cases (wrapper, R, L, W, K, table
+#: type), run at CEIL_CHAINS chains
+CEIL_TRANSIT = (("fused_transit", 122, 100, 176100, 1, "float32"),
+                ("fused_transit_folded", 41, 100, 4200, 128, "bfloat16"),
+                ("fused_transit", 8, 16, 2200000, 1, "float32"),
+                ("fused_transit_folded", 8, 16, 17000, 128, "bfloat16"),
+                ("fused_transit_folded", 8, 16, 45000, 48, "bfloat16"))
+CEIL_CHAINS = 64
 #: the streamed transit cases: layers, rows, and the folded (K, table
 #: type) pairs
 STREAM_LS, STREAM_RS = (113, 200), (41, 226)
@@ -132,6 +147,37 @@ def cases(root: str, out_npz: str) -> None:
                   lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt), 5)
         del fn, ft
     del tab, wrows, G, Gp, wgt
+    # the resident transit kernel at many rows and its largest L
+    tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                          random_transit_rows(RESIDENT_R, RESIDENT_L, W1, C,
+                                              seed=7)[:4])
+    rt, Gp = fused.rows_table(tab), fused.prepare_slant(G)
+    timed(f"fused_transit L={RESIDENT_L} R={RESIDENT_R}",
+          lambda: fused.fused_transit(rt, wrows, Gp, wgt), 5)
+    del tab, wrows, G, Gp, wgt, rt
+    tab, wrows, G, wgt = (torch.tensor(a, **f32) for a in
+                          random_transit_rows(RESIDENT_R, RESIDENT_L, WF, C,
+                                              seed=7)[:4])
+    Gp = fused.prepare_slant(G)
+    for tdt in ("bfloat16", "float32"):
+        fn = fine(tab, 32, RESIDENT_L)
+        ft = fused.folded_table(fn, 32, getattr(torch, tdt))
+        del fn
+        timed(f"fused_transit_folded L={RESIDENT_L} R={RESIDENT_R} K=32 "
+              f"{tdt}", lambda: fused.fused_transit_folded(ft, wrows, Gp, wgt),
+              3)
+        del ft
+    del tab, wrows, G, Gp, wgt
+    torch.cuda.empty_cache()
+    # phase 17's transit shapes at 64 chains
+    from bart_tpu_torch.utils.slices import problem
+    for i, (name, R, Lc, W, K, tdt) in enumerate(CEIL_TRANSIT):
+        pr = problem(name, R, Lc, W, K, CEIL_CHAINS, getattr(torch, tdt),
+                     100 + i, torch.device("cuda"))
+        timed(f"{name} ceiling R={R} L={Lc} W={W} K={K} {tdt}",
+              lambda: pr.launch(pr.tab, 0, W), 2)
+        del pr
+        torch.cuda.empty_cache()
     # the streamed transit variant
     for Ls in STREAM_LS:
         for R in STREAM_RS:

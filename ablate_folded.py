@@ -15,6 +15,9 @@ kernels (2,501 wavenumbers, float32 tables; eclipse R = 27 in both
 quadratures, transit R = 41).  An ablated
 kernel's result is wrong (all bits but the eclipse's 16 and the transit's
 8); its time is read, and its error against the plain version printed.
+The resident transit kernel (L <= 112) takes bits 1 (no copies: 16-byte
+copies keep its cluster's hand-offs), 2, 4, 16 and their sums (22:
+copies and barriers only, 23: barriers only).
 
     python3 ablate_folded.py                 # the folded default variants
     python3 ablate_folded.py 0 1 6 8         # these bit sets
@@ -39,14 +42,15 @@ VARIANTS = {0: "as built", 1: "no global -> shared copies",
             2: "no fill products", 4: "no exponentials",
             16: "no slant products (transit)", 22: "copies and barriers only",
             23: "barriers only", 8: "eclipse, float32 table: the weights "
-            "unsplit; transit: fine tiles on the grid's fast axis"}
+            "unsplit; transit (the streamed variant only): its items "
+            "tile-major"}
 # fused_eclipse.cu and fused_transit_mma.cuh give bits 8 and 16 other
 # meanings: one label names both
 VARIANTS_K1 = {0: "as built", 1: "no global -> shared copies",
                2: "no fill products",
                4: "no exponentials (eclipse: of the quadrature)",
-               8: "eclipse: no Planck exponential and division; transit: "
-               "wavenumber tiles on the grid's fast axis",
+               8: "eclipse: no Planck exponential and division; transit "
+               "(the streamed variant only): its items tile-major",
                12: "eclipse: no exponentials and no Planck",
                16: "eclipse: __expf in the quadrature; transit: no slant "
                "products",

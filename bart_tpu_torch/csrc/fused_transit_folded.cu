@@ -42,3 +42,14 @@ extern "C" int bart_fused_transit_folded(const void* tab, const float* wrows,
                                           part, Rt, R, L, W * K, Fp, C, K,
                                           nslot, stream);
 }
+
+// The resident kernel's cluster shape and cudaOccupancyMaxActiveClusters
+// at L layers on a bfloat16 (bf16 != 0) or float32 table: info[4] =
+// {cluster chain blocks, cluster tiles, clusters, shared bytes a block}.
+// Returns the cudaError_t.
+extern "C" int bart_transit_cluster_info(int L, int bf16, int* info) {
+  if (L < 1 || L > 16 * FT_MT || info == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return bf16 ? transit_cluster_info<__nv_bfloat16>(L, info)
+              : transit_cluster_info<float>(L, info);
+}

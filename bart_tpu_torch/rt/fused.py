@@ -88,10 +88,15 @@ _RCH = 64
 # fused_eclipse_folded.cu: MTILE_F, CBM, NSTAGE, MTHREADS
 _F_MTILE_F, _F_CBM, _F_NSTAGE, _F_MTHREADS = 64, 32, 4, 256
 # fused_transit_mma.cuh (the K = 1 and the folded transit kernel): FT_W,
-# FT_CB, FT_NS, FT_MT; above 16 FT_MT layers its streamed variant runs,
-# on items of FT_SG chain groups of FT_CB x FT_SW tiles, FT_SNS units in a
-# warp pair's ring
-_FT_W, _FT_CB, _FT_NS, _FT_MT = 32, 8, 5, 7
+# FT_CB, FT_MT; the resident kernel's FT_NF fill warps, the FT_NS (FT_NS32
+# on a float32 table) units of a layer pair's FT_UR rows in each one's
+# ring, its ext ring of FT_NE steps, its persistent clusters of FT_CX
+# chain blocks; above 16 FT_MT layers its streamed variant runs, on items
+# of FT_SG chain groups of FT_CB x FT_SW tiles, FT_SNS units in a warp
+# pair's ring
+_FT_W, _FT_CB, _FT_MT = 32, 8, 7
+_FT_NF, _FT_NS, _FT_NS32, _FT_UR, _FT_NE = 3, 7, 4, 32, 4
+_FT_CX = 2
 _FT_SG, _FT_SW, _FT_SNS = 4, 2, 4
 #: the tensor-core kernels pad the row axis to the depth of one product:
 #: 16 rows in bfloat16, 8 in TF32
@@ -564,6 +569,32 @@ def _tile_grid(ntile: int) -> tuple[int, int]:
     return -(-ntile // nz), nz
 
 
+def _transit_cluster_items(C: int, ntile: int) -> tuple[int, int]:
+    """(npair, nitem) of the resident transit kernel for C chains and
+    ``ntile`` 32-point tiles (csrc/fused_transit_mma.cuh: the launcher):
+    its persistent clusters of FT_CX chain blocks walk nitem = npair x
+    ntile items (a pair of chain blocks, a tile), pairs fastest; a chain
+    block past the last chain takes its part and writes nothing."""
+    npair = -(-(-(-C // _FT_CB)) // _FT_CX)
+    return npair, npair * ntile
+
+
+def transit_cluster_info(L: int = 100, bf16: bool = True) -> dict:
+    """The resident transit kernel's cluster shape and the clusters of it
+    the card holds at once (``cudaOccupancyMaxActiveClusters``) at L
+    layers on a bfloat16 or float32 table; builds the kernel on first use
+    and needs a card."""
+    lib = load_kernel("fused_transit_folded")
+    fn = lib.bart_transit_cluster_info
+    fn.argtypes, fn.restype = [_CI, _CI, ctypes.POINTER(_CI)], _CI
+    info = (_CI * 4)()
+    err = fn(L, int(bf16), info)
+    if err != 0:
+        raise RuntimeError(f"transit_cluster_info: CUDA error {err}")
+    return {"cluster": (info[0], info[1]), "max_active_clusters": info[2],
+            "smem_bytes": info[3]}
+
+
 def _check_row(fn: str, n: int) -> None:
     """Raise unless a row of ``n`` (padded) points fits the kernels' int
     indexing of a row."""
@@ -712,20 +743,22 @@ fused_eclipse.launches = 0
 def _transit_mma_smem(L: int, bf16: bool) -> int:
     """Bytes of shared memory a block of the transit kernel needs (as its
     launcher counts them).  Up to 16 FT_MT layers (the resident kernel):
-    ext for all layers [FT_CB][Lk FT_W + 4] and the annulus weights
-    [FT_CB][Lm] in float32, then the larger of the warps' fill rings
-    (FT_NS units each; a bfloat16 table's unit: 16 table rows
-    [16][FT_W + 8] in bfloat16 and weights [FT_CB][24] in float32; a
-    float32 table's: [8][FT_W + 8] and [FT_CB][12] in float32) and their
-    G stages (2 x [Lm][8] float32 each).  Above (the streamed variant,
-    ext in a global scratch): the annulus weights of each warp pair's
-    chain, then the larger of the pairs' fill rings (FT_SNS units each:
-    the table rows of FT_SW tiles, [16][FT_SW FT_W + 8] bfloat16 or
-    [8][FT_SW FT_W + 8] float32, and the weights of FT_SG x FT_CB chains,
-    [32][16] or [32][12] float32) and the slant's stages (each pair's two
-    of a group's G rows [16 FT_MT][8], each warp's two of a step's ext
-    rows [8][FT_W], float32).  The row count does not enter."""
-    Lk, Lm = -(-L // 8) * 8, -(-L // 16) * 16
+    1024 to align the fill rings, the FT_NF fill warps' rings of FT_NS
+    units (FT_NS32 on a float32 table; a unit: a layer pair's FT_UR table
+    rows of FT_W points, and their weights [2][FT_CB][FT_UR] in float32),
+    the mbarriers (2 FT_NF FT_NS + 2 FT_NE + 4 FT_CB of 8 bytes), the slant
+    warps' G stages (2 x [Lm][8] float32 each), the ext ring of FT_NE
+    steps [FT_CB][8 FT_W + 4] and the slant warps' FT_W words each for the
+    bins, in float32.
+    Above (the streamed variant, ext in a global scratch): the annulus
+    weights of each warp pair's chain, then the larger of the pairs' fill
+    rings (FT_SNS units each: the table rows of FT_SW tiles,
+    [16][FT_SW FT_W + 8] bfloat16 or [8][FT_SW FT_W + 8] float32, and the
+    weights of FT_SG x FT_CB chains, [32][16] or [32][12] float32) and the
+    slant's stages (each pair's two of a group's G rows [16 FT_MT][8], each
+    warp's two of a step's ext rows [8][FT_W], float32).  The row count
+    does not enter."""
+    Lm = -(-L // 16) * 16
     if _transit_streamed(L):
         chains, pairs, cols = _FT_SG * _FT_CB, _FT_CB // _FT_SW, \
             _FT_SW * _FT_W + 8
@@ -733,11 +766,11 @@ def _transit_mma_smem(L: int, bf16: bool) -> int:
                 else 4 * 8 * cols + 4 * chains * 12)
         slant = 4 * (pairs * 2 * 16 * _FT_MT * 8 + _FT_CB * 2 * 8 * _FT_W)
         return 4 * pairs * Lm + max(pairs * _FT_SNS * unit, slant)
-    unit = (2 * 16 * (_FT_W + 8) + 4 * _FT_CB * 24 if bf16
-            else 4 * 8 * (_FT_W + 8) + 4 * _FT_CB * 12)
-    slant = _FT_CB * 2 * Lm * 8 * 4
-    return (4 * (_FT_CB * (Lk * _FT_W + 4) + _FT_CB * Lm)
-            + max(_FT_CB * _FT_NS * unit, slant))
+    unit = 2 * ((2 if bf16 else 4) * _FT_UR * _FT_W + 4 * _FT_CB * _FT_UR)
+    ns = _FT_NS if bf16 else _FT_NS32
+    bars = 8 * (2 * _FT_NF * _FT_NS + 2 * _FT_NE + 4 * _FT_CB)
+    return (1024 + _FT_NF * ns * unit + bars + _FT_CB * 2 * Lm * 8 * 4
+            + 4 * (_FT_NE * _FT_CB * (8 * _FT_W + 4) + _FT_CB * _FT_W))
 
 
 def _transit_streamed(L: int) -> bool:

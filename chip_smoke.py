@@ -1047,10 +1047,16 @@ def ceiling_case(fused, dev, name: str, ceiling: str, R: int, L: int,
     del static, graph
     ms = cuda_ms(lambda: launch(tab, 0, W), 3)
     wrapper.launches = n0 + launches              # only the whole launch
-    ny, nz = fused._tile_grid(ntile)
+    if name.startswith("fused_transit") and L <= 16 * fused._FT_MT:
+        # the resident transit kernel: persistent clusters walk items
+        npair, nitem = fused._transit_cluster_items(C, ntile)
+        walk, grid_yz = f"{npair} x {ntile} cluster items", None
+    else:
+        ny, nz = fused._tile_grid(ntile)
+        walk, grid_yz = f"grid y x z {ny} x {nz}", [ny, nz]
     rec = dict(case=f"{ceiling}: R={R} L={L} W={W} x {K} C={C} {tdt}",
                ceiling=ceiling, R=R, L=L, W=W, K=K, C=C, table=tdt,
-               elements=elems, tiles=ntile, grid_yz=[ny, nz],
+               elements=elems, tiles=ntile, grid_yz=grid_yz,
                slices=[b - a for a, b in zip(edges, edges[1:])],
                slices_equal=same_slices, graphed_equal=same_graph,
                max_rel_err=e, max_abs_err=e_abs, plain_chains=nc, ms=ms,
@@ -1058,8 +1064,8 @@ def ceiling_case(fused, dev, name: str, ceiling: str, R: int, L: int,
                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
                bound_term=bnd["bound_term"])
     print(f"# phase 17: {name} {rec['case']}: {elems} elements "
-          f"({elems / 2**31:.3f} x 2^31), {ntile} tiles (grid y x z "
-          f"{ny} x {nz}); {len(edges) - 1} slices of {rec['slices']} bins "
+          f"({elems / 2**31:.3f} x 2^31), {ntile} tiles ({walk}); "
+          f"{len(edges) - 1} slices of {rec['slices']} bins "
           f"equal bit for bit: {same_slices}; graphed = eager: "
           f"{same_graph}; vs plain on {nc} chains max rel err {e:.3e}, abs "
           f"{e_abs:.3e}; kernel {ms:.3f} ms, plain {p_ms:.3f} ms ({nc} "
@@ -4892,6 +4898,15 @@ def main() -> int:
         for kernel, regs, spill in ptxas_summary(log):
             print(f"# phase 1: {name}.cu {kernel}: {regs} registers, "
                   f"{spill} B of spill stores and loads")
+    for L, bf16 in ((100, True), (100, False), (112, True)):
+        info = fused.transit_cluster_info(L, bf16)
+        print(f"# phase 1: resident transit kernel, L = {L}, "
+              f"{'bfloat16' if bf16 else 'float32'} table: clusters of "
+              f"{info['cluster'][0]} chain blocks x {info['cluster'][1]} "
+              f"tiles, {info['smem_bytes']} B of shared memory a block, "
+              f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']}")
+        check(info["max_active_clusters"] >= 1,
+              "the card holds no cluster of the resident transit kernel")
 
     if {"--flagship", "--flagship-fold"} & set(sys.argv[1:]):
         p15 = flagship_phase(fused, smi.strip().splitlines()[0],

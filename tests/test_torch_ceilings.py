@@ -211,11 +211,18 @@ def test_no_grid_or_table_guard_is_left_but_the_stated_ones():
             if "65535" in code or "1ll << 31" in code:
                 found.setdefault(path.name, []).append(code.strip())
     assert found == stated
-    # every kernel reads its tile through grid_tile (no blockIdx.y alone)
+    # the eclipse kernels read their tile through grid_tile (no blockIdx.y
+    # alone) and spread their tiles with tile_grid; the resident transit
+    # kernel's persistent clusters walk (chain-block pair, tile) items
+    # counted in 64 bits (the streamed variant its items)
     for name in ("fused_eclipse.cu", "fused_eclipse_folded.cu",
                  "fused_transit_mma.cuh"):
         src = (CSRC / name).read_text()
-        assert "grid_tile()" in src and "tile_grid(" in src
+        if name == "fused_transit_mma.cuh":
+            assert "const long long nitem = (long long)npair * ntile;" in src
+            assert "blockIdx.y" not in src
+        else:
+            assert "grid_tile()" in src and "tile_grid(" in src
         assert not re.search(r"blockIdx\.y\s*\*", src)
         assert "gridDim.y" not in src
     # ... and the launchers refuse a row past kMaxRow

@@ -168,7 +168,7 @@ def test_streamed_items_scratch_and_smem_match_the_source():
     env = {m: int(v) for m, v in re.findall(r"#define (\w+) (\d+)\b", src)}
     assert (env["FT_SG"], env["FT_SW"], env["FT_SNS"]) == (
         fused._FT_SG, fused._FT_SW, fused._FT_SNS)
-    for name in ("kES", "kTS", "kGS", "kWF32", "kSCB", "kTS2", "kSWF",
+    for name in ("kES", "kGS", "kWF32", "kSCB", "kTS2", "kSWF",
                  "kSUnitBytes", "kSUnitBytes32"):
         env[name] = _const(src, name, env)
     # an item is FT_SG chain groups of FT_CB x FT_SW tiles: 32 chains x 64

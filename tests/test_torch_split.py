@@ -553,16 +553,27 @@ def test_transit_mma_source_constants_and_smem_match_python():
     env = _macros(src)
     for macro, value in (("FT_W", fused._FT_W), ("FT_CB", fused._FT_CB),
                          ("FT_NS", fused._FT_NS), ("FT_MT", fused._FT_MT),
+                         ("FT_NF", fused._FT_NF), ("FT_NS32", fused._FT_NS32),
+                         ("FT_UR", fused._FT_UR), ("FT_NE", fused._FT_NE),
+                         ("FT_CX", fused._FT_CX),
                          ("FT_SG", fused._FT_SG), ("FT_SW", fused._FT_SW),
                          ("FT_SNS", fused._FT_SNS)):
         assert env[macro] == value
-    for name in ("kES", "kTS", "kGS", "kWF", "kWF32", "kUnitBytes",
-                 "kUnitBytes32", "kSCB", "kTS2", "kSWF", "kSUnitBytes",
-                 "kSUnitBytes32"):
+    for name in ("kES", "kGS", "kWF32", "kUnitBytes", "kUnitBytes32", "kECS",
+                 "kEStep", "kSCB", "kTS2", "kSWF", "kSUnitBytes",
+                 "kSUnitBytes32", "kNT", "kNBar"):
         expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
         env[name] = eval(expr, {"__builtins__": {}}, env)
-    assert (env["kES"], env["kTS"], env["kGS"], env["kWF"]) == (32, 40, 8, 24)
-    assert (env["kUnitBytes"], env["kUnitBytes32"]) == (2048, 1664)
+    assert (env["kES"], env["kGS"]) == (32, 8)
+    # the resident kernel's units: a layer pair's 32 table rows and the
+    # block's 8 chains' weights, whole 1024-byte swizzle periods; the ext
+    # ring's step of 8 rows a chain, chains 4 words apart; 12 warps (8
+    # slant, 3 fill, the producer: 168 registers a thread at most)
+    assert (env["kUnitBytes"], env["kUnitBytes32"]) == (6144, 10240)
+    assert env["kUnitBytes"] % 1024 == env["kUnitBytes32"] % 1024 == 0
+    assert (env["kECS"], env["kEStep"]) == (260, 2080)
+    assert env["kNT"] == 32 * (8 + 3 + 1) == 384
+    assert env["kNBar"] == 2 * 3 * 7 + 2 * 4 + 4 * 8
     # the streamed variant's units: the table rows of two tiles (rows 72
     # elements apart: 144-byte bfloat16 rows hit all banks, float32 lane
     # (g, t) -> bank 8 t + g), the weights of 32 chains
@@ -582,16 +593,20 @@ def test_transit_mma_source_constants_and_smem_match_python():
             words = (8 * s + g16) * env["kSWF"] + ((2 * t16 + half) ^ sw)
             banks = np.concatenate([words % 32, (words + 1) % 32])
             assert len(set(banks)) == 32
-    # the float32 tile's fragment loads: lane (g, t) -> bank 8 t + g of the
-    # table tile and 12 g + t of the weights, all different
+    # and its float32 weights: lane (g, t) -> bank 12 g + t, all different
     g, t = np.divmod(np.arange(32), 4)
-    assert len(set((env["kTS"] * t + g) % 32)) == 32
     assert len(set((env["kWF32"] * g + t) % 32)) == 32
-    for L in (100, 23, 104, 9, 112):
-        for bf16, unit in ((True, "kUnitBytes"), (False, "kUnitBytes32")):
-            want = (_cxx_return(src, "ft_ext_bytes", {**env, "L": L})
-                    + max(env["FT_CB"] * env["FT_NS"] * env[unit],
-                          _cxx_return(src, "ft_slant_bytes", {**env, "L": L})))
+    # the resident kernel's shared memory: 1024 to align the rings, the
+    # fill warps' rings, the barriers, the G stages, the ext ring and the
+    # slant warps' words for the bins
+    for L in (100, 23, 104, 9, 112, 1):
+        for bf16, unit, ns in ((True, "kUnitBytes", "FT_NS"),
+                               (False, "kUnitBytes32", "FT_NS32")):
+            lenv = {**env, "L": L}
+            want = (1024 + env["FT_NF"] * env[ns] * env[unit]
+                    + 8 * env["kNBar"]
+                    + _cxx_return(src, "ft_slant_bytes", lenv)
+                    + _cxx_return(src, "ft_ext_bytes", env))
             assert fused._transit_mma_smem(L, bf16) == want
             assert not fused._transit_streamed(L)
     # the streamed variant (L > 16 FT_MT): the annulus weights of a warp
@@ -608,8 +623,8 @@ def test_transit_mma_source_constants_and_smem_match_python():
                     + max(pairs * env["FT_SNS"] * env[unit], 4 * stage))
             assert fused._transit_mma_smem(L, bf16) == want
             assert fused._transit_streamed(L)
-    assert fused._transit_mma_smem(100, True) == 192128
-    assert fused._transit_mma_smem(100, False) == 176768
+    assert fused._transit_mma_smem(100, True) == 222352
+    assert fused._transit_mma_smem(100, False) == 216208
     # a K that does not divide the 32-point tile: lane j of the warp sums
     # the tile's j-th bin, and a tile touches at most (FT_W - 1) / K + 2
     # bins, fewer than the warp's lanes for every K >= 2
