@@ -2,8 +2,9 @@
 // remote arrivals, transaction counts, waits on a phase), the cluster
 // barrier, and the bulk copy global -> shared memory of the Tensor Memory
 // Accelerator with multicast to several blocks of the cluster, which
-// completes on an mbarrier.  Used by the resident transit kernel
-// (fused_transit_mma.cuh).
+// completes on an mbarrier, and the tensor maps it reads.  Used by the
+// resident transit kernel (fused_transit_mma.cuh) and the folded eclipse
+// kernel (fused_eclipse_folded.cu).
 //
 // A bulk copy (cp.async.bulk, the TMA's non-tensor mode) moves one
 // contiguous run of bytes: its size and both addresses are multiples of 16
@@ -177,6 +178,27 @@ __device__ __forceinline__ void tma_load_3d_multicast(void* dst,
       : "memory");
 }
 
+// The box of ``map`` at (x0, x1, x2) (innermost first), or (x0, .., x3),
+// to dst in this block only, completing on ``bar``
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int x0, int x1, int x2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(x0), "r"(x1), "r"(x2), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int x0, int x1, int x2, int x3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled of the driver, found through the runtime (so the
 // library needs no link flag of its own); null if the driver has none
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -203,16 +225,20 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 3-d tensor map of ``base`` (dims innermost first, strides in bytes of
-// dims 1 and 2), boxes of ``box``, zero fill outside; false on failure
-inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type,
-                      const void* base, const cuuint64_t (&dims)[3],
-                      const cuuint64_t (&strides)[2],
-                      const cuuint32_t (&box)[3], CUtensorMapSwizzle swizzle) {
+// An N-d tensor map of ``base`` (dims innermost first, strides in bytes
+// of dims 1 .. N - 1), boxes of ``box``, zero fill outside, L2 promotion
+// of 128 bytes; false on failure
+template <int N>
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, const cuuint64_t (&dims)[N],
+                       const cuuint64_t (&strides)[N - 1],
+                       const cuuint32_t (&box)[N],
+                       CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  const cuuint32_t one[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, one,
+  cuuint32_t one[N];
+  for (int i = 0; i < N; ++i) one[i] = 1;
+  return fn(map, type, N, const_cast<void*>(base), dims, strides, box, one,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -19,108 +19,157 @@
 // that the plain version and the TPU kernel form.  Any K >= 2 and any
 // number of quadrature nodes.
 //
-// Design: one kernel, a template on the table's type, the fill on
-// tensor cores.  Per layer the fill is the product [MTILE_F fine points
-// x Rp rows] x [Rp x CBM chains]: A the table tile, staged [row][fine
-// point] as it lies in memory; B the weights, staged [chain][row].
-//
+// The fill on tensor cores.  Per layer the fill is the product [MTILE_F
+// fine points x Rp rows] x [Rp x CBM chains]: A the table tile, staged
+// [row][fine point] as it lies in memory; B the weights, staged
+// [chain][row].
 //  - bfloat16 table (foldtable16 = True): exactly.  A table element has
 //    8 significant bits; each float32 weight arrives as three bfloat16
 //    parts hi + mid + lo that sum to it bit for bit
 //    (bart_tpu_torch.rt.fused.split_bf16, made once per launch), so every
-//    part x element product is exact in float32 and three
-//    mma.sync.m16n8k16 passes per 16 rows, summed in float32 by the unit,
-//    give the float32 contraction.  ldmatrix transposes A.
+//    part x element product is exact in float32, and three products per
+//    16 rows, summed in float32 by the unit, give the float32 contraction.
 //  - float32 table (the reference's default, foldtable16 = False): in
 //    3xTF32.  Table element and weight are each split in registers into
 //    big = tf32(x) and small = x - big (hopper.cuh: split_tf32), and
 //    small x big + big x small (one accumulator) and big x big (another)
 //    on mma.sync.m16n8k8 per 8 rows keep every product to 2^-21 of the
-//    float32 one; one pass would be 2^-11 off.  ldmatrix moves 16-bit
-//    elements, so A is read with plain 32-bit loads: the tile's row
-//    stride of MTILE_F + 8 words (8 mod 32) puts lane (g, t) on bank
-//    8 t + g, the weights' stride of Rs + 4 on bank 4 g + t (mod 32): no
-//    conflict.  The weights come as float32 and are split in registers:
-//    leaving their split out saves 0.4% of a launch (ablation bit 8),
-//    less than a split made once per launch could save, which would
-//    double their bytes in every stage.
+//    float32 one; one pass would be 2^-11 off.
 //
-// A block covers MTILE_F = 64 fine points x CBM = 32 chains with 8 warps,
-// each a 16-point m-tile x two 8-chain n-tiles, so a thread carries (ext,
-// tau, S, flux) of 8 (fine point, chain) pairs in registers, fed from the
-// accumulator fragments; two blocks fit an SM (128 registers a thread, no
-// spills; 49.7 KB of shared memory at R = 27 in bfloat16, 55.8 KB in
-// float32, 82.4 KB at R = 41), so one computes while the other waits at
-// its barrier.  The row axis streams through a ring of NSTAGE = 4 stages
-// in chunks of RCH = 64 rows: a stage is (layer, chunk), the chunks of a
-// layer add into the same accumulators in the order of their rows, and
-// the layer's recurrence runs after its last chunk, so shared memory does
-// not grow with R (100 KB in bfloat16, 109 KB in float32 at most, K = 32)
-// and the fill sums the rows in the order one stage of all Rp rows would
-// (the same bits); at R <= RCH a layer is one stage.  The table tile and
-// the weights of stage s + 3 are in flight (cp.async) while stage s is
-// computed: one barrier a stage.  The Planck function depends on (chain,
-// layer, bin) only: during layer l's first stage the block's first
-// threads evaluate it for layer l + 1's CBM x nb pairs (nb the bins the
-// tile touches, at most fold_bins(K) <= MTILE_F / 2), one exponential
-// each, and leave 0.5 (B_l + B_{l+1}) in shared memory for after the next
-// barrier.  The sum over k goes through shared memory at the end (a
-// bin's sub-samples sit in different lanes, registers and warps).  For K
-// a power of two up to 32, which divides the tile, a bin's K sub-samples
-// are K neighbouring lanes of the sums and a butterfly adds them.  The
-// tiles stay aligned to fine points for any other K (the cp.async copies
-// need 16-byte-aligned sources, which a tile starting at b K would not
-// have for odd K), so a bin may straddle two tiles (K < 64) or span
-// several (K > 64): a thread a (bin, chain) adds the bin's sub-samples in
-// the tile in the order of their fine points, writes a bin that lies in
-// the tile, and leaves the sum of a cut bin in a scratch [C][ntile][2]
-// that a second launch adds in tile order (fold_straddle.cuh; no
-// atomics, so a graph replay repeats an eager launch bit for bit).  The
-// quadrature: the unrolled instances (raygrid's 5 nodes, expsum's 8) hold
-// the nodes in shared memory, the runtime-count one reads any number
-// through the read-only cache.  blockIdx.x walks the chain blocks, so the
-// blocks resident at once share a few table tiles and the table leaves
-// HBM once; the fine tiles are spread over the grid's y and z
-// (hopper.cuh: tile_grid), so any fine axis below 2^31 - 64 points fits,
-// and the table is read through 64-bit offsets, so it may hold any number
-// of elements (the flagship at K = 128: 3.3e9).  Only the weights are
-// indexed in 32 bits: NP C L Rp < 2^31.
+// Design.  A block is a tile of MTILE_F = 64 fine points x CBM = 32
+// chains, 8 warps, two blocks an SM, and walks the layers of its tile; a
+// thread carries (ext, tau, S, flux) of 8 (fine point, chain) pairs in
+// registers, as the design before did.  What changed:
+//  - Copies on the Tensor Memory Accelerator.  Thread 0 sends the row
+//    axis's stages (layer, chunk of RS rows) into a ring of NSTAGE slots:
+//    the table tile one TMA box (bfloat16: [RS][64] points; float32: two
+//    [RS][32] boxes), the weights one box of the three parts of the 32
+//    chains (float32: one or two boxes of 32 rows), whole boxes, zero
+//    outside the tensors (rows past R, points past Fp, weight rows past
+//    Rp, chains past C: padded chains take zero weights and write
+//    nothing), completing on the slot's mbarrier with their byte count.
+//    The threads wait on that mbarrier; the block's barrier after it
+//    tells thread 0 that every thread is done with the slot it refills.
+//    No other thread spends an instruction on a copy (the design before:
+//    every thread's cp.async index arithmetic, ~1.5 ms of 6.4 at the demo
+//    shape, by ablate_folded.py).
+//  - bfloat16: the fill on wgmma, a layer ahead.  Each warpgroup (warps
+//    0-3: chains 0-15, 4-7: chains 16-31) issues the products of layer
+//    l + 1 (m64n16k16: A the table tile read transposed from the
+//    swizzled box, B its chains' weight part, three products a k-step,
+//    smallest part first, into one accumulator) before it computes the
+//    recurrence of layer l, so the tensor cores run under the float32
+//    work; the ring holds NSTAGE / nch layers and thread 0 refills layer
+//    l's slots once the barrier of layer l shows every warpgroup's
+//    products of it complete.  The accumulator's fragment is mma.sync's:
+//    thread (g, t) of warp w holds (fine point 16 w + g (+ 8), chains
+//    8 j + 2 t (+ 1)), the design before's 8 pairs.  Past 128 rows (more
+//    than two chunks a layer, which would not fit the ring twice) a stage
+//    at a time: its products issued and complete before the recurrence.
+//  - float32: the fill on mma.sync (3xTF32) as before, a stage at a time;
+//    the warp's m-tile rows g + 8 h are fine points col32(m, h, g) of its
+//    warp pair's 32-point box (below).
+//  - The chains' layer steps 0.5 drp go through shared memory, written a
+//    layer ahead by the last warp from values it loaded a layer before:
+//    no thread holds them in registers or waits for their loads.
+// The Planck means, the recurrence, the quadrature, the flux and the
+// epilogue (a butterfly where K is a power of two up to 32, else each bin
+// in fine-point order and a bin the tile cuts into part for
+// fold_straddle.cuh's second launch) are the design before's.  Every
+// product, ext, tau, S and flux takes its terms in the order the design
+// before took them (wgmma's sums of a k-step equal mma.sync's: the outputs
+// are the design before's bit for bit on both table types); no atomics,
+// so a graph replay equals an eager launch.
 //
+// Where the trouble was, and what the design does about it.
+//  - The TMA cannot pad rows, and the design before padded its rows
+//    (TS = MTILE_F + 8, WS = Rs + 16 / eb) to spread ldmatrix and the
+//    float32 fragment loads over the banks.  The boxes land swizzled
+//    instead: the table's 128-byte rows with the 128-byte swizzle (a
+//    16-byte chunk c of row r lands at c ^ (r & 7)), the weights' rows of
+//    RS elements (RS a power of two: 32, 64 or 128 bytes) with the
+//    swizzle of their width; these are the canonical layouts wgmma reads
+//    (descriptors: 8-row groups 1024 bytes apart for the table, 16 RS
+//    bytes for the weights).  The float32 fill's A fragment (row t or
+//    t + 4, fine point of lane g) would meet 2-way conflicts in 16
+//    consecutive points, so the two warps of a pair split their 32-point
+//    box by col32 (a bijection: the products are the same, only a pair's
+//    fine point moves).  tests/test_torch_eclipse_ws.py checks the loads'
+//    banks and the descriptors against the boxes.
+//  - The hand-offs of a warp-specialised plan cost more than
+//    they saved here (PERF.md has the ablations).  Two designs split the
+//    roles over warps (a producer, fill warps handing ext to 8 recurrence
+//    warps through a ring on mbarriers, one block an SM): at R = 27 they
+//    ran 4-10% slower than the design before, because 8 recurrence warps
+//    an SM cannot hide the float32 work's latencies that 16 hid and the
+//    registers allow no more next to the fill warps' accumulators; their
+//    mbarrier skeleton alone took 1.9-2.3 ms.  A third kept 16 warps an
+//    SM with per-warp Planck means and no block barrier: 7.1 ms, the
+//    per-warp Planck means alone ~1 ms.  wgmma's asynchrony gives the
+//    overlap without taking warps from the recurrence.
+//  - The weights' multicast to a cluster (built and measured slower, not
+//    kept).  At the flagship's 122 rows (2,088 bins x 32) a launch copies
+//    67 GB from L2: the weights 41 GB (once per tile), the table 26 GB
+//    (once per chain block).  Clusters of 2 or 4 tiles of one chain
+//    block, each block sending its CBM / 2 or CBM / 4 chains of every
+//    stage's weights to all of them (a multicast box a part) and
+//    releasing a slot to all of them on an empty mbarrier, cut the
+//    weights to a half or a quarter (67 -> 46.5 GB, 36.3).  Bit for bit,
+//    and slower (ablate_folded.py --eclipse, ms): bfloat16 17.0-17.1 ->
+//    23.8 (2), 25.4 (4); float32 31.4 -> 37.3 (2); 512 rows, 1,125 bins,
+//    bfloat16 27.8 -> 34.7 (2).  A block refills a slot only once every
+//    block of its cluster is done with it, so each stage waits for the
+//    cluster's slowest block, and the ring (two layers of two chunks at
+//    two blocks an SM) has no room to hide that wait; the cluster's code
+//    also spilled 20-32 B in three instances.
+//  - wgmma on float32 tables (not taken): TF32 wgmma reads both operands
+//    K-major from shared memory, and the table tile lies M-major as the
+//    TMA copies it.
+//  - Registers: 128 a thread at two blocks an SM, as before.
+
 // Bound on the H100.  Per 512-chain batch at R = 27, L = 100, 1,064 fine
 // bins, K = 32: 47 G FMAs of fill (three passes: 0.29 ms at the dense
 // bfloat16 peak, 0.57 ms at the dense TF32 peak) and, on the float32
 // pipes, 12 FMAs and one exponential per (chain, layer, fine point): 21 G
-// FMAs (0.62 ms) and 1.7 G exponentials (0.42 ms).  Shared-memory traffic
-// from L2: the table once per chain block, 16 x 184 MB = 2.9 GB in
-// bfloat16 (16 x 368 MB = 5.9 GB in float32), and the weights once per
-// tile: 532 x 9.8 MB of bfloat16 parts = 5.2 GB (532 x 6.6 MB of float32 =
-// 3.5 GB): 8.2 GB per launch (9.4 GB on a float32 table).  What binds the
-// bfloat16 instance is the float32 pipes' instruction rate: the accurate
-// expf alone is about a dozen instructions (PERF.md has the ablation); the
-// float32 instance adds the splits of the fill's operands, three
-// instructions each.  expf and expm1f are the accurate library versions
-// (no --use_fast_math).  Measured on an NVIDIA H100 80GB HBM3 at 700 W,
-// 1,125 fine bins x 32 (chip_smoke.py --kernels): bfloat16 6.38 ms
-// (expsum) and 8.63 (raygrid); float32 7.76 and 10.13 (PERF.md has the
-// ablations).
+// FMAs (0.62 ms) and 1.7 G exponentials (0.42 ms).  From L2 into shared
+// memory: the table once per chain block, 16 x 184 MB = 2.9 GB in
+// bfloat16 (5.9 GB in float32), and the weights once per tile, 532 x 9.8
+// MB of bfloat16 parts = 5.2 GB (532 x 6.6 MB of float32 = 3.5 GB).  At
+// the flagship's 122 rows (2,088 bins x 32): 26 GB of table and 41 GB of
+// weights.  expf and expm1f are the accurate library versions (no
+// --use_fast_math).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (ab_kernels.py against
+// the design before, best of two runs each, ms per 512-chain launch):
+// 1,125 bins x 32, R = 27: bfloat16 5.684 (6.365 before) expsum, 7.818
+// (8.610) raygrid; float32 7.303 (7.624) expsum, 9.622 (10.005) raygrid;
+// 1,064 bins, bfloat16 expsum 5.319 (5.948).  The flagship's 122 rows at
+// 2,088 bins x 32: bfloat16 16.995 (21.809), float32 30.607 (32.496).
+// 512 rows, 1,125 bins: 27.643 (37.461).  PERF.md has the rest and the
+// ablations (ablate_folded.py --eclipse).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "fold_straddle.cuh"
 #include "hopper.cuh"
 
 #define MTILE_F 64   // fine points per block
 #define CBM 32       // chains per block
-#define NSTAGE 4     // layers in the shared-memory ring
-#define MTHREADS 256 // threads per block (8 warps)
-#define RCH 64       // table rows a stage holds: the chunk of the row axis
+#define NSTAGE 4     // stages in the shared-memory ring
+#define MTHREADS 256 // threads per block (8 warps), two blocks an SM
+#define RCH 64       // table rows a stage holds at most: the chunk
 
 // Timing aid (ablate_folded.py): -DBART_ABLATE=<bits> builds the kernel
-// without 1 its global -> shared copies, 2 its tensor-core products, 4 its
-// exponentials; 8 leaves the weights of a float32 table unsplit (the
-// word as its big part, no small part: what a split made once per launch
-// would save at most).  The results are then wrong.
+// without 1 its copies (thread 0 arrives without bytes: the hand-offs
+// stay), 2 its tensor-core products, 4 its exponentials, 16 its
+// recurrence, quadrature and flux (the Planck means, the layer steps and
+// the barriers stay); 8 leaves the weights of a float32 table unsplit
+// (the word as its big part, no small part).  22: copies, Planck means
+// and barriers only; 23: Planck means and barriers only.  The results
+// are then wrong.
 #ifndef BART_ABLATE
 #define BART_ABLATE 0
 #endif
@@ -151,46 +200,128 @@ __host__ __device__ constexpr int fold_bins(int K) {
   return MTILE_F % K == 0 ? MTILE_F / K : (MTILE_F - 1) / K + 2;
 }
 
-// Shared memory, in bytes, for chunks of Rs = min(Rp, RCH) rows, K
-// sub-samples and a table of eb bytes an element whose weights come in
-// np parts of that type (bfloat16: eb = 2, np = 3, Rp a multiple of 16;
-// float32: eb = 4, np = 1, Rp a multiple of 8): NSTAGE stages of the
-// table tile [Rs][MTILE_F + 8] and the weights [np][CBM][Rs + 16 / eb]
-// (the padding spreads the rows that one ldmatrix or one fragment load
-// reads over all banks), then the Planck means, two buffers
-// [fold_bins(K)][CBM] of float32.  The epilogue reuses the ring for
+// The rows a stage holds: RCH when the row axis is chunked (Rp > RCH),
+// else Rp rounded up to a power of two (at least one k-step: 16 rows of
+// a bfloat16 table, 8 of a float32 one), so that a weight row is 32, 64
+// or 128 bytes, a swizzle's width.  The rows past Rp are zeros of the
+// box.  (A float32 table's 33-48 rows, the reference's R = 41, were
+// tried in stages of 48, the weights in three boxes of 16-row rows: they
+// ran slower than in 64.)
+__host__ __device__ constexpr int stage_rows(int Rp, int eb) {
+  return Rp > RCH ? RCH
+         : Rp <= 32 / eb ? 32 / eb
+         : Rp <= 64 / eb ? 64 / eb
+         : Rp <= 128 / eb ? 128 / eb
+                          : RCH;
+}
+
+// Bytes of a stage of RS rows, a table of eb bytes an element whose
+// weights come in np parts of that type (bfloat16: eb = 2, np = 3;
+// float32: eb = 4, np = 1): the table tile [RS][MTILE_F] and the weights
+// [np][CBM][RS], each a whole number of the swizzle's 1024-byte periods,
+// as the TMA writes them (no padding).
+__host__ __device__ constexpr size_t mma_stage_bytes(int RS, int eb, int np) {
+  return (size_t)eb * RS * (MTILE_F + np * CBM);
+}
+// Shared memory, in bytes, for stages of RS rows and K sub-samples: 1024
+// to align the ring (the swizzle's period), NSTAGE stages, the Planck
+// means (two buffers [fold_bins(K)][CBM] of float32), then the stages'
+// mbarriers (8 bytes each).  The epilogue reuses the ring for
 // [CBM][MTILE_F + 4] sums.
-__host__ __device__ constexpr size_t mma_stage_bytes(int Rs, int eb, int np) {
-  return eb * ((size_t)Rs * (MTILE_F + 8) + (size_t)np * CBM * (Rs + 16 / eb));
-}
-__host__ __device__ constexpr size_t mma_smem_bytes(int Rs, int K, int eb,
+__host__ __device__ constexpr size_t mma_smem_bytes(int RS, int K, int eb,
                                                     int np) {
-  return NSTAGE * mma_stage_bytes(Rs, eb, np) +
-         2 * 4 * (size_t)fold_bins(K) * CBM;
+  return 1024 + NSTAGE * mma_stage_bytes(RS, eb, np) +
+         2 * 4 * (size_t)fold_bins(K) * CBM + 8 * NSTAGE;
 }
-static_assert(RCH % 16 == 0, "a chunk is whole k-steps of either table");
+static_assert(RCH == 64, "a chunk's weight rows are 128 bytes of bfloat16");
 static_assert(NSTAGE * mma_stage_bytes(16, 2, 3) >= 4 * CBM * (MTILE_F + 4) &&
                   NSTAGE * mma_stage_bytes(8, 4, 1) >= 4 * CBM * (MTILE_F + 4),
               "the epilogue's sums must fit the ring");
+static_assert(2 * (mma_smem_bytes(RCH, 2, 4, 1) + 1024) <= 233472 &&
+                  2 * (mma_smem_bytes(RCH, 2, 2, 3) + 1024) <= 233472,
+              "two blocks an SM at the largest stages and K = 2");
+
+// A byte offset o into a buffer written by the TMA with the swizzle of
+// rows of 16 (m + 1) bytes (m = 1, 3, 7: 32, 64, 128 bytes): the 16-byte
+// chunk bits 4.. of o XORed with bits 7.. (CUTLASS's Swizzle<1|2|3, 4, 3>)
+__device__ __forceinline__ int swz(int o, int m) {
+  return o ^ (((o >> 7) & m) << 4);
+}
+
+// The float32 fill's mma row g + 8 h of m-tile m is fine point
+// col32(m, h, g) of the 32 of the warp pair (warps 2 i and 2 i + 1 of a
+// chain half take m = 0 and 1), a bijection, so that its A fragment's
+// loads from the 128-byte swizzle hit all banks
+__host__ __device__ constexpr int col32(int m, int h, int g) {
+  return 16 * (g >> 2) + 8 * m + 4 * h + (g & 3);
+}
+
+// ---- wgmma (sm_90a): the bfloat16 fill of a warpgroup, asynchronous.
+// A shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle (1: 128-byte, 2: 64, 3: 32).
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, unsigned lbo,
+                                              unsigned sbo, unsigned swizzle) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
+}
+// d += A B over 16 rows: A [64 fine points x 16 rows] from the table
+// tile (M-major: transposed), B [16 rows x 16 chains] from the weights
+// (K-major); d is the m64n16 fragment: d[4 j + i] of lane 4 g + t of warp
+// w of the warpgroup is (point 16 w + g + 8 (i / 2), chain
+// 8 j + 2 t + (i & 1)), the fragment of mma.sync's two n-tiles
+__device__ __forceinline__ void wgmma_bf16(float (&d)[2][4], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses to d across an asynchronous
+// product's issue or wait
+__device__ __forceinline__ void fence_acc(float (&d)[2][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[nt][i])::"memory");
+}
 
 // TabT: __nv_bfloat16 or float; the weights are staged in the same type
 // (bfloat16: split_bf16's three parts, lo, mid, hi; float32: as given).
 // NMU > 0: the quadrature has exactly NMU nodes, held in shared memory,
 // and its loops unroll; NMU == 0: any number of nodes, read through the
 // read-only cache (no bound but the loop's length).  CHUNKED (Rp > RCH):
-// a layer is ceil(Rp / RCH) stages of RCH rows; else one stage of all Rp
-// rows.  LANES (K a power of two up to 32): a bin's sub-samples are K
-// neighbouring lanes of the sums, added by a butterfly; else any K, each
-// bin summed in fine-point order and the bins the tile cuts left in
-// ``part``.  Two instances, not a branch: both epilogues in one kernel
-// cost the unchunked instances up to 72 B of spill stores and loads at
-// the 128-register cap (ptxas for sm_90a); this way the powers of two
-// keep their code, bits and times.
+// a layer is ceil(Rp / RCH) stages of RCH rows; else one stage.  LANES
+// (K a power of two up to 32): a bin's sub-samples are K neighbouring
+// lanes of the sums, added by a butterfly; else any K, each bin summed in
+// fine-point order and the bins the tile cuts left in ``part``.  Two
+// instances, not a branch: both epilogues in one kernel cost registers at
+// the 128-register cap.  tmap_t: the table [R][L][Fp] as dims (Fp, L, R),
+// boxes of 64 (bfloat16) or 32 (float32) points x 1 layer x RS rows,
+// 128-byte swizzle; tmap_w: the weights [NP][C][L][Rp] as dims
+// (Rp, L, C, NP), boxes of RS (float32: at most 32) rows x 1 layer x CBM
+// chains x NP parts, the swizzle of their rows' width (zero outside both
+// tensors).
 template <typename TabT, bool POWERS, int NMU, bool CHUNKED, bool LANES>
 __global__ void __launch_bounds__(MTHREADS, 512 / MTHREADS)
 fused_eclipse_folded_mma_kernel(
-    const TabT* __restrict__ tab,      // [R, L, Fp]
-    const TabT* __restrict__ wparts,   // [NP, C, L, Rp]
+    const __grid_constant__ CUtensorMap tmap_t,
+    const __grid_constant__ CUtensorMap tmap_w,
     const float* __restrict__ T,       // [C, L]
     const float* __restrict__ drp,     // [C, L]
     const float* __restrict__ wn,      // [W] bin centres
@@ -198,25 +329,33 @@ fused_eclipse_folded_mma_kernel(
     const float* __restrict__ wmu,     // [nmu]
     float* __restrict__ out,           // [C, W]
     float* __restrict__ part,          // [C, ntile, 2] (straddling K)
-    int R, int Rp, int L, int W, int Fp, int C, int K, int nmu_any,
-    int ntile) {
+    int Rp, int L, int W, int C, int K, int nmu_any, int ntile) {
   const int tile = grid_tile();
   if (tile >= ntile) return;        // past the last tile (tile_grid)
   constexpr bool kBf16 = sizeof(TabT) == 2;
-  constexpr int EPC = 16 / sizeof(TabT);  // elements per 16-byte copy
+  constexpr int EB = sizeof(TabT);
   constexpr int NP = kBf16 ? 3 : 1;       // parts of the weights
   constexpr int UR = kBf16 ? 16 : 8;      // rows of one product (k-step)
   const int nmu = NMU ? NMU : nmu_any;
-  constexpr int TS = MTILE_F + 8;     // row stride of the table tile
   constexpr int VS = MTILE_F + 4;     // row stride of the epilogue's sums
   constexpr int PP = CBM * (MTILE_F / 2) / MTHREADS;  // Planck pairs a thread
+  const int RS = CHUNKED ? RCH : stage_rows(Rp, EB);   // rows a stage holds
+  const int SB = (int)mma_stage_bytes(RS, EB, NP);
+  const int TB = RS * MTILE_F * EB;        // a stage's table tile
+  // the weights' rows: RSI = 1 << RSH elements (float32: two boxes of 32
+  // rows at RS = 64), WM the swizzle's mask
+  const int RSI = (RS * EB > 128) ? 128 / EB : RS;
+  const int RSH = 31 - __clz(RSI);
+  const int WM = RSI * EB / 16 - 1;
   extern __shared__ float4 smem4[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
-  const int Rs = CHUNKED ? RCH : Rp;      // rows a stage holds
-  const size_t stage_bytes = mma_stage_bytes(Rs, sizeof(TabT), NP);
-  float* bmid_s = reinterpret_cast<float*>(ring + NSTAGE * stage_bytes);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4) +
+                        ((1024 - (smem_u32(smem4) & 1023)) & 1023);
+  float* bmid_s = reinterpret_cast<float*>(ring + NSTAGE * (size_t)SB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bmid_s +
+                                               2 * fold_bins(K) * CBM);
   __shared__ float minv_s[NMU ? NMU : 1], wmu_s[NMU ? NMU : 1];
   __shared__ float wn_s[MTILE_F / 2];
+  __shared__ __align__(8) float hdr_s[2][CBM];
   // the tile's first bin, read back by the epilogue (LANES false), so
   // that no register holds it through the layer loop, whose live values
   // fill the 128-register cap
@@ -226,16 +365,20 @@ fused_eclipse_folded_mma_kernel(
   auto wmu_q = [&](int q) { return NMU ? wmu_s[q] : __ldg(wmu + q); };
   auto minv_q = [&](int q) { return NMU ? minv_s[q] : __ldg(minv + q); };
 
-  const int WS = Rs + EPC;           // row stride of the weights
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int fw = (warp % (MTILE_F / 16)) * 16;   // the warp's fine points
+  const int wp = warp % (MTILE_F / 16);          // the warp's m-tile
   const int ch = (warp / (MTILE_F / 16)) * 16;   // and chains, 16 of each
   const int F = W * K;
   const int c0 = blockIdx.x * CBM;
   const int f0 = tile * MTILE_F;
-  const size_t CLR = (size_t)C * L * Rp;
+  // the thread's two fine points (mma rows g and g + 8 of the warp's
+  // m-tile): bfloat16 16 wp + g (+ 8); float32, whose table tile lies in
+  // two 32-point boxes, 32 (wp / 2) + col32(wp % 2, 0 | 1, g)
+  const int pt_lo = kBf16 ? 16 * wp + g : 32 * (wp >> 1) + col32(wp & 1, 0, g);
+  const int pt_hi = kBf16 ? 16 * wp + g + 8
+                          : 32 * (wp >> 1) + col32(wp & 1, 1, g);
   // the output bins the tile touches, b0 .. b0 + nb - 1 (those from W on
   // are padding): K divides MTILE_F, then nb = MTILE_F / K; else the
   // tile's first and last bins may be cut (fold_straddle.cuh)
@@ -248,85 +391,52 @@ fused_eclipse_folded_mma_kernel(
   }
   if (tid < nb) wn_s[tid] = b0 + tid < W ? wn[b0 + tid] : 1.0f;
   if (!LANES && tid == 0) b0_s = b0;
-
-  // Unchunked: this thread's first two weight copies of a stage (task
-  // i = tid + j MTHREADS is 16 bytes q of part p, chain cc), reckoned
-  // once: the divisions by a run-time row count stay out of the layer
-  // loop.  Chunked: a chunk's RCH / EPC copies a chain divide by a
-  // constant.
-  const int rq = Rp / EPC, nwtask = NP * CBM * rq;
-  int w_dst[2], w_src[2];
-  if (!CHUNKED) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * MTHREADS;
-      const int q = i % rq, cc = (i / rq) % CBM, p = i / (rq * CBM);
-      const int c = c0 + cc;
-      w_dst[j] = (p * CBM + cc) * WS + EPC * q;
-      // -1: nothing to copy (beyond the tasks); -2: zero-fill (beyond C)
-      w_src[j] = i >= nwtask ? -1
-                 : c >= C    ? -2
-                             : (int)(p * CLR + (size_t)c * L * Rp + EPC * q);
-    }
+  if (tid == 0) {
+    for (int i = 0; i < NSTAGE; ++i) mbar_init(full + i, 1);
+    mbar_init_fence();
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&tmap_t) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&tmap_w) : "memory");
   }
+  __syncthreads();  // the barriers are set up
 
-  // stage ``s`` of the ring, rows r0 .. r0 + Rs - 1 of layer l: the table
-  // tile tab[r0 : r0 + Rs, l, f0 : f0 + MTILE_F] (rows from R on and
-  // columns beyond Fp zero-filled) and the weight parts of those rows of
-  // the block's chains (rows from Rp on and chains beyond C zero-filled)
+  // stage ``s`` of the ring, rows r0 .. r0 + RS - 1 of layer l, sent by
+  // thread 0 through the Tensor Memory Accelerator: the table tile (one
+  // box of 64 bfloat16 points, two of 32 float32 ones) and the weight
+  // parts of those rows of the block's chains (one box; float32, one or
+  // two of 32 rows), whole boxes, zero outside the tensors (rows past R,
+  // points past Fp, weight rows past Rp, chains past C), completing on the
+  // slot's mbarrier with their byte count.  No other thread spends an
+  // instruction on the copies.
   auto copy_stage = [&](int s, int l, int r0) {
-    if (BART_ABLATE & 1) return;
-    unsigned char* st = ring + (size_t)(s % NSTAGE) * stage_bytes;
-    TabT* tb = reinterpret_cast<TabT*>(st);
-    TabT* wb = tb + (size_t)Rs * TS;
-    for (int i = tid; i < Rs * (MTILE_F / EPC); i += MTHREADS) {
-      const int r = i / (MTILE_F / EPC), q = i % (MTILE_F / EPC);
-      const int f = f0 + EPC * q;
-      const bool ok = r0 + r < R && f < Fp;
-      cp_async16(tb + r * TS + EPC * q,
-                 ok ? tab + ((size_t)(r0 + r) * L + l) * Fp + f : tab, ok);
+    uint64_t* bar = full + s % NSTAGE;
+    if (BART_ABLATE & 1) {
+      mbar_arrive(bar);
+      return;
     }
-    if (CHUNKED) {
-      constexpr int FQ = RCH / EPC;          // 16-byte copies a chunk row
-      static_assert(NP * CBM * FQ % MTHREADS == 0, "whole copies a thread");
-#pragma unroll
-      for (int j = 0; j < NP * CBM * FQ / MTHREADS; ++j) {
-        const int i = tid + j * MTHREADS;
-        const int q = i % FQ, cc = (i / FQ) % CBM, p = i / (FQ * CBM);
-        const int c = c0 + cc;
-        const bool ok = c < C && r0 + EPC * q < Rp;
-        cp_async16(wb + (p * CBM + cc) * WS + EPC * q,
-                   ok ? wparts + p * CLR + ((size_t)c * L + l) * Rp + r0 +
-                            EPC * q
-                      : wparts,
-                   ok);
-      }
+    unsigned char* st = ring + (size_t)(s % NSTAGE) * SB;
+    mbar_arrive_expect_tx(bar, (unsigned)SB);
+    tma_load_3d(st, &tmap_t, f0, l, r0, bar);
+    if (kBf16) {
+      tma_load_4d(st + TB, &tmap_w, r0, l, c0, 0, bar);
     } else {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (w_src[j] != -1)
-          cp_async16(wb + w_dst[j],
-                     wparts + (w_src[j] < 0 ? 0 : w_src[j] + l * Rp),
-                     w_src[j] >= 0);
-      }
-      for (int i = tid + 2 * MTHREADS; i < nwtask; i += MTHREADS) {
-        const int q = i % rq, cc = (i / rq) % CBM, p = i / (rq * CBM);
-        const int c = c0 + cc;
-        const bool ok = c < C;
-        cp_async16(wb + (p * CBM + cc) * WS + EPC * q,
-                   ok ? wparts + p * CLR + ((size_t)c * L + l) * Rp + EPC * q
-                      : wparts,
-                   ok);
-      }
+      tma_load_3d(st + TB / 2, &tmap_t, f0 + 32, l, r0, bar);
+      for (int h = 0; h < RS >> RSH; ++h)
+        tma_load_4d(st + TB + h * (CBM * RSI * EB), &tmap_w, r0 + (h << RSH),
+                    l, c0, 0, bar);
     }
+  };
+  // wait for stage s, then the block's barrier: every thread is done with
+  // stage s - 1 (whose slot thread 0 refills next) and the Planck means
+  auto stage_ready = [&](int s) {
+    mbar_wait(full + s % NSTAGE, (unsigned)(s / NSTAGE) & 1);
+    __syncthreads();
   };
 
   // The Planck pairs (chain c0 + p % CBM, bin b0 + p / CBM), p < CBM nb
   // <= CBM MTILE_F / 2: thread tid takes the pairs p = tid + j MTHREADS,
   // so with few pairs (K = 32: CBM 4) only the first warps spend
   // instructions on them.  pl_T holds T of the layer whose B comes next;
-  // the bins' wavenumbers are read from wn_s in the layer loop, not held
-  // in registers, which the float32 table's fill needs.
+  // the bins' wavenumbers are read from wn_s in the layer loop.
   const int npair = CBM * nb;
   float pl_prev[PP], pl_T[PP];
 #pragma unroll
@@ -340,21 +450,22 @@ fused_eclipse_folded_mma_kernel(
   }
 
   // this thread's 8 (fine point, chain) pairs: e = 4 nt + i is fine point
-  // fw + g + 8 (i / 2), chain ch + 8 nt + 2 t + (i & 1)
+  // pt_lo (i < 2) or pt_hi, chain ch + 8 nt + 2 t + (i & 1)
   float ext_p[8], tau[8], S_p[8], flux[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) ext_p[e] = tau[e] = S_p[e] = flux[e] = 0.0f;
   // the bins (relative to b0) of the thread's two fine points
-  const int bin_lo = LANES ? (fw + g) / K : (f0 + fw + g) / K - b0;
-  const int bin_hi = LANES ? (fw + g + 8) / K : (f0 + fw + g + 8) / K - b0;
-  // half the layer step of the thread's 4 chains, a layer ahead
-  float hdr[4], hdr_next[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + ch + 8 * (j >> 1) + 2 * t + (j & 1);
-    hdr[j] = 0.0f;
-    hdr_next[j] = (c < C) ? 0.5f * drp[(size_t)c * L] : 0.0f;
-  }
+  const int bin_lo = (f0 + pt_lo) / K - b0;
+  const int bin_hi = (f0 + pt_hi) / K - b0;
+  // half the layer step of the block's chains: the last warp's lane c
+  // writes 0.5 drp[c0 + c, l] into hdr_s[l & 1][c] a layer ahead, from a
+  // value it loaded a layer before that (zero past C), so that no thread
+  // holds the layer steps of its chains in registers or waits for their
+  // loads
+  const bool hdr_lane = warp == MTHREADS / 32 - 1;
+  const int hc = c0 + lane;
+  float dnext = (hdr_lane && hc < C && L > 1) ? drp[(size_t)hc * L + 1]
+                                              : 0.0f;
 
   // at a layer's first stage: the Planck means of layer l + 1, for after
   // the next barrier, and the chains' layer step
@@ -375,17 +486,16 @@ fused_eclipse_folded_mma_kernel(
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      hdr[j] = hdr_next[j];
-      const int c = c0 + ch + 8 * (j >> 1) + 2 * t + (j & 1);
-      if (c < C && l + 1 < L) hdr_next[j] = 0.5f * drp[(size_t)c * L + l + 1];
+    if (hdr_lane && l + 1 < L) {
+      hdr_s[(l + 1) & 1][lane] = 0.5f * dnext;
+      if (hc < C && l + 2 < L) dnext = drp[(size_t)hc * L + l + 2];
     }
   };
 
   // ---- ext of a layer: per k-step three bfloat16 passes (the weight
   // parts, smallest first, into acc) or three TF32 ones (the two small
-  // products into acc, the big one into accb) -----------------------------
+  // products into acc, the big one into accb), as the design before took
+  // them; the fragments come from the swizzled boxes
   float acc[2][4], accb[2][4];
   auto clear = [&]() {
 #pragma unroll
@@ -394,46 +504,78 @@ fused_eclipse_folded_mma_kernel(
       for (int i = 0; i < 4; ++i) acc[nt][i] = accb[nt][i] = 0.0f;
   };
   // the KS k-steps of the rows staged in slot ``s``
-  auto fill = [&](int s, int KS) {
-    const unsigned char* st = ring + (size_t)(s % NSTAGE) * stage_bytes;
-    const TabT* tb = reinterpret_cast<const TabT*>(st);
-    const TabT* wb = tb + (size_t)Rs * TS;
-    for (int ks = 0; ks < ((BART_ABLATE & 2) ? 0 : KS); ++ks) {
-      if constexpr (kBf16) {
-        uint32_t a[4];
-        ldmatrix_x4_trans(a, tb + (16 * ks + (lane & 7) + ((lane >> 4) << 3))
-                                      * TS
-                                 + fw + (((lane >> 3) & 1) << 3));
+  // bfloat16: the warpgroup's k-steps of the rows staged in slot ``s``
+  // on wgmma (asynchronous: the caller commits and waits), three products
+  // a k-step, the weight parts smallest first, into the one accumulator
+  const int wg = warp >> 2;
+  const unsigned wsw = RS == 64 ? 1u : RS == 32 ? 2u : 3u;
+  auto issue_bf16 = [&](int s, int KS) {
+    if constexpr (kBf16) {
+      const unsigned char* st = ring + (size_t)(s % NSTAGE) * SB;
+      const unsigned char* wb = st + TB;
+      for (int ks = 0; ks < ((BART_ABLATE & 2) ? 0 : KS); ++ks) {
+        // A: the tile's rows 16 ks .. + 15, 128-byte rows, 8-row groups
+        // 1024 bytes apart (both offsets: M is one swizzle atom)
+        const uint64_t da = gmma_desc(st + 2048 * ks, 1024, 1024, 1);
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-          for (int p = 0; p < 3; ++p) {      // lo, mid, hi: small parts first
-            uint32_t b[2];
-            ldmatrix_x2(b, wb + (p * CBM + ch + 8 * nt + (lane & 7)) * WS
-                               + 16 * ks + (((lane >> 3) & 1) << 3));
-            mma_bf16(acc[nt], a, b);
-          }
+        for (int p = 0; p < 3; ++p) {
+          // B: part p's chains 16 wg .. + 15, rows 16 ks .., K-major rows
+          // of RS bfloat16, 8-row groups 16 RS bytes apart
+          const uint64_t db =
+              gmma_desc(wb + 2 * (((p * CBM + 16 * wg) << RSH) + 16 * ks),
+                        16, 16 * RS, wsw);
+          wgmma_bf16(acc, da, db);
         }
-      } else {
-        // A: (fine point fw + g (+ 8), row 8 ks + t (+ 4))
-        const TabT* ta = tb + (8 * ks + t) * TS + fw + g;
+      }
+    }
+  };
+  // float32: the warp's k-steps of the rows staged in slot ``s``, 3xTF32
+  // on mma.sync (the two small products into acc, the big one into accb)
+  auto fill_f32 = [&](int s, int KS) {
+    if constexpr (!kBf16) {
+      const unsigned char* st = ring + (size_t)(s % NSTAGE) * SB;
+      const unsigned char* wb = st + TB;
+      // A: (mma row g (+ 8), row 8 ks + t (+ 4)) of the warp's 32-point
+      // box: rows 8 ks .. of 128 bytes are 1024 ks on, and the swizzle
+      // does not see ks
+      const int cl = col32(wp & 1, 0, g), chh = col32(wp & 1, 1, g);
+      const unsigned char* th0 = st + (wp >> 1) * (TB / 2);
+      const int a00 = swz(128 * t + 4 * cl, 7), a01 = swz(128 * t + 4 * chh, 7);
+      const int a10 = swz(128 * (t + 4) + 4 * cl, 7);
+      const int a11 = swz(128 * (t + 4) + 4 * chh, 7);
+      // B: (row k, chain q = ch + 8 nt + g): the box of 32 rows k >> RSH,
+      // the row's 4 (q RSI + k % RSI) bytes, whose swizzle bits are q's
+      int qo[2], xq[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        qo[nt] = 4 * ((ch + 8 * nt + g) << RSH);
+        xq[nt] = ((qo[nt] >> 7) & WM) << 4;
+      }
+      for (int ks = 0; ks < ((BART_ABLATE & 2) ? 0 : KS); ++ks) {
+        const unsigned char* th = th0 + 1024 * ks;
         uint32_t ab[4], as[4];
-        split_tf32(ta[0], ab[0], as[0]);
-        split_tf32(ta[8], ab[1], as[1]);
-        split_tf32(ta[4 * TS], ab[2], as[2]);
-        split_tf32(ta[4 * TS + 8], ab[3], as[3]);
+        split_tf32(*reinterpret_cast<const float*>(th + a00), ab[0], as[0]);
+        split_tf32(*reinterpret_cast<const float*>(th + a01), ab[1], as[1]);
+        split_tf32(*reinterpret_cast<const float*>(th + a10), ab[2], as[2]);
+        split_tf32(*reinterpret_cast<const float*>(th + a11), ab[3], as[3]);
+        const int k0 = 8 * ks + t, k1 = k0 + 4;
+        const int kb0 = (k0 >> RSH) * (CBM * RSI * 4);
+        const int kb1 = (k1 >> RSH) * (CBM * RSI * 4);
+        const int kk0 = 4 * (k0 & (RSI - 1)), kk1 = 4 * (k1 & (RSI - 1));
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          // B: (row 8 ks + t (+ 4), chain ch + 8 nt + g)
-          const TabT* wa = wb + (ch + 8 * nt + g) * WS + 8 * ks + t;
+          const float w0 = *reinterpret_cast<const float*>(
+              wb + kb0 + ((qo[nt] + kk0) ^ xq[nt]));
+          const float w1 = *reinterpret_cast<const float*>(
+              wb + kb1 + ((qo[nt] + kk1) ^ xq[nt]));
           uint32_t bb[2], bs[2];
 #if BART_ABLATE & 8
-          bb[0] = __float_as_uint(wa[0]);
-          bb[1] = __float_as_uint(wa[4]);
+          bb[0] = __float_as_uint(w0);
+          bb[1] = __float_as_uint(w1);
           bs[0] = bs[1] = 0u;
 #else
-          split_tf32(wa[0], bb[0], bs[0]);
-          split_tf32(wa[4], bb[1], bs[1]);
+          split_tf32(w0, bb[0], bs[0]);
+          split_tf32(w1, bb[1], bs[1]);
 #endif
           mma_tf32(acc[nt], as, bb);
           mma_tf32(acc[nt], ab, bs);
@@ -445,25 +587,36 @@ fused_eclipse_folded_mma_kernel(
 
   // ---- recurrence, quadrature and flux of layer l on the accumulator
   // fragments ------------------------------------------------------------
-  auto layer_step = [&](int l) {
+  // ext of pair e = 4 nt + i from the accumulators; float32 table: the
+  // small products first
+  auto take_ext = [&](float (&ext)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      ext[e] = kBf16 ? acc[e >> 2][e & 3]
+                     : acc[e >> 2][e & 3] + accb[e >> 2][e & 3];
+  };
+  auto layer_step = [&](int l, const float (&ext)[8]) {
+    if (BART_ABLATE & 16) return;
     const float* bm = bmid_s + (l & 1) * npair;   // 0.5 (B_{l-1} + B_l)
-    // ext of pair e = 4 nt + i; float32 table: the small products first
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (!kBf16) acc[nt][i] = acc[nt][i] + accb[nt][i];
     float S[8];
     if (l > 0) {
+      // half the layer step of the thread's chains ch + 8 nt + 2 t (+ 1)
+      float hdr[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 h = *reinterpret_cast<const float2*>(
+            &hdr_s[l & 1][ch + 8 * nt + 2 * t]);
+        hdr[2 * nt] = h.x;
+        hdr[2 * nt + 1] = h.y;
+      }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float ext = acc[e >> 2][e & 3];
-        tau[e] = tau[e] + (ext_p[e] + ext) * hdr[2 * (e >> 2) + (e & 1)];
-        ext_p[e] = ext;
+        tau[e] = tau[e] + (ext_p[e] + ext[e]) * hdr[2 * (e >> 2) + (e & 1)];
+        ext_p[e] = ext[e];
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) ext_p[e] = acc[e >> 2][e & 3];
+      for (int e = 0; e < 8; ++e) ext_p[e] = ext[e];
     }
     if (POWERS) {
       float u[8];
@@ -513,56 +666,91 @@ fused_eclipse_folded_mma_kernel(
     for (int e = 0; e < 8; ++e) S_p[e] = S[e];
   };
 
-  if (!CHUNKED) {
-    // a stage a layer
-    for (int l = 0; l < NSTAGE - 1; ++l) {
-      if (l < L) copy_stage(l, l, 0);
-      cp_async_commit();
-    }
-    for (int l = 0; l < L; ++l) {
-      cp_async_wait<NSTAGE - 2>();
-      __syncthreads();  // stage l and its Planck means are there; every
-                        // thread is done with stage l - 1
-      if (l + NSTAGE - 1 < L) copy_stage(l + NSTAGE - 1, l + NSTAGE - 1, 0);
-      cp_async_commit();
-      layer_start(l);
+  // a stage is (layer, chunk of RS rows); the last chunk of a layer
+  // takes the rest of its k-steps
+  const int nch = (Rp + RS - 1) / RS;
+  const int nstage = L * nch;
+  auto ksteps = [&](int k) {
+    return k < nch - 1 ? RS / UR : (Rp - (nch - 1) * RS) / UR;
+  };
+  if (kBf16 && 2 * nch <= NSTAGE) {
+    // ---- bfloat16, a layer ahead: the products of layer l + 1 run on the
+    // tensor cores while the threads compute the recurrence of layer l.
+    // The ring holds LA = NSTAGE / nch layers; at layer l, once every
+    // warpgroup's products of layer l are complete (the barrier), thread
+    // 0 refills layer l's slots with layer l + LA's stages.
+    const int LA = NSTAGE / nch;
+    if (tid == 0)
+      for (int s = 0; s < NSTAGE && s < nstage; ++s)
+        copy_stage(s, s / nch, (s % nch) * RS);
+    // the products of layer ln into acc, issued without waiting
+    auto issue_layer = [&](int ln) {
       clear();
-      fill(l, Rp / UR);
-      layer_step(l);
+      for (int k = 0; k < nch; ++k) {
+        const int s = ln * nch + k;
+        mbar_wait(full + s % NSTAGE, (unsigned)(s / NSTAGE) & 1);
+      }
+      fence_acc(acc);
+      wgmma_fence();
+      for (int k = 0; k < nch; ++k) issue_bf16(ln * nch + k, ksteps(k));
+      wgmma_commit();
+      fence_acc(acc);
+    };
+    issue_layer(0);
+    for (int l = 0; l < L; ++l) {
+      wgmma_wait0();
+      fence_acc(acc);
+      float ext[8];
+      take_ext(ext);
+      __syncthreads();  // layer l's products are complete in every
+                        // warpgroup; every thread is done with the means
+                        // of layer l - 1
+      if (tid == 0 && l + LA < L)
+        for (int k = 0; k < nch; ++k)
+          copy_stage((l + LA) * nch + k, l + LA, k * RS);
+      layer_start(l);
+      if (l + 1 < L) issue_layer(l + 1);
+      layer_step(l, ext);
     }
   } else {
-    // a stage a chunk; the last chunk of a layer takes the rest of its
-    // k-steps.  The next stage to copy is chunk ck of layer cl.
-    const int nch = (Rp + RCH - 1) / RCH;
-    int cl = 0, ck = 0;
-    auto copy_next = [&](int s) {
-      copy_stage(s, cl, ck * RCH);
+    // ---- a stage at a time (float32; bfloat16 past 128 rows, where two
+    // layers' stages would not fit the ring): thread 0 sends stage
+    // s + NSTAGE - 1 once every thread is past the barrier of stage s
+    // (its slot held stage s - 1)
+    int cl = 0, ck = 0;      // the next stage to send: chunk ck of layer cl
+    auto send_next = [&](int s) {
+      if (s < nstage) copy_stage(s, cl, ck * RS);
       if (++ck == nch) {
         ck = 0;
         ++cl;
       }
     };
-    for (int s = 0; s < NSTAGE - 1; ++s) {
-      if (cl < L) copy_next(s);
-      cp_async_commit();
-    }
+    if (tid == 0)
+      for (int s = 0; s < NSTAGE - 1; ++s) send_next(s);
     for (int l = 0, s = 0; l < L; ++l) {
       clear();
       for (int k = 0; k < nch; ++k, ++s) {
-        cp_async_wait<NSTAGE - 2>();
-        __syncthreads();  // stage s (and, at a layer's first, its Planck
-                          // means) is there; every thread is done with s - 1
-        if (cl < L) copy_next(s + NSTAGE - 1);
-        cp_async_commit();
+        stage_ready(s);
+        if (tid == 0) send_next(s + NSTAGE - 1);
         if (k == 0) layer_start(l);
-        fill(s, k < nch - 1 ? RCH / UR : (Rp - (nch - 1) * RCH) / UR);
+        if constexpr (kBf16) {
+          fence_acc(acc);
+          wgmma_fence();
+          issue_bf16(s, ksteps(k));
+          wgmma_commit();
+          wgmma_wait0();
+          fence_acc(acc);
+        } else {
+          fill_f32(s, ksteps(k));
+        }
       }
-      layer_step(l);
+      float ext[8];
+      take_ext(ext);
+      layer_step(l, ext);
     }
   }
 
   // ---- close with B_{L-1} S_{L-1}, then the sum over k ----------------
-  cp_async_wait<0>();
   __syncthreads();  // every thread is done with the ring and the means
 #pragma unroll
   for (int j = 0; j < PP; ++j) {
@@ -575,7 +763,7 @@ fused_eclipse_folded_mma_kernel(
   for (int e = 0; e < 8; ++e) {
     const int cc = ch + 8 * (e >> 2) + 2 * t + (e & 1);
     const int bin = (e & 2) ? bin_hi : bin_lo;
-    v_s[cc * VS + fw + g + 8 * ((e >> 1) & 1)] =
+    v_s[cc * VS + ((e & 2) ? pt_hi : pt_lo)] =
         flux[e] + bmid_s[bin * CBM + cc] * S_p[e];
   }
   __syncthreads();
@@ -619,23 +807,47 @@ cudaError_t launch_mma(const void* tab, const void* wparts, const float* T,
                        int Rp, int L, int W, int Fp, int C, int K, int nmu,
                        cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(TabT) == 2;
+  constexpr int EB = sizeof(TabT);
   constexpr int NP = kBf16 ? 3 : 1;
   const bool straddles = fold_straddles<MTILE_F>(K);
   if (Rp % (kBf16 ? 16 : 8) != 0 || Rp < R || Fp % 8 != 0 ||
       Fp >= kMaxRow || (long long)NP * C * L * Rp >= (1ll << 31) ||
       (straddles && part == nullptr))
     return cudaErrorInvalidValue;
-  const int ntile = (W * K + MTILE_F - 1) / MTILE_F;
-  const size_t smem =
-      mma_smem_bytes(CHUNKED ? RCH : Rp, K, sizeof(TabT), NP);
+  const int RS = CHUNKED ? RCH : stage_rows(Rp, EB);
+  const int RSI = (RS * EB > 128) ? 128 / EB : RS;
+  const size_t smem = mma_smem_bytes(RS, K, EB, NP);
+  // the table [R][L][Fp] as dims (Fp, L, R); the weights [NP][C][L][Rp] as
+  // (Rp, L, C, NP); zero outside both
+  const CUtensorMapDataType dt = kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint64_t es = EB;
+  const int wrow = RSI * EB;
+  CUtensorMap tmap_t, tmap_w;
+  if (!encode_map<3>(&tmap_t, dt, tab,
+                     {(cuuint64_t)Fp, (cuuint64_t)L, (cuuint64_t)R},
+                     {(cuuint64_t)Fp * es, (cuuint64_t)L * Fp * es},
+                     {(cuuint32_t)(128 / EB), 1, (cuuint32_t)RS},
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map<4>(&tmap_w, dt, wparts,
+                     {(cuuint64_t)Rp, (cuuint64_t)L, (cuuint64_t)C,
+                      (cuuint64_t)NP},
+                     {(cuuint64_t)Rp * es, (cuuint64_t)L * Rp * es,
+                      (cuuint64_t)C * L * Rp * es},
+                     {(cuuint32_t)RSI, 1, CBM, (cuuint32_t)NP},
+                     wrow == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                     : wrow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                  : CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED, LANES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
+  const int ntile = (W * K + MTILE_F - 1) / MTILE_F;
   fused_eclipse_folded_mma_kernel<TabT, POWERS, NMU, CHUNKED, LANES>
       <<<tile_grid((C + CBM - 1) / CBM, ntile), MTHREADS, smem, stream>>>(
-          static_cast<const TabT*>(tab), static_cast<const TabT*>(wparts), T,
-          drp, wn, minv, wmu, out, part, R, Rp, L, W, Fp, C, K, nmu, ntile);
+          tmap_t, tmap_w, T, drp, wn, minv, wmu, out, part, Rp, L, W, C, K,
+          nmu, ntile);
   const cudaError_t e2 = cudaGetLastError();
   if (e2 != cudaSuccess || !straddles) return e2;
   return launch_fold_straddle<MTILE_F>(part, out, C, W, K, ntile,

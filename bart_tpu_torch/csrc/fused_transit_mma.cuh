@@ -1274,7 +1274,7 @@ int launch_transit_mma(const void* tab, const float* wrows, const float* Gt,
     // or 128 bytes, each with the swizzle of its width
     CUtensorMap tmap_t, tmap_w;
     const cuuint64_t es = sizeof(TabT);
-    if (!encode_3d(&tmap_t,
+    if (!encode_map<3>(&tmap_t,
                    kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                    tab, {(cuuint64_t)Fp, (cuuint64_t)Rt, (cuuint64_t)L},
@@ -1282,7 +1282,7 @@ int launch_transit_mma(const void* tab, const float* wrows, const float* Gt,
                    {FT_W, FT_UR / FT_CX, 2},
                    kBf16 ? CU_TENSOR_MAP_SWIZZLE_64B
                          : CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !encode_3d(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wrows,
+        !encode_map<3>(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wrows,
                    {(cuuint64_t)Rp, (cuuint64_t)C, (cuuint64_t)L},
                    {(cuuint64_t)L * Rp * 4, (cuuint64_t)Rp * 4},
                    {FT_UR, FT_CB, 2}, CU_TENSOR_MAP_SWIZZLE_128B))

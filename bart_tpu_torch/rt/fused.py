@@ -911,19 +911,35 @@ def _fold_bins(K: int) -> int:
     return (_F_MTILE_F - 1) // K + 2
 
 
+def _eclipse_stage_rows(Rp: int, eb: int) -> int:
+    """The table rows a stage of the folded eclipse kernel's ring holds
+    (stage_rows in the source): RCH where the row axis is chunked (Rp >
+    RCH), else Rp rounded up to a power of two, so that a weight row is
+    32, 64 or 128 bytes (a swizzle's width)."""
+    if Rp > _RCH:
+        return _RCH
+    for row_bytes in (32, 64, 128):
+        if Rp <= row_bytes // eb:
+            return row_bytes // eb
+    return _RCH
+
+
 def _eclipse_folded_smem(R: int, K: int, bf16: bool) -> int:
     """Bytes of dynamic shared memory a block of the folded eclipse
-    kernel needs (as its launcher counts them): NSTAGE stages of a chunk
-    of Rs = min(Rp, RCH) rows, the table tile [Rs][MTILE_F + 8] and the
-    weights, then two buffers of Planck means [_fold_bins(K)][CBM] in
-    float32.  bfloat16: the weights' three parts [3][CBM][Rs + 8] in
-    bfloat16, Rp = R rounded up to 16; float32: [CBM][Rs + 4] in float32,
-    Rp = R rounded up to 8.  Any R and any K fit: the rows stream through
-    the ring, and a tile touches at most MTILE_F / 2 bins."""
+    kernel needs (as its launcher counts them): 1024 to align the ring,
+    NSTAGE stages of RS = _eclipse_stage_rows(Rp) rows (the table tile
+    [RS][MTILE_F] and the weights [parts][CBM][RS], as the TMA writes
+    them), two buffers of Planck means [_fold_bins(K)][CBM] in float32,
+    and the stages' mbarriers.  bfloat16: the weights' three parts in
+    bfloat16, Rp = R rounded up to 16; float32: one part in float32, Rp =
+    R rounded up to 8.  Any R and any K fit, two blocks an SM: the rows
+    stream through the ring in chunks of RCH, and a tile touches at most
+    MTILE_F / 2 bins."""
     eb, parts, depth = (2, 3, _MMA_K) if bf16 else (4, 1, _MMA_K32)
-    Rp = min(-(-R // depth) * depth, _RCH)
-    stage = eb * (Rp * (_F_MTILE_F + 8) + parts * _F_CBM * (Rp + 16 // eb))
-    return _F_NSTAGE * stage + 2 * 4 * _fold_bins(K) * _F_CBM
+    RS = _eclipse_stage_rows(-(-R // depth) * depth, eb)
+    stage = eb * RS * (_F_MTILE_F + parts * _F_CBM)
+    return (1024 + _F_NSTAGE * stage + 2 * 4 * _fold_bins(K) * _F_CBM
+            + 8 * _F_NSTAGE)
 
 
 def _straddle_part(C: int, F: int, K: int, tile: int, dev: torch.device):

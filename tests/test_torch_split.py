@@ -482,28 +482,39 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
     # the float32-pipe kernel's tile is gone
     assert not {"TILE_F", "TY", "CPT"} & set(env)
     assert '#include "hopper.cuh"' in src
-    env["mma_stage_bytes"] = lambda rs, eb, np_: _cxx_return(
-        src, "mma_stage_bytes", {**env, "Rs": rs, "eb": eb, "np": np_})
     env["fold_bins"] = lambda k: _cxx_return(src, "fold_bins",
                                              {**env, "K": k}, "int")
     for k in range(2, 257):
         assert fused._fold_bins(k) == env["fold_bins"](k)
+    # a stage: the table tile [RS][MTILE_F] and the weights
+    # [parts][CBM][RS] as the TMA writes them (no padding), RS a power of
+    # two (a chunk of RCH rows when the row axis is chunked); NSTAGE of
+    # them, the Planck means, the stages' mbarriers
+    env["mma_stage_bytes"] = lambda rs, eb, np_: _cxx_return(
+        src, "mma_stage_bytes", {**env, "RS": rs, "eb": eb, "np": np_})
     for bf16, eb, parts, depth in ((True, 2, 3, 16), (False, 4, 1, 8)):
         for R, k in ((27, 32), (19, 2), (16, 4), (48, 8), (41, 16),
                      (122, 32), (137, 32), (226, 32), (512, 32), (226, 4),
                      (27, 3), (27, 6), (27, 12), (27, 48), (27, 64),
                      (27, 128), (122, 128), (512, 3)):
-            # a stage holds a chunk of min(Rp, RCH) rows
-            Rs = min(-(-R // depth) * depth, env["RCH"])
+            Rp = -(-R // depth) * depth
+            RS = fused._eclipse_stage_rows(Rp, eb)
+            assert RS == min(1 << (Rp - 1).bit_length(), env["RCH"])
+            assert RS >= max(32 // eb, min(Rp, env["RCH"]))
+            stage = env["mma_stage_bytes"](RS, eb, parts)
+            assert stage == eb * RS * (fused._F_MTILE_F + parts * fused._F_CBM)
             want = _cxx_return(src, "mma_smem_bytes",
-                               {**env, "Rs": Rs, "K": k, "eb": eb,
+                               {**env, "RS": RS, "K": k, "eb": eb,
                                 "np": parts})
+            assert want == (1024 + fused._F_NSTAGE * stage
+                            + 2 * 4 * env["fold_bins"](k) * fused._F_CBM
+                            + 8 * fused._F_NSTAGE)
             assert fused._eclipse_folded_smem(R, k, bf16) == want
             # two blocks an SM (228 KB, 1 KB of it reserved a block)
             assert 2 * (want + 1024) <= 233472
         # every row count and every K fits a block: shared memory stops
         # growing at a chunk of RCH rows, and K = 2 has the most bins a
-        # tile (the float32 table's K = 2 alone takes one block an SM)
+        # tile
         for R in range(1, 513):
             for k in range(2, 129):
                 assert fused._eclipse_folded_smem(R, k, bf16) \
@@ -513,21 +524,31 @@ def test_eclipse_mma_source_constants_and_smem_match_python():
                 == fused._eclipse_folded_smem(min(R, 64), 32, bf16)
     # a chunk is whole k-steps of either table
     assert env["RCH"] % 16 == 0
-    assert fused._eclipse_folded_smem(27, 32, True) == 49664
-    # float32: 4 stages of [32][72] + [32][36] words, the Planck means
-    assert fused._eclipse_folded_smem(27, 32, False) == 55808
-    assert fused._eclipse_folded_smem(41, 32, False) == 82432
+    # bfloat16 at R = 27: 4 stages of 32 rows ([32][64] + [3][32][32]
+    # bfloat16), the Planck means, the barriers
+    assert fused._eclipse_folded_smem(27, 32, True) == 42528
+    # float32: 4 stages of [32][64] + [32][32] words at R = 27; of 64 rows
+    # at R = 41
+    assert fused._eclipse_folded_smem(27, 32, False) == 50720
+    assert fused._eclipse_folded_smem(41, 32, False) == 99872
     # the epilogue's [CBM][MTILE_F + 4] sums fit the smallest ring
     epi = 4 * fused._F_CBM * (fused._F_MTILE_F + 4)
     assert fused._F_NSTAGE * env["mma_stage_bytes"](16, 2, 3) >= epi
     assert fused._F_NSTAGE * env["mma_stage_bytes"](8, 4, 1) >= epi
-    # the float32 fragment loads: lane (g, t) reads row t, column g of the
-    # table tile (stride MTILE_F + 8 words) and row g, column t of the
-    # weights (stride Rp + 4): 32 different banks for every Rp
+    # the float32 fragment loads: lane (g, t) reads row t (+ 4), fine
+    # point col32(m, h, g) of the 128-byte-swizzled table rows and row t
+    # (+ 4), chain g of the weights' swizzled rows of 8, 16 or 32 words:
+    # 32 different banks for every stage's rows
     g, t = np.divmod(np.arange(32), 4)
-    assert len(set(((fused._F_MTILE_F + 8) * t + g) % 32)) == 32
-    for Rs in range(8, env["RCH"] + 1, 8):
-        assert len(set(((Rs + 4) * g + t) % 32)) == 32
+
+    def swz(o, m):
+        return o ^ (((o >> 7) & m) << 4)
+
+    pt = 16 * (g >> 2) + (g & 3)
+    assert len(set(swz(128 * t + 4 * pt, 7) // 4 % 32)) == 32
+    for rsi in (8, 16, 32):
+        m = rsi * 4 // 16 - 1
+        assert len(set(swz(4 * (g * rsi + t), m) // 4 % 32)) == 32
     # the bins a tile touches: K dividing the tile keeps its old count
     # (the same buffers as before any K was taken), every other K at most
     # a bin cut at each end; at most MTILE_F / 2, the size of the bins'
