@@ -32,6 +32,7 @@ import torch
 
 from bart_tpu_torch.device import resolve_device
 from bart_tpu_torch.driver.config import RetrievalConfig, load_data_array
+from bart_tpu_torch.utils.profiling import spanned
 
 __all__ = ["Pipeline"]
 
@@ -143,6 +144,7 @@ class Pipeline:
         return result
 
     # ------------------------------------------------------------------
+    @spanned("pressure")
     def stage_pressure(self) -> np.ndarray:
         """Pressure grid (BART.py:497-499 / makeP)."""
         from bart_tpu_torch.utils.grids import (
@@ -160,6 +162,7 @@ class Pipeline:
                  f"{cfg.p_top:g}-{cfg.p_bottom:g} bar -> {path}")
         return p
 
+    @spanned("abundances")
     def stage_abundances(self):
         """Elemental abundances with metallicity/COswap
         (BART.py:512-515 / makeAbun)."""
@@ -174,6 +177,7 @@ class Pipeline:
         write_elements(table, path)
         return table
 
+    @spanned("atmosphere")
     def stage_atmosphere(self, pressure: np.ndarray, elems):
         """Atmosphere file: uniform or thermochemical equilibrium
         (BART.py:502-546).  The initial PT profile and the hydrostatic
@@ -253,6 +257,7 @@ class Pipeline:
         self.log(f"atmosphere: {len(species)} species -> {path}")
         return atm
 
+    @spanned("linelist")
     def stage_linelist(self, wn: np.ndarray):
         """Line database (pylineread/TLI equivalent, SURVEY.md 3.5)."""
         from bart_tpu_torch.linelist import tli as tli_mod
@@ -278,6 +283,7 @@ class Pipeline:
                  f"{list(data.lines)}")
         return data
 
+    @spanned("opacity")
     def stage_opacity(self, tli, wn: np.ndarray, pressure: np.ndarray,
                       atm=None):
         """Opacity grid build/reuse (BART.py:560-569), built on the
@@ -324,6 +330,7 @@ class Pipeline:
                  f"q_He={spec.q_he:.4f}")
         return spec
 
+    @spanned("spectrum")
     def stage_spectrum(self, atm, wn: np.ndarray, grid):
         """One-shot spectrum from the atm file's own profiles — the
         standalone `transit -c cfg` use case (reference SURVEY.md 2.2:
@@ -346,6 +353,7 @@ class Pipeline:
         self.log(f"--justSpectrum: {len(wn)} samples -> {path}")
         return wn, spectrum
 
+    @spanned("forward_setup")
     def stage_forward(self, atm, wn: np.ndarray, grid):
         """Forward model + likelihood assembly (BARTfunc init
         equivalent)."""
@@ -452,6 +460,7 @@ class Pipeline:
         self.store = dict(system=system, starfl=starfl, filters=filters)
         return fm
 
+    @spanned("mcmc")
     def stage_mcmc(self, like, space):
         """The retrieval itself (BART.py:576-580 mpiexec equivalent): on
         a card every block replays one captured step."""
@@ -477,6 +486,7 @@ class Pipeline:
             dtype=self.dtype,
         )
 
+    @spanned("post")
     def stage_post(self, fm, like, space, result):
         """Post-processing: plots + best fit + contribution functions
         (BART.py:599-651)."""

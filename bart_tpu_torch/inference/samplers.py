@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from bart_tpu_torch.device import graph_capture
+from bart_tpu_torch.utils.profiling import block_mark, count, span, spanned
 
 __all__ = ["SamplerState", "SnookerVariates", "DemcVariates", "MrwVariates",
            "UnifVariates", "EnsembleSampler", "StepBuffers", "StepGraph",
@@ -177,6 +178,7 @@ class EnsembleSampler:
         return self._consts[key]
 
     # ------------------------------------------------------------------
+    @spanned("sampler.init")
     def init_state(self, generator: torch.Generator,
                    init_positions: np.ndarray | None = None,
                    dtype: torch.dtype = torch.float64) -> SamplerState:
@@ -380,17 +382,21 @@ class EnsembleSampler:
             graphed = self.graphs(pos.device)
         if graphed:
             graph = self.step_graph(state, nsteps)
+            block_mark(pos.device, 0)
             self.draw_block(generator, nsteps, out=graph.variates)
             return graph.run(state, fg)
+        block_mark(pos.device, 0)
         vb = self.draw_block(generator, nsteps, pos.dtype)
         # the gamma scale as the graph reads it: a device scalar
         gscale = torch.full((), fg, dtype=pos.dtype, device=pos.device)
         pb, lb, mb = [], [], []
+        block_mark(pos.device, 1)
         for k in range(nsteps):
             state = self._step(state, type(vb)(*(x[k] for x in vb)), gscale)
             pb.append(state.positions)
             lb.append(state.loglike)
             mb.append(state.models)
+        block_mark(pos.device, 2)
         return state, torch.stack(pb), torch.stack(lb), torch.stack(mb)
 
 
@@ -424,6 +430,7 @@ class StepBuffers:
                                                 *state.loglike.shape))
         self.models = state.models.new_empty((nsteps, *state.models.shape))
 
+    @spanned("sampler.step")
     def _body(self) -> None:
         """One step on the buffers."""
         v = type(self.variates)(*(x.index_select(0, self.i)[0]
@@ -448,7 +455,10 @@ class StepBuffers:
             dst.copy_(src)
         self.i.zero_()
         self.gscale.fill_(fgamma)
+        dev = self.i.device
+        block_mark(dev, 1)
         self._steps()
+        block_mark(dev, 2)
         return (SamplerState(*(x.clone() for x in self.state)),
                 self.positions.clone(), self.loglike.clone(),
                 self.models.clone())
@@ -478,18 +488,20 @@ class StepGraph(StepBuffers):
             raise RuntimeError("StepGraph: a CUDA graph cannot capture the "
                                "collectives of a gloo mesh (NCCL only)")
         super().__init__(sampler, state, nsteps)
-        for x in self.variates:       # valid draws for the warm-up steps
-            x.fill_(0.5)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(_WARMUP):
-                self.i.zero_()
+        with span("sampler.capture"):
+            for x in self.variates:   # valid draws for the warm-up steps
+                x.fill_(0.5)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(_WARMUP):
+                    self.i.zero_()
+                    self._body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with graph_capture(self.graph):
                 self._body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with graph_capture(self.graph):
-            self._body()
+            count("graphs.captures")
 
     def _steps(self) -> None:
         for _ in range(self.nsteps):

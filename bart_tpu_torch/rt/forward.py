@@ -72,6 +72,7 @@ from bart_tpu_torch.rt.fused import (FoldedTable, RowsTable, _row_step,
 from bart_tpu_torch.rt.tau import tau_vertical
 from bart_tpu_torch.rt.transit_geom import slant_geometry, transit_depth
 from bart_tpu_torch.utils.grids import folded_fine_grid
+from bart_tpu_torch.utils.profiling import count, span, spanned
 
 __all__ = ["ForwardModel", "ForwardConfig"]
 
@@ -496,6 +497,7 @@ class ForwardModel:
                 f"expects [C, {cfg.n_params}]")
         return params.to(device=self.device, dtype=self.dtype)
 
+    @spanned("forward")
     def __call__(self, params: torch.Tensor,
                  tables: dict[str, torch.Tensor] | None = None):
         """params [C, n_params] -> (bandflux [C, nfilt], spectrum [C, W],
@@ -509,11 +511,11 @@ class ForwardModel:
         T_safe, q, rad_cm, valid = self._profiles(params, t)
         spectrum = self._spectrum(params, t, T_safe, q, rad_cm)
 
-        if self._ebalance:
-            e_out = torch.trapezoid(spectrum, t["wn"], dim=-1)
-            valid = valid & self._energy_ok(e_out)
-
-        bandflux = band_integrate(t["band_w"], spectrum)
+        with span("forward.bands"):
+            if self._ebalance:
+                e_out = torch.trapezoid(spectrum, t["wn"], dim=-1)
+                valid = valid & self._energy_ok(e_out)
+            bandflux = band_integrate(t["band_w"], spectrum)
         return bandflux, spectrum, valid
 
     @property
@@ -553,11 +555,13 @@ class ForwardModel:
             p = params[lo:hi]
             T_safe, q, rad_cm, valid = self._profiles(p, t)
             spectrum = self._spectrum(p, t, T_safe, q, rad_cm)
-            part = buf[lo:hi]
-            part[:, :nf] = band_integrate(t["band_w"], spectrum)
-            part[:, nf] = (~valid).to(self.dtype)
-            if self._ebalance:
-                part[:, nf + 1] = torch.matmul(spectrum, t["wn_trapz"])
+            with span("forward.bands"):
+                part = buf[lo:hi]
+                part[:, :nf] = band_integrate(t["band_w"], spectrum)
+                part[:, nf] = (~valid).to(self.dtype)
+                if self._ebalance:
+                    part[:, nf + 1] = torch.matmul(spectrum,
+                                                   t["wn_trapz"])
         else:
             spectrum = torch.zeros(0, t["wn"].shape[0], dtype=self.dtype,
                                    device=self.device)
@@ -634,6 +638,7 @@ class ForwardModel:
         return forward
 
     # -----------------------------------------------------------------
+    @spanned("forward.profiles")
     def _profiles(self, params: torch.Tensor, t: dict):
         """params [C, n] -> (T [C, L], q [C, L, S], radius [C, L] cm,
         valid [C])."""
@@ -664,11 +669,12 @@ class ForwardModel:
 
         # 3. hydrostatic radii, re-derived per sample, anchored at the
         #    fitted radius in transit (set_radius, BARTfunc.py:351)
-        mmm = torch.matmul(q, t["masses"])                          # [C, L]
-        r0 = params[:, nPT] if cfg.n_radfit else self.r0_km
-        rad_km = radius_profile(pressure, T_safe, mmm, cfg.refpress,
-                                r0, self.g0_si, i0=self.i0)
-        return T_safe, q, rad_km * const.KM_TO_CM, valid
+        with span("forward.radii"):
+            mmm = torch.matmul(q, t["masses"])                      # [C, L]
+            r0 = params[:, nPT] if cfg.n_radfit else self.r0_km
+            rad_km = radius_profile(pressure, T_safe, mmm, cfg.refpress,
+                                    r0, self.g0_si, i0=self.i0)
+            return T_safe, q, rad_km * const.KM_TO_CM, valid
 
     def _atmosphere(self, params: torch.Tensor, t: dict):
         """params [C, n] -> (T, q, radius [cm], extinction, valid)."""
@@ -746,6 +752,7 @@ class ForwardModel:
                 cfg.cloudext)[..., None]
         return ext
 
+    @spanned("forward.rows")
     def _fused_rows(self, params: torch.Tensor, t: dict, T_safe, q, rad_cm):
         """(parts, wrows [C, L, R]): the extinction as one rows
         contraction per dispatch part (tab, folded?, wn, output-bin
@@ -805,35 +812,38 @@ class ForwardModel:
         """Extinction rows -> geometry -> spectrum [C, W] through the
         fused eclipse or transit kernels, one launch per dispatch part;
         on the fly, the unfused extinction through the unfused radiative
-        transfer."""
+        transfer.  The rows are the span ``forward.rows``, what follows
+        them ``forward.spectrum``."""
         if self.line_tiles is not None:
-            ext = self._extinction(params, t, T_safe, q, rad_cm)
-            if self.config.solution == "transit":
-                return transit_depth(ext, rad_cm,
-                                     self.system.r_star * 100.0)
-            return eclipse_flux(tau_vertical(ext, rad_cm), T_safe, t["wn"],
-                                t["mu"], t["mu_w"])
+            with span("forward.spectrum"):
+                ext = self._extinction(params, t, T_safe, q, rad_cm)
+                if self.config.solution == "transit":
+                    return transit_depth(ext, rad_cm,
+                                         self.system.r_star * 100.0)
+                return eclipse_flux(tau_vertical(ext, rad_cm), T_safe,
+                                    t["wn"], t["mu"], t["mu_w"])
         parts, wrows = self._fused_rows(params, t, T_safe, q, rad_cm)
-        n_wn = t["wn"].shape[0]
-        if self.config.solution == "transit":
-            G, wgt = slant_geometry(rad_cm)
-            if G.is_cuda:
-                # the kernels' lower-triangular tiles, made once for the
-                # launches of this forward
-                G = prepare_slant(G)
-            absorbed = self._assemble(
-                [((fused_transit_folded if folded else fused_transit)(
-                    tab, wrows, G, wgt), idx)
-                 for tab, folded, _, idx in parts], n_wn)
-            return (rad_cm[:, -1:] ** 2 + absorbed) / (
-                self.system.r_star * 100.0) ** 2
-        dr = rad_cm[:, :-1] - rad_cm[:, 1:]
-        drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
-        return self._assemble(
-            [((fused_eclipse_folded if folded else fused_eclipse)(
-                tab, wn_p, t["mu"], t["mu_w"], wrows, T_safe, drp,
-                powers=self._powers), idx)
-             for tab, folded, wn_p, idx in parts], n_wn)
+        with span("forward.spectrum"):
+            n_wn = t["wn"].shape[0]
+            if self.config.solution == "transit":
+                G, wgt = slant_geometry(rad_cm)
+                if G.is_cuda:
+                    # the kernels' lower-triangular tiles, made once for the
+                    # launches of this forward
+                    G = prepare_slant(G)
+                absorbed = self._assemble(
+                    [((fused_transit_folded if folded else fused_transit)(
+                        tab, wrows, G, wgt), idx)
+                     for tab, folded, _, idx in parts], n_wn)
+                return (rad_cm[:, -1:] ** 2 + absorbed) / (
+                    self.system.r_star * 100.0) ** 2
+            dr = rad_cm[:, :-1] - rad_cm[:, 1:]
+            drp = torch.cat([torch.zeros_like(dr[:, :1]), dr], dim=1)
+            return self._assemble(
+                [((fused_eclipse_folded if folded else fused_eclipse)(
+                    tab, wn_p, t["mu"], t["mu_w"], wrows, T_safe, drp,
+                    powers=self._powers), idx)
+                 for tab, folded, wn_p, idx in parts], n_wn)
 
     @staticmethod
     def _assemble(pieces, n_wn: int) -> torch.Tensor:
@@ -858,15 +868,17 @@ class _ForwardGraph:
     def __init__(self, fm: ForwardModel, params: torch.Tensor):
         dev = fm.device
         self.params = params.to(device=dev, dtype=fm.dtype, copy=True)
-        side = torch.cuda.Stream(dev)      # PyTorch's rule: warm up aside
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                fm(self.params)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with graph_capture(self.graph):
-            self.out = fm(self.params)
+        with span("forward.capture"):
+            side = torch.cuda.Stream(dev)  # PyTorch's rule: warm up aside
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    fm(self.params)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with graph_capture(self.graph):
+                self.out = fm(self.params)
+            count("graphs.captures")
 
     def __call__(self, params: torch.Tensor):
         self.params.copy_(params)

@@ -63,7 +63,7 @@ import torch
 
 from bart_tpu_torch.rt.planck import planck_wn
 from bart_tpu_torch.rt.tau import TAU_CLAMP
-from bart_tpu_torch.utils import build
+from bart_tpu_torch.utils import build, profiling
 
 __all__ = ["fused_eclipse", "eclipse_plain", "fused_transit",
            "transit_plain", "fused_eclipse_folded", "eclipse_folded_plain",
@@ -525,6 +525,7 @@ def build_kernels(names=tuple(_KERNELS),
     nvcc = _nvcc()
     extra = ("-Xptxas", "-v") if ptxas_verbose else ()
     procs = []
+    profiling.count("kernels.builds", len(todo))
     for name, so in todo:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         procs.append((name, so, tmp, subprocess.Popen(
@@ -546,14 +547,17 @@ def build_kernels(names=tuple(_KERNELS),
 
 def load_kernel(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu with nvcc (once per source hash, into
-    ``bart_tpu_torch/build/``) and load it with ctypes."""
+    ``bart_tpu_torch/build/``) and load it with ctypes, inside the span
+    ``kernels.load`` (counted in ``kernels.loads``)."""
     with _lib_lock:
         if name in _libs:
             return _libs[name]
         if name not in _KERNELS:
             raise KeyError(f"no kernel {name!r}; have {sorted(_KERNELS)}")
-        build_kernels([name])
-        lib = ctypes.CDLL(str(_so_path(name)))
+        with profiling.span("kernels.load"):
+            build_kernels([name])
+            lib = ctypes.CDLL(str(_so_path(name)))
+            profiling.count("kernels.loads")
         fn = getattr(lib, f"bart_{name}")
         fn.argtypes = _KERNELS[name]
         fn.restype = _CI

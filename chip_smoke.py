@@ -179,8 +179,9 @@ smooth bins.  Phases:
   6. with ``--trace`` only (after phase 14): a torch.profiler trace of a
      few forwards per path, eager and ``graphed()``: the device-busy
      share of the wall time, the five device operations that took most
-     time and the five stages of the forward during which the device
-     idled longest (a graph replay runs no stage)
+     time and the five spans of the forward (the program's ``stage:``
+     ranges) during which the device idled longest (a graph replay runs
+     no span)
 
 Each path's launch counts are zeroed just before its phase 3 (phases 7
 and 9, and each CLI run of 8 and 11: just before it; phases 10 and 13:
@@ -1375,14 +1376,6 @@ def folded_times(fused, path: dict) -> dict:
     return out
 
 
-#: the stages of a forward that ``--trace`` labels: functions that
-#: bart_tpu_torch.rt.forward calls by these names
-TRACE_STAGES = ("pt_generator", "radius_profile", "slant_geometry",
-                "prepare_slant", "band_integrate", "fused_eclipse",
-                "fused_transit", "fused_eclipse_folded",
-                "fused_transit_folded")
-
-
 def is_device_event(event) -> bool:
     """A profiler event that ran on the card (a kernel, a copy, a memset),
     not the device-side echo of a ``stage:`` label."""
@@ -1782,25 +1775,34 @@ def truth_phase(like, space, nchain: int, label: str = "phase 4c",
             "accept": res.accept_rate, "fgamma": res.fgamma_final}
 
 
+def innermost_idle(gaps, stages) -> dict:
+    """{span: us} of the idle ``gaps`` [(start, end)], each piece of a gap
+    given to the innermost of the ``stages`` [(start, end, span)] open
+    over it (the one that started last), "other" where none is."""
+    idle = {}
+    for gs, ge in gaps:
+        cuts = sorted({gs, ge} | {t for s0, s1, _ in stages
+                                  for t in (s0, s1) if gs < t < ge})
+        for a, b in zip(cuts, cuts[1:]):
+            mid = 0.5 * (a + b)
+            live = [st for st in stages if st[0] <= mid <= st[1]]
+            label = (max(live, key=lambda st: (st[0], -st[1]))[2]
+                     if live else "other")
+            idle[label] = idle.get(label, 0.0) + b - a
+    return idle
+
+
 def trace_forwards(paths: dict, smi: str, nfwd: int = 5) -> None:
     """Phase 6: one torch.profiler trace of ``nfwd`` forwards per path,
     each window ending in a host read.  Prints, per path, the wall time
     with and without the profiler, the device-busy share of the traced
     window, the five device operations that took most time, and the five
-    stages of the forward during which the device idled longest (the
-    stages are labelled with record_function for the trace only).
-    Raises if the profiler records no device activity."""
+    spans of the forward (the program's own ``stage:`` ranges, each idle
+    stretch given to the innermost) during which the device idled
+    longest.  Raises if the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    import bart_tpu_torch.rt.forward as fwd_mod
-
-    def labelled(name, fn):
-        def wrapper(*args, **kwargs):
-            with record_function("stage:" + name):
-                return fn(*args, **kwargs)
-        return wrapper
+    from torch.profiler import ProfilerActivity, profile
 
     def run(forward, params):
         t0 = time.perf_counter()
@@ -1809,67 +1811,49 @@ def trace_forwards(paths: dict, smi: str, nfwd: int = 5) -> None:
         float(out.sum())
         return 1e3 * (time.perf_counter() - t0)
 
-    saved = {name: getattr(fwd_mod, name) for name in TRACE_STAGES}
-    saved_rows = fwd_mod.ForwardModel._fused_rows
-    try:
-        for name, fn in saved.items():
-            setattr(fwd_mod, name, labelled(name, fn))
-        fwd_mod.ForwardModel._fused_rows = labelled("rows", saved_rows)
-        for path, (forward, params) in paths.items():
-            run(forward, params)                         # warm
-            plain_ms = run(forward, params)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                wall_ms = run(forward, params)
-                torch.cuda.synchronize()
-            events = list(prof.events())
-            dev = [e for e in events if is_device_event(e)]
-            if not dev:
-                raise RuntimeError(f"chip_smoke: trace {path}: "
-                                   "torch.profiler recorded no device activity")
-            busy_us, gaps = busy_and_gaps(
-                [(e.time_range.start, e.time_range.end) for e in dev])
-            start = min(e.time_range.start for e in events)
-            end = max(e.time_range.end for e in events)
-            gaps = [(start, min(e.time_range.start for e in dev))] + gaps + [
-                (max(e.time_range.end for e in dev), end)]
-            by_op = {}
-            for e in dev:
-                n, us = by_op.get(e.name, (0, 0.0))
-                by_op[e.name] = (n + 1,
-                                 us + e.time_range.end - e.time_range.start)
-            stages = [(e.time_range.start, e.time_range.end, e.name[6:])
-                      for e in events if e.device_type == DeviceType.CPU
-                      and e.name.startswith("stage:")]
-            idle = {}
-            for gs, ge in gaps:
-                left = ge - gs
-                for ss, se, label in stages:
-                    over = min(ge, se) - max(gs, ss)
-                    if over > 0:
-                        idle[label] = idle.get(label, 0.0) + over
-                        left -= over
-                idle["other"] = idle.get("other", 0.0) + max(left, 0.0)
-            window_us = end - start
-            top_ops = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:5]
-            top_idle = sorted(idle.items(), key=lambda kv: -kv[1])[:5]
-            print(f"# phase 6 ({smi}): trace of {nfwd} {path} forwards: "
-                  f"wall {wall_ms:.2f} ms traced, {plain_ms:.2f} ms untraced; "
-                  f"traced window {window_us / 1e3:.2f} ms, device busy "
-                  f"{busy_us / 1e3:.2f} ms = {busy_us / window_us:.3f} of it "
-                  f"in {len(dev)} device operations")
-            print(f"# phase 6: {path}: device operations: " + "; ".join(
-                f"{name[:60]} {us / 1e3:.3f} ms x{n}"
-                for name, (n, us) in top_ops))
-            print(f"# phase 6: {path}: device idle by forward stage: "
-                  + "; ".join(f"{label} {us / 1e3:.2f} ms"
-                              for label, us in top_idle))
-            check(0.0 < busy_us <= window_us, f"trace {path}: busy time "
-                  f"{busy_us} us outside the window {window_us} us")
-    finally:
-        for name, fn in saved.items():
-            setattr(fwd_mod, name, fn)
-        fwd_mod.ForwardModel._fused_rows = saved_rows
+    for path, (forward, params) in paths.items():
+        run(forward, params)                         # warm
+        plain_ms = run(forward, params)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_ms = run(forward, params)
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        dev = [e for e in events if is_device_event(e)]
+        if not dev:
+            raise RuntimeError(f"chip_smoke: trace {path}: "
+                               "torch.profiler recorded no device activity")
+        busy_us, gaps = busy_and_gaps(
+            [(e.time_range.start, e.time_range.end) for e in dev])
+        start = min(e.time_range.start for e in events)
+        end = max(e.time_range.end for e in events)
+        gaps = [(start, min(e.time_range.start for e in dev))] + gaps + [
+            (max(e.time_range.end for e in dev), end)]
+        by_op = {}
+        for e in dev:
+            n, us = by_op.get(e.name, (0, 0.0))
+            by_op[e.name] = (n + 1,
+                             us + e.time_range.end - e.time_range.start)
+        stages = [(e.time_range.start, e.time_range.end, e.name[6:])
+                  for e in events if e.device_type == DeviceType.CPU
+                  and e.name.startswith("stage:")]
+        idle = innermost_idle(gaps, stages)
+        window_us = end - start
+        top_ops = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:5]
+        top_idle = sorted(idle.items(), key=lambda kv: -kv[1])[:5]
+        print(f"# phase 6 ({smi}): trace of {nfwd} {path} forwards: "
+              f"wall {wall_ms:.2f} ms traced, {plain_ms:.2f} ms untraced; "
+              f"traced window {window_us / 1e3:.2f} ms, device busy "
+              f"{busy_us / 1e3:.2f} ms = {busy_us / window_us:.3f} of it "
+              f"in {len(dev)} device operations")
+        print(f"# phase 6: {path}: device operations: " + "; ".join(
+            f"{name[:60]} {us / 1e3:.3f} ms x{n}"
+            for name, (n, us) in top_ops))
+        print(f"# phase 6: {path}: device idle by forward span: "
+              + "; ".join(f"{label} {us / 1e3:.2f} ms"
+                          for label, us in top_idle))
+        check(0.0 < busy_us <= window_us, f"trace {path}: busy time "
+              f"{busy_us} us outside the window {window_us} us")
 
 
 def cli_run(argv: list[str], kernels) -> dict:
